@@ -9,9 +9,10 @@ them. Phases, each of which must pass:
   device   the card's name and power limit; TF32 switched off for f32 math
   build    every kernel source under omgsr_tpu_torch/csrc is compiled
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card at the shapes the serving path gives it (tolerances below),
-           with its time, the plain version's, one library call's and the
-           card's bound for the same work
+           card at the shapes the serving and training paths give it
+           (tolerances below), with its time, the plain version's, one library
+           call's and the card's bound for the same work; the backward
+           kernels are also run twice and must give the same bits
   serve    OMGSR-S one-step serving at full SD2.1 width (random weights
            from a seed, bf16): an SRServer built by cli.serve.build_server
            answers four 512x512 requests and one 768x768 request (tiled
@@ -21,6 +22,13 @@ them. Phases, each of which must pass:
            their plain versions
   timings  per-request latency and the VAE-encode / UNet / VAE-decode split;
            with --profile also kernel time by name and each stage's idle share
+  train    OMGSR-S LoRA-GAN training at full width (SD2.1 VAE + UNet,
+           ConvNeXt-L, 512x512, batch 1, LoRA ranks 16/32, bf16, weights from
+           a seed): cli.train_omgsr_s.run_training takes 2 optimizer steps at
+           gradient accumulation 2 on synthetic pairs; metrics, launch counts,
+           the accumulation boundary and the frozen weights are checked, one
+           micro-step is repeated with the kernels routed to their plain
+           versions, and one is timed stage by stage
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -31,9 +39,11 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -42,15 +52,22 @@ import torch
 import torch.nn.functional as F
 
 from omgsr_tpu_torch.cli import serve as serve_cli
-from omgsr_tpu_torch.convert.params import init_unet, init_vae
+from omgsr_tpu_torch.cli import train_omgsr_s as train_cli
+from omgsr_tpu_torch.config import TrainConfig
+from omgsr_tpu_torch.convert.params import init_convnext, init_unet, init_vae
 from omgsr_tpu_torch.diffusion.tiling import tile_grid_2d
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
 from omgsr_tpu_torch.inference.tiled import auto_tile_batch
-from omgsr_tpu_torch.models.configs import SD21_UNET, SD21_VAE
+from omgsr_tpu_torch.losses.dists import init_dists
+from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.models.layers import count_params
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
+from omgsr_tpu_torch.training.optim import global_norm
+from omgsr_tpu_torch.training.trainer import grads_of, draw_step_noise
+from omgsr_tpu_torch.utils.tree import flatten_dict
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -77,6 +94,13 @@ MAX_MEAN_STEPS = 6.0
 MAX_STAGE_REL_L2 = 0.05
 TOL_LSE = 1e-3
 TOL_SUMS_REL = 1e-4
+# training, kernels against plain versions, one micro-step in bf16 at full
+# depth with random weights: relative difference of each loss (means over
+# an image or a logit map, which average the per-element bf16 differences
+# away), and of the generator's gradient norm (a sum over every LoRA leaf of
+# gradients that passed through all ~200 layers twice)
+MAX_LOSS_REL = 1e-3
+MAX_GRAD_NORM_REL = 0.02
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -254,6 +278,127 @@ def check_group_norm(shape, groups, dtype, seed):
     return stats, apply
 
 
+BWD_SHAPES = [
+    # (B, Sq, H, D), Skv, dtype, on the training path?, packed q/k/v and a non-contiguous dO?
+    ((1, 4096, 5, 64), 4096, torch.bfloat16, True, False),
+    ((1, 4096, 5, 64), 77, torch.bfloat16, True, False),
+    ((1, 1024, 10, 64), 1024, torch.bfloat16, True, False),
+    ((1, 1024, 10, 64), 77, torch.bfloat16, True, False),
+    ((1, 256, 20, 64), 256, torch.bfloat16, True, False),
+    ((1, 64, 20, 64), 77, torch.bfloat16, True, False),
+    ((2, 300, 3, 64), 300, torch.bfloat16, False, True),
+    ((2, 300, 1, 64), 300, torch.float32, False, False),
+    ((1, 4608, 24, 128), 4608, torch.bfloat16, False, False),  # the -F training shape
+]
+
+
+def check_flash_bwd(shape, skv, dtype, seed, packed=False):
+    """K2a and K2b against the plain backward, each also alone against its
+    half of it, twice for bit-identity, and timed one by one."""
+    b, sq, h, d = shape
+    if packed:
+        q, k, v = randn((b, sq, 3, h, d), dtype, seed).unbind(2)
+        dout = randn((b, h, sq, d), dtype, seed + 3).permute(0, 2, 1, 3)  # as autograd may hand it over
+        assert not dout.is_contiguous() and FA._kernel_operand(dout) is dout
+    else:
+        q = randn(shape, dtype, seed)
+        k = randn((b, skv, h, d), dtype, seed + 1)
+        v = randn((b, skv, h, d), dtype, seed + 2)
+        dout = randn(shape, dtype, seed + 3)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = FA.flash_attention(q, k, v, return_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    ref = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    errs, scaled = {}, {}
+    for name, a, a2, r, like in zip(names, got, again, ref, (q, k, v)):
+        assert a.shape == like.shape and a.dtype == dtype and torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), f"flash_attention_bwd {name} {shape} kv {skv}: two runs differ"
+        errs[name] = errors(a, r)[0]
+        scaled[name] = errs[name] / r.float().abs().max().item()
+        assert scaled[name] <= TOL[dtype], \
+            f"flash_attention_bwd {name} {shape} kv {skv} {dtype}: scaled err {scaled[name]}"
+    # through autograd: the same kernels, the same bits
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(FA.flash_attention(*leaves), leaves, dout)
+    assert all(torch.equal(a, g) for a, g in zip(auto, got)), "autograd path differs from the wrapper"
+
+    ops = [FA._kernel_operand(t) for t in (q, k, v, out, dout)]
+    qo, ko, vo, oo, go = ops
+    lse2 = lse.contiguous()
+    _, delta = FA._launch_dq(qo, ko, vo, oo, lse2, go, scale)
+    gh, qh, kh, vh = (t.detach().permute(0, 2, 1, 3) for t in (dout, q, k, v))
+    lib = [t.clone().requires_grad_() for t in (qh, kh, vh)]
+    lib_out = F.scaled_dot_product_attention(*lib)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib, gh, retain_graph=True), iters=10)
+    es = q.element_size()
+    work = b * h * sq * skv * d
+    small = lse.numel() * 4
+    rows = {}
+    for name, mult, nbytes, fn, plain in (
+        ("flash_attention_bwd_dq", 6.0,
+         (3 * q.numel() + 2 * k.numel() + q.numel()) * es + 2 * small,  # q, out, dO, k, v in; dq out
+         lambda: FA._launch_dq(qo, ko, vo, oo, lse2, go, scale),
+         lambda: FA.flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, scale)),
+        ("flash_attention_bwd_dkv", 8.0,
+         (2 * q.numel() + 2 * k.numel() + 2 * k.numel()) * es + 2 * small,  # q, dO, k, v in; dk, dv out
+         lambda: FA._launch_dkv(qo, ko, vo, lse2, delta, go, scale),
+         lambda: FA.flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, scale)),
+    ):
+        t_flops, t_bytes = mult * work / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+        part = ("dq",) if name.endswith("dq") else ("dk", "dv")
+        rows[name] = {
+            "shape": f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + (" packed qkv, strided dO" if packed else ""),
+            "max_abs_err": max(errs[n] for n in part),
+            "max_err_over_max_ref": max(scaled[n] for n in part),
+            "bit_identical_twice": True,
+            "ms": time_ms(fn, iters=10),
+            "plain_ms": time_ms(plain, iters=10),
+            "library_ms": library_ms,
+            "library_covers": "dq+dk+dv (scaled_dot_product_attention backward)",
+            "bound_ms": max(t_flops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        }
+    # the pair against the least work for all three gradients: five products
+    pair_bytes = (3 * q.numel() + 4 * k.numel() + q.numel()) * es
+    pair = max(10.0 * work / PEAK_FLOPS[dtype], pair_bytes / PEAK_BYTES_PER_S) * 1e3
+    for r in rows.values():
+        r["pair_bound_ms"] = pair
+    return rows
+
+
+def check_group_norm_bwd(shape, groups, dtype, seed):
+    """The GroupNorm+SiLU autograd function (kernels forward, tensor-code
+    backward) against autograd through the plain version."""
+    c = shape[-1]
+    x = randn(shape, dtype, seed) * 2 + 0.5
+    weight = randn((c,), dtype, seed + 1) * 0.1 + 1
+    bias = randn((c,), dtype, seed + 2) * 0.1
+    dy = randn(shape, dtype, seed + 3)
+    a = [t.clone().requires_grad_() for t in (x, weight, bias)]
+    r = [t.clone().requires_grad_() for t in (x, weight, bias)]
+    before = (GN.stats_launches.count, GN.apply_launches.count)
+    y = GN.fused_group_norm_silu(*a, groups, 1e-6)
+    assert (GN.stats_launches.count, GN.apply_launches.count) == (before[0] + 1, before[1] + 1)
+    got = torch.autograd.grad(y, a, dy, retain_graph=True)
+    y_ref = GN.group_norm_silu_plain(*r, groups, 1e-6)
+    ref = torch.autograd.grad(y_ref, r, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    scaled = {}
+    for name, g, want in zip(("dx", "dweight", "dbias"), got, ref):
+        assert g.shape == want.shape and g.dtype == want.dtype and torch.isfinite(g.float()).all()
+        scaled[name] = errors(g, want)[0] / want.float().abs().max().item()
+        assert scaled[name] <= TOL[dtype], f"group_norm_silu backward {name} {shape}: scaled err {scaled[name]}"
+    ms = time_ms(lambda: torch.autograd.grad(y, a, dy, retain_graph=True), iters=10)
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_ref, r, dy, retain_graph=True), iters=10)
+    print(f"kernels: group_norm_silu backward (tensor code) x{list(shape)} {str(dtype)[6:]}: err over max "
+          f"|plain| dx {scaled['dx']:.3g} dweight {scaled['dweight']:.3g} dbias {scaled['dbias']:.3g} "
+          f"(bound {TOL[dtype]:.3g}); {ms:.4f} ms, autograd through plain {plain_ms:.4f} ms", flush=True)
+
+
 def check_refusals():
     """On the card a wrapper launches its kernel or raises: a dtype or head dim
     the kernels do not take is refused, through the model's dispatch too, and
@@ -298,7 +443,20 @@ def phase_kernels():
             print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
                   f"bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
-    return {"flash_attention_fwd": flash, "group_norm_stats": gn_stats, "group_norm_apply": gn_apply}
+    bwd = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for i, (shape, skv, dtype, on_path, packed) in enumerate(BWD_SHAPES):
+        for name, r in check_flash_bwd(shape, skv, dtype, 400 + 10 * i, packed).items():
+            r["on_training_path"] = on_path
+            bwd[name].append(r)
+            print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g} "
+                  f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[dtype]:.3g}), two runs "
+                  f"bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library (dq+dk+dv) "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']}), pair bound "
+                  f"{r['pair_bound_ms']:.5f}", flush=True)
+    check_group_norm_bwd((1, 512, 512, 128), 32, torch.bfloat16, 600)
+    check_group_norm_bwd((1, 64, 64, 320), 32, torch.bfloat16, 610)
+    return {"flash_attention_fwd": flash, "group_norm_stats": gn_stats, "group_norm_apply": gn_apply,
+            **bwd}
 
 
 # ----------------------------------------------------------------------------
@@ -357,8 +515,7 @@ def run_clients(server, jobs):
     return outs
 
 
-def phase_serve(card, profile=False):
-    dtype = torch.bfloat16
+def init_sd21(dtype):
     t0 = time.perf_counter()
     vae_params = init_vae(0, SD21_VAE, dtype, "cuda")
     unet_params = init_unet(1, SD21_UNET, dtype, "cuda")
@@ -367,6 +524,11 @@ def phase_serve(card, profile=False):
     print(f"serve: SD2.1 UNet {n_unet / 1e6:.1f}M + VAE {n_vae / 1e6:.1f}M parameters, bf16, "
           f"from seeds, in {time.perf_counter() - t0:.1f} s", flush=True)
     assert abs(n_unet / 1e6 - 865.9) < 0.1 and abs(n_vae / 1e6 - 83.7) < 0.1
+    return vae_params, unet_params
+
+
+def phase_serve(card, vae_params, unet_params, profile=False):
+    dtype = torch.bfloat16
     rng = np.random.default_rng(2)
     prompt = rng.standard_normal((1, 77, 1024)).astype(np.float32)
 
@@ -550,12 +712,303 @@ def phase_http(server, small_u8):
 
 
 # ----------------------------------------------------------------------------
+# phase: train
+# ----------------------------------------------------------------------------
+
+ALL_COUNTERS = (FA.launches, FA.dq_launches, FA.dkv_launches, GN.stats_launches, GN.apply_launches)
+LOSSES = ("loss_LRR", "loss_Dv3D", "loss_L1", "loss_G", "loss_D_fake", "loss_D_real")
+METRICS = LOSSES + ("loss_total_G", "loss_total_D", "grad_norm_G", "grad_norm_D")
+
+
+def reset_counts():
+    for c in ALL_COUNTERS:
+        c.reset()
+
+
+def read_counts():
+    return {c.name: c.count for c in ALL_COUNTERS}
+
+
+def micro_step_counts(vae_cfg, unet_cfg):
+    """Kernel launches of one training micro-step, read off the structure:
+    two VAE encodes (hq frozen, lq with LoRA), one UNet call, one decode;
+    every flash forward under autograd has one dQ and one dK/dV launch."""
+    per = structure_counts(vae_cfg, unet_cfg)
+    flash = 2 * per["encode"][0] + per["unet"][0] + per["decode"][0]
+    gn = 2 * per["encode"][1] + per["unet"][1] + per["decode"][1]
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "group_norm_stats": gn, "group_norm_apply": gn}
+
+
+def evaluate_micro_step(trainer, batch, noise):
+    """The ten metrics of one micro-step on the trainer's current state,
+    computed as train_step computes them but without any update."""
+    state, frozen = trainer.state, trainer.frozen
+    lora, heads = state["gen"]["lora"], state["disc"]["params"]
+    g_total, (g_metrics, pred) = trainer._gen_loss(lora, batch, noise, frozen, heads, state["disc"]["sn"])
+    g_grads = grads_of(g_total, lora)
+    d_total, (_, d_metrics) = trainer._disc_loss(heads, state["disc"]["sn"], pred.detach(), batch["hq"],
+                                                 noise, frozen)
+    d_grads = grads_of(d_total, heads)
+    out = {"loss_total_G": g_total, "loss_total_D": d_total, **g_metrics, **d_metrics,
+           "grad_norm_G": global_norm(g_grads), "grad_norm_D": global_norm(d_grads)}
+    return {k: float(v.detach()) for k, v in out.items()}
+
+
+def timed_micro_step(trainer, batch, noise):
+    """One real micro-step (state is updated) with a CUDA event between its
+    stages; returns {stage: ms} and the host's enqueue time of the step."""
+    state, frozen = trainer.state, trainer.frozen
+    lora, heads = state["gen"]["lora"], state["disc"]["params"]
+    marks = [("start", torch.cuda.Event(enable_timing=True))]
+    host = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+        host.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0][1].record()
+    g_total, (_, pred) = trainer._gen_loss(lora, batch, noise, frozen, heads, state["disc"]["sn"])
+    mark("G forward")
+    g_grads = grads_of(g_total, lora)
+    mark("G backward")
+    fake = pred.detach()
+    del pred, g_total
+    trainer.gen_tx.update(g_grads, state["gen"]["opt"], lora)
+    mark("G optimizer")
+    d_total, (sn, _) = trainer._disc_loss(heads, state["disc"]["sn"], fake, batch["hq"], noise, frozen)
+    mark("D forward")
+    d_grads = grads_of(d_total, heads)
+    mark("D backward")
+    trainer.disc_tx.update(d_grads, state["disc"]["opt"], heads)
+    mark("D optimizer")
+    state["disc"]["sn"] = sn
+    state["step"] += 1
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    device = {name: marks[i][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks[1:])}
+    host_ms = {name: (t - prev) * 1e3 for (name, _), t, prev in zip(marks[1:], host, [t0] + host)}
+    return device, host_ms, enqueue_ms
+
+
+def snapshot(tree):
+    return {p: v.detach().clone() for p, v in flatten_dict(tree).items()}
+
+
+def moved(tree, before):
+    return any(not torch.equal(v.detach(), before[p]) for p, v in flatten_dict(tree).items())
+
+
+def phase_train(card, vae_params, unet_params, profile=False):
+    dtype = torch.bfloat16
+    t0 = time.perf_counter()
+    cn_cfg = CONVNEXT_SIZES["large"]
+    backbone = init_convnext(2, cn_cfg, dtype, "cuda")
+    rng = np.random.default_rng(3)
+    frozen = {
+        "vae": vae_params, "vae_cfg": SD21_VAE, "unet": unet_params, "unet_cfg": SD21_UNET,
+        "backbone": backbone, "dists": init_dists(backbone, cn_cfg.dims),
+        "prompt_embeds": torch.from_numpy(rng.standard_normal((1, 77, 1024)).astype(np.float32)).to("cuda", dtype),
+    }
+    torch.cuda.synchronize()
+    print(f"train: ConvNeXt-L {count_params(backbone) / 1e6:.1f}M parameters from a seed in "
+          f"{time.perf_counter() - t0:.1f} s; frozen bundle "
+          f"{sum(count_params(frozen[k]) for k in ('vae', 'unet', 'backbone')) * 2 / 1e9:.2f} GB in bf16", flush=True)
+    frozen_before = {k: snapshot(frozen[k]) for k in ("vae", "unet", "backbone")}
+
+    def pair(seed):
+        r = np.random.default_rng(seed)
+        hq = np.tanh(r.standard_normal((1, 512, 512, 3))).astype(np.float32)
+        lq = np.clip(hq + 0.2 * r.standard_normal(hq.shape).astype(np.float32), -1, 1)
+        return {"lq": lq, "hq": hq}
+
+    loader = [pair(10 + i) for i in range(4)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = TrainConfig(
+            output_dir=out_dir, resolution=512, train_batch_size=1, vae_lora_rank=16, unet_lora_rank=32,
+            mixed_precision="bf16", gradient_accumulation_steps=2, max_train_steps=2, lr_warmup_steps=0,
+            checkpointing_steps=1000, save_img_steps=1000, seed=123,
+            extra={"disc_channels": list(cn_cfg.dims[:3]), "metrics_jsonl": f"{out_dir}/metrics.jsonl"},
+        )
+        expect = micro_step_counts(SD21_VAE, SD21_UNET)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lines = [json.loads(l) for l in open(f"{out_dir}/metrics.jsonl")]
+        ckpt = latest_checkpoint(out_dir)
+        assert ckpt is not None and ckpt.endswith("checkpoint-2.pt"), ckpt
+    n_lora = sum(v.numel() for v in flatten_dict(trainer.state["gen"]["lora"]).values())
+    n_heads = sum(v.numel() for v in flatten_dict(trainer.state["disc"]["params"]).values())
+    print(f"train: run_training took 2 optimizer steps (4 micro-steps) in {wall:.2f} s; trainable "
+          f"LoRA {n_lora / 1e6:.2f}M + heads {n_heads / 1e6:.2f}M; launches {counts}; one micro-step's "
+          f"structure predicts {expect}", flush=True)
+    assert trainer.state["step"] == 4 and trainer.state["gen"]["opt"]["count"] == 2
+    assert [l["step"] for l in lines] == [1, 2], lines
+    for l in lines:
+        print(f"train: optimizer step {l['step']}: " + " ".join(f"{k}={l[k]:.4f}" for k in METRICS), flush=True)
+        assert all(math.isfinite(l[k]) for k in METRICS), l
+    assert expect["flash_attention_fwd"] == 32, expect
+    for name, n in expect.items():
+        assert counts[name] == 4 * n, (name, counts[name], 4 * n)
+
+    # the accumulation boundary: nothing moves on the first micro-step of a window
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [{k: torch.from_numpy(v).to("cuda", dtype) for k, v in b.items()} for b in loader]
+    latent_shape = (1, 64, 64, 4)
+
+    def noise():
+        return draw_step_noise(gen, (1, 512, 512, 3), latent_shape, "cuda", dtype)
+
+    lora0 = snapshot(trainer.state["gen"]["lora"])
+    heads0 = snapshot(trainer.state["disc"]["params"])
+    u0 = snapshot(trainer.state["disc"]["sn"])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m1, pred = trainer.train_step(batches[0], noise())
+    torch.cuda.synchronize()
+    step_s = [time.perf_counter() - t0]
+    one = read_counts()
+    peak_step = torch.cuda.max_memory_allocated()
+    assert one == expect, (one, expect)
+    assert pred.shape == (1, 512, 512, 3) and torch.isfinite(pred.float()).all()
+    assert pred.abs().max() <= 1.0 and pred.float().std() > 1e-3
+    assert not moved(trainer.state["gen"]["lora"], lora0), "LoRA leaves moved inside an accumulation window"
+    assert not moved(trainer.state["disc"]["params"], heads0), "heads moved inside an accumulation window"
+    assert moved(trainer.state["disc"]["sn"], u0), "spectral-norm u did not advance"
+    t0 = time.perf_counter()
+    m2, _ = trainer.train_step(batches[1], noise())
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t0)
+    assert moved(trainer.state["gen"]["lora"], lora0), "LoRA leaves did not move at the accumulation boundary"
+    assert moved(trainer.state["disc"]["params"], heads0), "heads did not move at the accumulation boundary"
+    for m in (m1, m2):
+        assert all(math.isfinite(float(m[k])) for k in METRICS), m
+    for k in ("vae", "unet", "backbone"):
+        assert not moved(frozen[k], frozen_before[k]), f"frozen {k} changed"
+        assert all(v.grad is None for v in flatten_dict(frozen[k]).values())
+    print(f"train: micro-step launches {one}; LoRA and heads unchanged after the first micro-step of a "
+          f"window and changed after the second; u advanced; frozen VAE/UNet/ConvNeXt bit-unchanged", flush=True)
+
+    # one micro-step with the kernels against the same one with their plain versions
+    nz = noise()
+    with_kernels = evaluate_micro_step(trainer, batches[2], nz)
+    again = evaluate_micro_step(trainer, batches[2], nz)
+    with route_kernels_to_plain():
+        plain = evaluate_micro_step(trainer, batches[2], nz)
+    rel = {k: abs(with_kernels[k] - plain[k]) / max(abs(plain[k]), 1e-6) for k in METRICS}
+    rerun = {k: abs(with_kernels[k] - again[k]) / max(abs(again[k]), 1e-6) for k in METRICS}
+    print("train: kernels vs plain versions, one micro-step, relative difference: "
+          + " ".join(f"{k}={rel[k]:.3g}" for k in METRICS)
+          + f" (bounds: losses {MAX_LOSS_REL}, grad_norm_G {MAX_GRAD_NORM_REL}); the same micro-step twice "
+          f"with kernels: max {max(rerun.values()):.3g}", flush=True)
+    for k in LOSSES:
+        assert rel[k] <= MAX_LOSS_REL, (k, with_kernels[k], plain[k])
+    assert rel["grad_norm_G"] <= MAX_GRAD_NORM_REL, (with_kernels["grad_norm_G"], plain["grad_norm_G"])
+
+    # timings
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batches[(2 + i) % 4], noise())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    # two consecutive micro-steps: the first of an accumulation window only folds its gradients
+    # into the running mean, the second also clips and applies the update
+    assert trainer.state["gen"]["opt"]["mini_step"] == 0
+    timed = [timed_micro_step(trainer, batches[i], noise()) for i in range(2)]
+    s_per = statistics.median(step_s[1:])
+    print(f"timings: training micro-step {s_per:.4f} s (median of {len(step_s) - 1}, host clock to "
+          f"synchronize; first after run_training {step_s[0]:.4f} s); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB in run_training, {peak_step / 2**30:.2f} GiB in one micro-step [{card}]",
+          flush=True)
+    for what, (stages, host_ms, enqueue_ms) in zip(("accumulating", "applying the update"), timed):
+        g_ms = sum(v for k, v in stages.items() if k.startswith("G"))
+        d_ms = sum(v for k, v in stages.items() if k.startswith("D"))
+        print(f"timings: micro-step {what}, by stage, device ms (host enqueue ms): "
+              + ", ".join(f"{k} {v:.2f} ({host_ms[k]:.2f})" for k, v in stages.items())
+              + f"; G {g_ms:.2f} / D {d_ms:.2f}; host enqueue of the step {enqueue_ms:.2f} ms [{card}]",
+              flush=True)
+    if profile:
+        profile_micro_step(trainer, batches[1], noise(), sum(timed[0][0].values()), card)
+    timings = {"train_micro_step_s": s_per, "train_G_ms": g_ms, "train_D_ms": d_ms,
+               "train_host_enqueue_ms": enqueue_ms, "train_peak_memory_GiB": peak / 2**30,
+               **{f"train_{k.replace(' ', '_')}_ms": v for k, v in stages.items()}}
+    return counts, timings
+
+
+def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
+    """With --profile: kernel time by name over one micro-step, and the idle
+    share of the step (1 - busy / elapsed without the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch.profiler import record_function
+
+    # the GroupNorm+SiLU backward is tensor code: give it a named range, so
+    # that the device time of the kernels it launches can be read off
+    real_bwd = GN.group_norm_silu_bwd
+
+    def ranged_bwd(*a, **kw):
+        with record_function("group_norm_silu_bwd (tensor code)"):
+            return real_bwd(*a, **kw)
+
+    GN.group_norm_silu_bwd = ranged_bwd
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(batch, noise)
+            torch.cuda.synchronize()
+    finally:
+        GN.group_norm_silu_bwd = real_bwd
+    by_kernel, busy_us = {}, 0.0
+    for e in prof.key_averages():
+        if e.key.startswith("group_norm_silu_bwd"):
+            # the range shows up once per side; the host side's device time
+            # is the sum over the kernels launched inside it
+            if e.device_type != DeviceType.CUDA:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = e.cuda_time_total
+                print(f"profile: train {e.key}: {e.count} calls, {us / 1e3:.3f} ms of device time in "
+                      f"the kernels they launched", flush=True)
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        busy_us += us
+        by_kernel[e.key] = (e.count, us)
+    if busy_us == 0.0:
+        print("profile: training micro-step: the profiler recorded no device time", flush=True)
+        return
+    print(f"profile: training micro-step kernels busy {busy_us / 1e3:.3f} ms of {elapsed_ms:.3f} ms elapsed, "
+          f"idle share {1 - busy_us / 1e3 / elapsed_ms:.3f} [{card}]", flush=True)
+    for key, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:16]:
+        print(f"profile: train {us / 1e3:8.3f} ms {us / busy_us:6.1%} {n:5d} x {key[:100]}", flush=True)
+
+# ----------------------------------------------------------------------------
 
 
 KERNELS = [
     # name (also its launch counter's), source, the TPU kernel it replaces
     ("flash_attention_fwd", "omgsr_tpu_torch/csrc/flash_attention_fwd.cu",
      "omgsr_tpu/ops/flash_attention.py:40"),
+    ("flash_attention_bwd_dq", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
+     "omgsr_tpu/ops/flash_attention.py:88"),
+    ("flash_attention_bwd_dkv", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
+     "omgsr_tpu/ops/flash_attention.py:127"),
     ("group_norm_stats", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
      "omgsr_tpu/ops/fused_groupnorm.py:38"),
     ("group_norm_apply", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
@@ -578,15 +1031,22 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     shapes = phase_kernels()
-    counts, timings = phase_serve(card, args.profile)
+    vae_params, unet_params = init_sd21(torch.bfloat16)
+    serve_counts, timings = phase_serve(card, vae_params, unet_params, args.profile)
+    train_counts, train_timings = phase_train(card, vae_params, unet_params, args.profile)
+    timings.update(train_timings)
 
     kernels = []
     for name, source, replaces in KERNELS:
-        head = shapes[name][0]  # the largest shape of the serving path
+        head = shapes[name][0]  # the largest shape of the serving and training paths
+        on_path = [r for r in shapes[name] if r.get("on_serving_path") or r.get("on_training_path")]
+        launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
+        assert launches_train > 0 and (launches_serve > 0 or "bwd" in name), (name, launches_serve)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in shapes[name] if r["on_serving_path"]),
+            "launches": launches_serve + launches_train,
+            "launches_serve": launches_serve, "launches_train": launches_train,
+            "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "shapes": shapes[name],

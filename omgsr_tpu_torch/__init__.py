@@ -9,7 +9,10 @@ hand for sm_90a (sources under ``csrc/``, built at first use into
 
 Ported so far: OMGSR-S one-step serving (SD2.1 VAE encode -> UNet epsilon at
 the mid-timestep -> x0 -> VAE decode -> clamp -> colour fix) behind the
-serving daemon. Entry points default to ``device="cuda"`` and raise when
+serving daemon, and OMGSR-S LoRA-GAN training (``cli.train_omgsr_s`` ->
+``training.trainer.TrainerS``: LoRA on the VAE encoder and the UNet, DISTS
+and the spectral-norm discriminator on a frozen ConvNeXt, AdamW inside
+gradient accumulation, full-state checkpoints). Entry points default to ``device="cuda"`` and raise when
 there is no CUDA device; pass ``device="cpu"`` to run the plain versions.
 """
 

@@ -4,11 +4,16 @@ The JAX package's parameter trees nest dicts by HF key paths with conv
 ``kernel`` HWIO, dense ``kernel`` (in, out) and norm ``scale``. The port
 keeps the key paths and stores every leaf in torch layout: conv ``weight``
 OIHW (kept in channels_last memory format, since activations are NHWC),
-dense ``weight`` (out, in), norm ``weight``. ``from_jax_tree`` converts a
-tree of numpy arrays; ``init_vae`` / ``init_unet`` build trees of the same
-structure from a seed (torch's default Linear/Conv2d distribution; the
-values differ from the JAX initialisers', so parity tests always carry the
-JAX weights across the bridge).
+dense ``weight`` (out, in), norm ``weight``. LoRA leaves follow the same
+rule: conv ``lora_A`` (kh,kw,in,r) -> (r,in,kh,kw), ``lora_B`` (1,1,r,out) ->
+(out,r,1,1), dense ``lora_A`` (in,r) -> (r,in), ``lora_B`` (r,out) -> (out,r);
+a depthwise kernel (kh,kw,1,C) becomes (C,1,kh,kw). ``from_jax_tree`` converts
+a tree of numpy arrays and ``to_jax_tree`` goes back (torch -> numpy in the
+JAX layout); ``init_vae`` / ``init_unet`` / ``init_convnext`` /
+``init_discriminator`` build trees of the same structure from a seed
+(torch's default Linear/Conv2d distribution; the values differ from the JAX
+initialisers', so parity tests always carry the JAX weights across the
+bridge).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from omgsr_tpu_torch.models.configs import UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import ConvNeXtConfig, UNetConfig, VAEConfig
 from omgsr_tpu_torch.utils.devices import resolve_device
 
 
@@ -33,6 +38,12 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
 
     def leaf(key, arr):
         t = torch.from_numpy(np.array(arr, copy=True))
+        if key in ("lora_A", "lora_B"):
+            if t.dim() == 4:
+                return key, _conv_weight(t.permute(3, 2, 0, 1).to(device=device, dtype=dtype))
+            if t.dim() == 2:
+                return key, t.t().contiguous().to(device=device, dtype=dtype)
+            raise ValueError(f"{key} of rank {t.dim()} has no torch layout here")
         if key == "kernel":
             if t.dim() == 4:  # HWIO -> OIHW
                 return "weight", _conv_weight(t.permute(3, 2, 0, 1).to(device=device, dtype=dtype))
@@ -56,17 +67,55 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
     return walk(tree)
 
 
+def to_jax_tree(tree):
+    """The way back: nested dict of tensors in the port's layout -> nested
+    dict of f32 numpy arrays in the JAX package's layout (``weight`` of rank 4
+    -> ``kernel`` HWIO, of rank 2 -> ``kernel`` (in, out), of rank 1 ->
+    ``scale``; LoRA leaves transposed back; everything else as it is)."""
+
+    def leaf(key, t):
+        a = t.detach().float().cpu()
+        if key in ("weight", "lora_A", "lora_B"):
+            name = "kernel" if key == "weight" else key
+            if a.dim() == 4:
+                return name, a.permute(2, 3, 1, 0).contiguous().numpy()
+            if a.dim() == 2:
+                return name, a.t().contiguous().numpy()
+            if key == "weight" and a.dim() == 1:
+                return "scale", a.numpy()
+            raise ValueError(f"{key} of rank {a.dim()} has no JAX layout here")
+        return key, a.numpy()
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                nk, a = leaf(k, v)
+                out[nk] = a
+        return out
+
+    return walk(tree)
+
+
 # ----------------------------------------------------------------------------
 # seed-based initialisers (torch-default: kaiming uniform, fan_in, a=sqrt(5))
 # ----------------------------------------------------------------------------
 
 
 class _Init:
-    def __init__(self, seed: int, dtype, device):
+    """Draws from ``seed``: an integer, or a torch.Generator that lives on
+    ``device`` and is advanced."""
+
+    def __init__(self, seed, dtype, device):
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        if isinstance(seed, torch.Generator):
+            self.gen = seed
+        else:
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
 
     def _uniform(self, shape, bound):
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
@@ -274,3 +323,67 @@ def init_unet(seed: int, cfg: UNetConfig, dtype=torch.float32, device="cuda"):
     params["conv_norm_out"] = it.norm(bo[0])
     params["conv_out"] = it.conv(3, 3, bo[0], cfg.out_channels)
     return params
+
+
+def _convnext_block(it: _Init, dim, ls_init):
+    return {
+        "dwconv": it.conv(7, 7, 1, dim),  # depthwise: (C, 1, 7, 7)
+        "norm": it.norm(dim),
+        "pwconv1": it.dense(dim, 4 * dim),
+        "pwconv2": it.dense(4 * dim, dim),
+        "gamma": torch.full((dim,), ls_init, dtype=it.dtype, device=it.device),
+    }
+
+
+def init_convnext(seed, cfg: ConvNeXtConfig, dtype=torch.float32, device="cuda", num_stages: int = 4):
+    """Random DINOv3-ConvNeXt parameters with the torch module tree's paths
+    (downsample_layers.0.0, stages.2.5.dwconv, ...)."""
+    it = _Init(seed, dtype, device)
+    dims = list(cfg.dims)
+    params = {"downsample_layers": {}, "stages": {}}
+    # stem: conv 4x4/s4 + channels-first LN
+    params["downsample_layers"]["0"] = {"0": it.conv(4, 4, 3, dims[0]), "1": it.norm(dims[0])}
+    for i in range(1, num_stages):
+        params["downsample_layers"][str(i)] = {
+            "0": it.norm(dims[i - 1]),
+            "1": it.conv(2, 2, dims[i - 1], dims[i]),
+        }
+    for i in range(num_stages):
+        params["stages"][str(i)] = {
+            str(j): _convnext_block(it, dims[i], cfg.layer_scale_init_value)
+            for j in range(cfg.depths[i])
+        }
+    return params
+
+
+def init_discriminator(seed, channels, resolution: int = 512, dtype=torch.float32, device="cuda",
+                       configs=None):
+    """channels: first-3-stage ConvNeXt dims, e.g. (192, 384, 768) for large.
+
+    Returns (params, sn_state, strides_meta): trainable head params,
+    spectral-norm u vectors (f32 standard normals), per-level stride lists.
+    ``configs`` overrides the resolution-keyed head depth (tiny shapes)."""
+    from omgsr_tpu_torch.losses.discriminator import _head_configs
+
+    it = _Init(seed, dtype, device)
+
+    def u_vector(n):
+        return torch.randn((n,), generator=it.gen, device=it.device, dtype=torch.float32)
+
+    params = {"decoders": {}}
+    sn_state = {"decoders": {}}
+    cfgs = configs if configs is not None else _head_configs(resolution)
+    for li, (ch, (ratios, strides)) in enumerate(zip(channels, cfgs)):
+        layers, ulayers = {}, {}
+        cur = ch
+        for j, ratio in enumerate(ratios):
+            out = int(cur * ratio)
+            layers[str(j)] = it.conv(3, 3, cur, out)
+            ulayers[str(j)] = {"u": u_vector(out)}
+            cur = out
+        layers["final"] = it.conv(1, 1, cur, 1)
+        ulayers["final"] = {"u": u_vector(1)}
+        params["decoders"][str(li)] = layers
+        sn_state["decoders"][str(li)] = ulayers
+    meta = {str(li): list(cfgs[li][1]) for li in range(len(channels))}
+    return params, sn_state, meta

@@ -32,7 +32,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace omgsr_mma;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
@@ -263,52 +267,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 // bytes = 18,432 (D=64) or 34,816 (D=128).
 // ----------------------------------------------------------------------------
 
-constexpr int MMA_NT = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 64 rows x D bf16 from global (row stride in elements) to shared [64][D+8];
-// rows >= rows_valid become 0.
-template <int D>
-__device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int64_t row_stride, int rows_valid) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += MMA_NT) {
-    const int r = idx / VPR;
-    const int v = idx % VPR;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) raw = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + v * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + v * 8) = raw;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -339,20 +297,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
 
   // Q fragments of this warp's 16 rows, straight from global memory
   uint32_t qf[KS][4];
-  {
-    const __nv_bfloat16* q_base = q + b * q_sb + h * q_sh;
-    const int r_lo = q0 + g, r_hi = q0 + g + 8;
-    const __nv_bfloat16* p_lo = q_base + (int64_t)r_lo * q_ss;
-    const __nv_bfloat16* p_hi = q_base + (int64_t)r_hi * q_ss;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int c = ks * 16 + tig * 2;
-      qf[ks][0] = r_lo < Sq ? *reinterpret_cast<const uint32_t*>(p_lo + c) : 0u;
-      qf[ks][1] = r_hi < Sq ? *reinterpret_cast<const uint32_t*>(p_hi + c) : 0u;
-      qf[ks][2] = r_lo < Sq ? *reinterpret_cast<const uint32_t*>(p_lo + c + 8) : 0u;
-      qf[ks][3] = r_hi < Sq ? *reinterpret_cast<const uint32_t*>(p_hi + c + 8) : 0u;
-    }
-  }
+  load_a_fragments<KS>(qf, q + b * q_sb + h * q_sh, q_ss, q0, Sq, g, tig);
 
   float acc[NO][4];
 #pragma unroll

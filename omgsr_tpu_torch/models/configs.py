@@ -1,9 +1,11 @@
-"""Model architecture configs of the ported slice (SD2.1 VAE and UNet).
+"""Model architecture configs of the ported slices (SD2.1 VAE and UNet, DINOv3
+ConvNeXt).
 
 Values mirror the HF checkpoint configs of
 stabilityai/stable-diffusion-2-1-base (vae/unet). The port keeps its own
-copy of these dataclasses; the FLUX, text-encoder and ConvNeXt configs
-arrive with the slices that need them.
+copy of these dataclasses; the FLUX and text-encoder configs arrive with the
+slices that need them. ConvNeXt sizes follow
+dinov3/models/convnext.py:309-326.
 """
 
 from __future__ import annotations
@@ -66,3 +68,18 @@ class UNetConfig:
 
 
 SD21_UNET = UNetConfig()
+
+
+@dataclass(frozen=True)
+class ConvNeXtConfig:
+    depths: Sequence[int] = (3, 3, 27, 3)
+    dims: Sequence[int] = (192, 384, 768, 1536)
+    layer_scale_init_value: float = 1e-6
+
+
+CONVNEXT_SIZES = {
+    "tiny": ConvNeXtConfig(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)),
+    "small": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(96, 192, 384, 768)),
+    "base": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024)),
+    "large": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(192, 384, 768, 1536)),
+}

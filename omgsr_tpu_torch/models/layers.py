@@ -22,7 +22,16 @@ from omgsr_tpu_torch.ops.fused_groupnorm import fused_group_norm_silu
 
 
 def dense(p, x):
-    return F.linear(x, p["weight"], p.get("bias"))
+    """x @ weight^T [+ (x @ A^T) @ B^T] [+ bias]; the low-rank term (scaling
+    1.0, alpha == rank; see lora/lora.py) is added when the module dict
+    carries ``lora_A`` (r, in) and ``lora_B`` (out, r)."""
+    if "lora_A" not in p:
+        return F.linear(x, p["weight"], p.get("bias"))
+    y = F.linear(x, p["weight"])
+    y = y + F.linear(F.linear(x, p["lora_A"].to(x.dtype)), p["lora_B"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
 
 
 def _same_padding(size: int, k: int, stride: int):
@@ -30,8 +39,11 @@ def _same_padding(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def conv2d(p, x, stride: int | tuple = 1, padding="SAME"):
-    """NHWC conv. padding: "SAME", "VALID", int, or ((t,b),(l,r))."""
+def conv2d(p, x, stride: int | tuple = 1, padding="SAME", groups: int = 1):
+    """NHWC conv. padding: "SAME", "VALID", int, or ((t,b),(l,r)). With
+    ``lora_A`` (r, in, kh, kw) and ``lora_B`` (out, r, 1, 1) in the module
+    dict, the low-rank term is a conv with A at the base geometry followed by
+    a 1x1 conv with B (peft's Conv2d LoRA)."""
     if isinstance(stride, int):
         stride = (stride, stride)
     w = p["weight"]
@@ -51,8 +63,20 @@ def conv2d(p, x, stride: int | tuple = 1, padding="SAME"):
     else:
         xc = F.pad(xc, (pl, pr, pt, pb))
         pad = 0
-    y = F.conv2d(xc, w, p.get("bias"), stride=stride, padding=pad)
+    if "lora_A" not in p:
+        y = F.conv2d(xc, w, p.get("bias"), stride=stride, padding=pad, groups=groups)
+        return y.permute(0, 2, 3, 1)
+    y = F.conv2d(xc, w, stride=stride, padding=pad, groups=groups)
+    h = F.conv2d(xc, p["lora_A"].to(x.dtype), stride=stride, padding=pad, groups=groups)
+    y = y + F.conv2d(h, p["lora_B"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"][None, :, None, None]
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d(p, x, padding):
+    """Depthwise NHWC conv; weight (C, 1, kh, kw)."""
+    return conv2d(p, x, padding=padding, groups=x.shape[-1])
 
 
 def group_norm(p, x, num_groups: int = 32, eps: float = 1e-6):
@@ -117,7 +141,8 @@ def nearest_upsample_2x(x):
 
 
 def upsample_conv_2x(p, x):
-    """nearest_upsample_2x followed by a 3x3 SAME conv (diffusers Upsample2D)."""
+    """nearest_upsample_2x followed by a 3x3 SAME conv (diffusers Upsample2D);
+    a LoRA-adapted upsampler ("conv" is a LoRA target) goes the same way."""
     return conv2d(p, nearest_upsample_2x(x), padding=1)
 
 

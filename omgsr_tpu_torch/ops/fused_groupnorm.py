@@ -13,7 +13,11 @@ the TPU's sequential accumulating grid axis by per-chunk partial sums that
 the apply kernel adds in a fixed order. There are no atomics: the same input
 gives the same bits on every run.
 
-No backward yet: the wrapper refuses inputs that require grad on CUDA.
+Under autograd ``fused_group_norm_silu`` is a ``torch.autograd.Function``: the
+forward launches the two kernels as above and saves x, the partial sums and
+the affine parameters; the backward is explicit f32 tensor code from those
+(``group_norm_silu_bwd``), not a kernel: the JAX package trains through its
+plain ``group_norm`` and has no backward kernel to port.
 """
 
 from __future__ import annotations
@@ -37,17 +41,22 @@ stats_launches = LaunchCounter("group_norm_stats")
 apply_launches = LaunchCounter("group_norm_apply")
 
 
+def _wide(t):
+    """t in the type the sums are taken in: f32, or f64 for f64 input."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def group_norm_silu_plain(x, weight, bias, groups: int = 32, eps: float = 1e-6, apply_silu: bool = True):
     """x (B, H, W, C) -> [silu](group_norm(x)), statistics in f32 over H, W
     and the group's channels, result in x's dtype. The same function as the
     kernels, used for CPU tensors, by the tests, and as the comparison on
     the card."""
     b, h, w, c = x.shape
-    xg = x.float().reshape(b, h * w, groups, c // groups)
+    xg = _wide(x).reshape(b, h * w, groups, c // groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = xg.var(dim=(1, 3), keepdim=True, unbiased=False)
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-    y = xn * weight.float() + bias.float()
+    y = xn * _wide(weight) + _wide(bias)
     if apply_silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
@@ -57,7 +66,7 @@ def group_norm_stats_plain(x, groups: int = 32):
     """x (B, H, W, C) -> (B, 1, G, 2) f32: per group the sum and the sum of
     squares over H, W and the group's channels (one chunk holding all rows)."""
     b, h, w, c = x.shape
-    xg = x.float().reshape(b, h * w, groups, c // groups)
+    xg = _wide(x).reshape(b, h * w, groups, c // groups)
     return torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))], dim=-1)[:, None]
 
 
@@ -139,8 +148,6 @@ def _check(x, groups):
             raise NotImplementedError(f"group_norm kernels take bf16/f32, got {x.dtype}")
         if min(b, h * w) < 1 or b > 65535:
             raise ValueError(f"unsupported batch/rows: {tuple(x.shape)}")
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError("the group_norm kernels have no backward yet")
 
 
 def _kernel_input(x):
@@ -169,8 +176,6 @@ def _check_affine(x, weight, bias):
         raise NotImplementedError(
             f"weight/bias must share x's dtype or be f32, got {weight.dtype}, {bias.dtype}"
         )
-    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
-        raise NotImplementedError("the group_norm kernels have no backward yet")
 
 
 def _launch_stats(x, geo, groups):
@@ -238,16 +243,79 @@ def group_norm_apply(x, partial, weight, bias, groups: int = 32, eps: float = 1e
     return _launch_apply(x, partial, weight, bias, geo, groups, eps, apply_silu)
 
 
+def _forward(x, weight, bias, groups, eps, apply_silu):
+    """(y, x as the kernels read it, partial sums): the two kernels on a CUDA
+    tensor, else the plain version with one chunk of sums."""
+    if not x.is_cuda or plain_route_active():
+        _check(x, groups)
+        _check_affine(x, weight, bias)
+        y = group_norm_silu_plain(x, weight, bias, groups, eps, apply_silu)
+        return y, x, None
+    x, geo = _prepare(x, groups)
+    _check_affine(x, weight, bias)
+    partial = _launch_stats(x, geo, groups)
+    return _launch_apply(x, partial, weight, bias, geo, groups, eps, apply_silu), x, partial
+
+
+def group_norm_silu_bwd(x, partial, weight, bias, dy, groups: int = 32, eps: float = 1e-6,
+                        apply_silu: bool = True):
+    """(dx, dweight, dbias) of ``fused_group_norm_silu`` for the cotangent
+    ``dy``, in explicit f32 tensor code from x and the partial sums of
+    ``group_norm_stats`` (None: they are computed here). With xh the
+    normalised x, z = xh * weight + bias and g = dy * d silu(z)/dz (or dy):
+    dbias = sum g, dweight = sum g * xh, and per group
+    dx = rstd * (g w - mean(g w) - xh * mean(g w * xh))."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    if partial is None:
+        partial = group_norm_stats_plain(x, groups)
+    n = h * w * cg
+    sums = partial.sum(dim=1)
+    mean = (sums[..., 0] / n)[:, None, :, None]
+    var = torch.clamp(sums[..., 1] / n - mean[:, 0, :, 0] ** 2, min=0.0)
+    rstd = torch.rsqrt(var + eps)[:, None, :, None]
+    xh = (_wide(x).reshape(b, h * w, groups, cg) - mean) * rstd
+    wf = _wide(weight).reshape(groups, cg)
+    g = _wide(dy).reshape(b, h * w, groups, cg)
+    if apply_silu:
+        z = xh * wf + _wide(bias).reshape(groups, cg)
+        sig = torch.sigmoid(z)
+        g = g * (sig * (1.0 + z * (1.0 - sig)))
+    dbias = g.sum(dim=(0, 1)).reshape(c)
+    dweight = (g * xh).sum(dim=(0, 1)).reshape(c)
+    gw = g * wf
+    m1 = gw.mean(dim=(1, 3), keepdim=True)
+    m2 = (gw * xh).mean(dim=(1, 3), keepdim=True)
+    dx = (gw - m1 - xh * m2) * rstd
+    return dx.reshape(b, h, w, c).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """Forward: stats kernel + apply kernel (plain version for CPU tensors).
+    Backward: ``group_norm_silu_bwd`` from the saved x and partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, apply_silu):
+        y, xk, partial = _forward(x, weight, bias, groups, eps, apply_silu)
+        ctx.save_for_backward(xk, weight, bias, *(() if partial is None else (partial,)))
+        ctx.args = (groups, eps, apply_silu)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, weight, bias, *partial = ctx.saved_tensors
+        dx, dw, db = group_norm_silu_bwd(x, partial[0] if partial else None, weight, bias, dy,
+                                         *ctx.args)
+        return dx, dw, db, None, None, None
+
+
 def fused_group_norm_silu(x, weight, bias, groups: int = 32, eps: float = 1e-6, apply_silu: bool = True):
     """x (B, H, W, C) -> [silu](group_norm(x)) in x's dtype.
 
     On a CUDA tensor this launches the two kernels (stats, then apply) or
-    raises; the plain version runs only for CPU tensors."""
-    if not x.is_cuda or plain_route_active():
-        _check(x, groups)
-        _check_affine(x, weight, bias)
-        return group_norm_silu_plain(x, weight, bias, groups, eps, apply_silu)
-    x, geo = _prepare(x, groups)
-    _check_affine(x, weight, bias)
-    partial = _launch_stats(x, geo, groups)
-    return _launch_apply(x, partial, weight, bias, geo, groups, eps, apply_silu)
+    raises; the plain version runs only for CPU tensors. Under autograd the
+    backward is ``group_norm_silu_bwd``."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return _GroupNormSiLU.apply(x, weight, bias, groups, eps, apply_silu)
+    return _forward(x, weight, bias, groups, eps, apply_silu)[0]

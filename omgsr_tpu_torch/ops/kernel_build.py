@@ -1,6 +1,7 @@
 """Building and loading the hand-written CUDA kernels, and counting launches.
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+Each ``csrc/*.cu`` file (they share the ``*.cuh`` headers beside them) has a
+plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``omgsr_tpu_torch/build/``
 (one ``nvcc`` process per source, all started together), then loaded with
 ``ctypes``. The build happens at first use, from the sources in the package
@@ -60,6 +61,8 @@ def _find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared by the sources: a change rebuilds all
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

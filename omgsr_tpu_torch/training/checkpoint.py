@@ -1,0 +1,88 @@
+"""Checkpoint/resume.
+
+The reference saves PEFT adapters every `checkpointing_steps`
+(train/train_omgsr_s.py:507-518) but its resume branch is an unimplemented
+TODO (:394-419) and optimizer state is never persisted. Here, as in the JAX
+package, the full train state (LoRA + both optimizers + discriminator heads
++ spectral-norm state + micro-step count) is saved and restorable: real
+resume. One ``torch.save`` file per step,
+``<output_dir>/checkpoints/checkpoint-<step>.pt``, holding nested dicts of
+CPU tensors and integers only. The per-step export of adapters in the
+reference's directory layout (``export_adapters``) arrives with the
+load-path slice.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+_SUFFIX = ".pt"
+
+
+def _ckpt_dir(output_dir: str) -> str:
+    return os.path.join(os.path.abspath(output_dir), "checkpoints")
+
+
+def _to_cpu(node):
+    if isinstance(node, dict):
+        return {k: _to_cpu(v) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node.detach().to("cpu", copy=True)
+    return node
+
+
+def save_train_state(output_dir: str, state, step: int):
+    path = os.path.join(_ckpt_dir(output_dir), f"checkpoint-{step}{_SUFFIX}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(_to_cpu(state), tmp)
+    os.replace(tmp, path)  # a reader never sees a half-written file
+    return path
+
+
+def _checkpoint_steps(output_dir: str) -> list[int]:
+    """Sorted step numbers of the checkpoint-* files under output_dir."""
+    d = _ckpt_dir(output_dir)
+    if not os.path.isdir(d):
+        return []
+    steps = []
+    for name in os.listdir(d):
+        if name.startswith("checkpoint-") and name.endswith(_SUFFIX):
+            try:
+                steps.append(int(name[len("checkpoint-"):-len(_SUFFIX)]))
+            except ValueError:
+                pass
+    return sorted(steps)
+
+
+def latest_checkpoint(output_dir: str):
+    steps = _checkpoint_steps(output_dir)
+    if not steps:
+        return None
+    return os.path.join(_ckpt_dir(output_dir), f"checkpoint-{steps[-1]}{_SUFFIX}")
+
+
+def _restore_into(target, saved, path=()):
+    if isinstance(target, dict):
+        if not isinstance(saved, dict) or set(saved) != set(target):
+            raise ValueError(f"checkpoint structure differs from the train state at {'.'.join(path) or '<root>'}")
+        return {k: _restore_into(v, saved[k], path + (k,)) for k, v in target.items()}
+    if isinstance(target, torch.Tensor):
+        if tuple(saved.shape) != tuple(target.shape):
+            raise ValueError(f"checkpoint shape {tuple(saved.shape)} differs from {tuple(target.shape)} "
+                             f"at {'.'.join(path)}")
+        with torch.no_grad():
+            target.copy_(saved)
+        return target
+    return saved
+
+
+def restore_train_state(path: str, state):
+    """Load a saved state into ``state`` (typically a freshly initialised
+    trainer's): tensors are copied into the existing leaves, which keep their
+    device, dtype and requires_grad; integers are replaced. Returns the
+    restored state."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return _restore_into(state, saved)

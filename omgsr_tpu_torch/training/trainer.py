@@ -1,0 +1,251 @@
+"""LoRA-GAN trainer for OMGSR-S.
+
+One train step re-implementing the reference's loop body
+(train/train_omgsr_s.py:438-491), as the JAX package's trainer does:
+
+  G step: hq -> frozen-VAE latent, noised to the mid-timestep; lq -> LoRA-VAE
+  latent; LRR latent-MSE; one-step denoiser prediction -> decoded image;
+  DISTS + L1 + GAN-G losses; AdamW on the LoRA params with global-norm clip.
+
+  D step: multi-level discriminator BCE on detached prediction (fake) and hq
+  (real); AdamW on the head params.
+
+Deliberate divergences from the reference, kept from the JAX package: the
+G-step's discriminator-head gradients do NOT leak into the D update (the
+reference forgets to zero them, train_omgsr_s.py:465-491): each step takes
+``torch.autograd.grad`` with respect to its own leaves only, and the heads
+enter the G loss detached; spectral-norm u vectors update once per D forward
+pair rather than on the G forward too.
+
+Every random number of a step is explicit: ``StepNoise`` holds the two latent
+sampling noises, the mid-timestep noise and the three sets of DiffAugment
+draws; ``draw_step_noise`` makes them from a ``torch.Generator``. Frozen
+parameters must not require grad. ``TrainerF`` arrives with the -F slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from omgsr_tpu_torch.config import TrainConfig
+from omgsr_tpu_torch.diffusion.schedules import ddpm_alphas_cumprod
+from omgsr_tpu_torch.lora import attach_lora
+from omgsr_tpu_torch.losses.diffaug import DiffAugDraws, draw_diffaug
+from omgsr_tpu_torch.losses.discriminator import discriminator_loss
+from omgsr_tpu_torch.losses.dists import dists_loss
+from omgsr_tpu_torch.models import unet_sd, vae
+from omgsr_tpu_torch.training.optim import global_norm, make_optimizer
+from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
+
+
+def l1_loss(a, b):
+    return (a.float() - b.float()).abs().mean()
+
+
+def mse_loss(a, b):
+    d = a.float() - b.float()
+    return (d * d).mean()
+
+
+class StepNoise(NamedTuple):
+    """The random numbers of one train step. hq, lq: standard normals of the
+    latent's shape for the two VAE-encoder samples; noise: the standard
+    normal mixed into the hq latent at the mid-timestep; disc_g, disc_fake,
+    disc_real: DiffAugment draws of the three discriminator forwards."""
+
+    hq: torch.Tensor
+    noise: torch.Tensor
+    lq: torch.Tensor
+    disc_g: DiffAugDraws
+    disc_fake: DiffAugDraws
+    disc_real: DiffAugDraws
+
+
+def draw_step_noise(generator: torch.Generator, image_shape, latent_shape, device, dtype) -> StepNoise:
+    """A ``StepNoise`` for a batch of images (B,H,W,3) and latents (B,h,w,C)
+    from ``generator``, which must live on ``device``."""
+    def normal():
+        z = torch.randn(latent_shape, generator=generator, device=device, dtype=torch.float32)
+        return z.to(dtype)
+
+    hq, noise, lq = normal(), normal(), normal()
+    return StepNoise(hq, noise, lq, *(draw_diffaug(generator, image_shape, device, dtype)
+                                      for _ in range(3)))
+
+
+def _tree_map(fn, tree):
+    return unflatten_dict({p: fn(v) for p, v in flatten_dict(tree).items()})
+
+
+def grads_of(loss, tree):
+    """d loss / d leaf for every leaf of ``tree``, as a tree; a leaf the loss
+    does not reach gets zeros (as jax.grad gives)."""
+    flat = flatten_dict(tree)
+    grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    return unflatten_dict({
+        p: (torch.zeros_like(v) if g is None else g) for (p, v), g in zip(flat.items(), grads)
+    })
+
+
+class BaseTrainer:
+    """Shared G/D optimization skeleton; subclasses provide encode/predict."""
+
+    def __init__(self, cfg: TrainConfig, frozen, gen_lora, disc_bundle):
+        """frozen: dict with model params/cfgs the step reads (tensors that
+        do not require grad). gen_lora: {"vae_encoder": tree, "denoiser":
+        tree}. disc_bundle: (disc_params, sn_state, strides_meta). The
+        trainer owns gen_lora, disc_params and sn_state from here on and
+        updates them in place."""
+        self.cfg = cfg
+        self.frozen = frozen
+        disc_params, sn_state, self.disc_meta = disc_bundle
+        self.gen_tx = make_optimizer(cfg)
+        self.disc_tx = make_optimizer(cfg)
+        gen_lora = _tree_map(lambda v: v.detach().requires_grad_(True), gen_lora)
+        disc_params = _tree_map(lambda v: v.detach().requires_grad_(True), disc_params)
+        self.state = {
+            "step": 0,
+            "gen": {"lora": gen_lora, "opt": self.gen_tx.init(gen_lora)},
+            "disc": {
+                "params": disc_params,
+                "sn": _tree_map(lambda v: v.detach(), sn_state),
+                "opt": self.disc_tx.init(disc_params),
+            },
+        }
+
+    # ---- model hooks -------------------------------------------------------
+    def encode_fixed(self, frozen, img, noise):
+        raise NotImplementedError
+
+    def encode_lora(self, frozen, lora_vae_encoder, img, noise):
+        raise NotImplementedError
+
+    def noisy_latent(self, hq_latent, noise):
+        raise NotImplementedError
+
+    def one_step_pred(self, frozen, lora_denoiser, lq_latent):
+        raise NotImplementedError
+
+    def _checkpointed(self, fn):
+        """``fn`` under activation recomputation when the config asks for it
+        (the JAX package's jax.checkpoint at the same functions)."""
+        if not self.cfg.gradient_checkpointing:
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    # ---- train step --------------------------------------------------------
+    def _gen_loss(self, lora, batch, noise: StepNoise, frozen, disc_params, disc_sn):
+        cfg = self.cfg
+        lq, hq = batch["lq"], batch["hq"]
+        with torch.no_grad():
+            hq_latent = self.encode_fixed(frozen, hq, noise.hq)
+            noisy = self.noisy_latent(hq_latent, noise.noise.to(hq_latent.dtype))
+        lq_latent = self.encode_lora(frozen, lora["vae_encoder"], lq, noise.lq)
+
+        loss_lrr = mse_loss(noisy, lq_latent) * cfg.lambda_LRR
+        pred = self.one_step_pred(frozen, lora["denoiser"], lq_latent)
+        meta = self.disc_meta
+
+        def disc_g(x):
+            # the heads enter detached: no G-step gradient reaches them, and
+            # the new u vectors of this forward are dropped
+            heads = _tree_map(lambda v: v.detach(), disc_params)
+            return discriminator_loss(heads, disc_sn, meta, frozen["backbone"], noise.disc_g, x,
+                                      for_G=True)[0]
+
+        def dists(x):
+            return dists_loss(frozen["dists"], x, hq)
+
+        loss_dv3d = self._checkpointed(dists)(pred) * cfg.lambda_Dv3D
+        loss_l1 = l1_loss(pred, hq) * cfg.lambda_L1
+        loss_g = self._checkpointed(disc_g)(pred) * cfg.lambda_GAN
+        total = loss_lrr + loss_dv3d + loss_l1 + loss_g
+        metrics = {
+            "loss_LRR": loss_lrr,
+            "loss_Dv3D": loss_dv3d,
+            "loss_L1": loss_l1,
+            "loss_G": loss_g,
+        }
+        return total, (metrics, pred)
+
+    def _disc_loss(self, disc_params, sn, fake, real, noise: StepNoise, frozen):
+        cfg = self.cfg
+        l_fake, sn = discriminator_loss(
+            disc_params, sn, self.disc_meta, frozen["backbone"], noise.disc_fake, fake,
+            for_real=False,
+        )
+        l_real, sn = discriminator_loss(
+            disc_params, sn, self.disc_meta, frozen["backbone"], noise.disc_real, real,
+            for_real=True,
+        )
+        total = l_fake * cfg.lambda_GAN + l_real * cfg.lambda_GAN
+        return total, (sn, {"loss_D_fake": l_fake * cfg.lambda_GAN, "loss_D_real": l_real * cfg.lambda_GAN})
+
+    def train_step(self, batch, noise: StepNoise):
+        """One micro-step. batch: {"lq": (B,H,W,3), "hq": (B,H,W,3)} in
+        [-1,1]. Returns (metrics, pred): ten scalar tensors (six losses, two
+        totals, the pre-clip global norms of the two micro-step gradients)
+        and the detached prediction."""
+        state, frozen = self.state, self.frozen
+        lora, heads = state["gen"]["lora"], state["disc"]["params"]
+
+        g_total, (g_metrics, pred) = self._gen_loss(
+            lora, batch, noise, frozen, heads, state["disc"]["sn"])
+        g_grads = grads_of(g_total, lora)
+        fake = pred.detach()
+        del pred
+        self.gen_tx.update(g_grads, state["gen"]["opt"], lora)
+
+        d_total, (sn, d_metrics) = self._disc_loss(
+            heads, state["disc"]["sn"], fake, batch["hq"], noise, frozen)
+        d_grads = grads_of(d_total, heads)
+        self.disc_tx.update(d_grads, state["disc"]["opt"], heads)
+        state["disc"]["sn"] = sn
+        state["step"] += 1
+
+        metrics = {"loss_total_G": g_total, "loss_total_D": d_total}
+        metrics.update(g_metrics)
+        metrics.update(d_metrics)
+        # pre-clip global grad norms: the observability signal for GAN balance
+        metrics["grad_norm_G"] = global_norm(g_grads)
+        metrics["grad_norm_D"] = global_norm(d_grads)
+        return {k: v.detach() for k, v in metrics.items()}, fake
+
+
+class TrainerS(BaseTrainer):
+    """OMGSR-S: SD2.1 UNet, DDPM mid-timestep 273 (train/train_omgsr_s.py)."""
+
+    def __init__(self, cfg, frozen, gen_lora, disc_bundle):
+        a = float(ddpm_alphas_cumprod()[cfg.mid_timestep])
+        self.sqrt_a = math.sqrt(a)
+        self.sqrt_1ma = math.sqrt(1 - a)
+        super().__init__(cfg, frozen, gen_lora, disc_bundle)
+
+    def encode_fixed(self, frozen, img, noise):
+        return vae.vae_encode(frozen["vae"], frozen["vae_cfg"], img, noise=noise)
+
+    def encode_lora(self, frozen, lora_enc, img, noise):
+        params = dict(frozen["vae"])
+        params["encoder"] = attach_lora(frozen["vae"]["encoder"], lora_enc)
+        # lora_vae.enable_gradient_checkpointing parity (train/train_omgsr_s.py:256-258)
+        encode = self._checkpointed(
+            lambda x, z: vae.vae_encode(params, frozen["vae_cfg"], x, noise=z))
+        return encode(img, noise)
+
+    def noisy_latent(self, hq_latent, noise):
+        return self.sqrt_a * hq_latent + self.sqrt_1ma * noise
+
+    def one_step_pred(self, frozen, lora_unet, lq_latent):
+        unet_params = attach_lora(frozen["unet"], lora_unet)
+        ctx = frozen["prompt_embeds"].to(lq_latent.dtype)
+        ctx = ctx.expand((lq_latent.shape[0],) + tuple(ctx.shape[-2:]))
+        apply = self._checkpointed(
+            lambda z: unet_sd.unet_apply(unet_params, frozen["unet_cfg"], z, self.cfg.mid_timestep, ctx))
+        eps = apply(lq_latent)
+        x0 = (lq_latent - self.sqrt_1ma * eps) / self.sqrt_a
+        decode = self._checkpointed(lambda z: vae.vae_decode(frozen["vae"], frozen["vae_cfg"], z))
+        return torch.clamp(decode(x0), -1.0, 1.0)

@@ -24,7 +24,11 @@ def _module_names():
 
 def test_every_module_imports_without_jax():
     names = _module_names()
-    assert len(names) > 20
+    assert len(names) > 35
+    for sub in ("config", "lora.lora", "losses.dists", "losses.diffaug", "losses.discriminator",
+                "models.convnext", "training.optim", "training.trainer", "training.checkpoint",
+                "cli.train_omgsr_s", "utils.tree"):
+        assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"
@@ -35,6 +39,7 @@ def test_every_module_imports_without_jax():
         "assert not bad, bad\n"
         "assert 'PIL' not in sys.modules, 'PIL must be imported lazily'\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'yaml' not in sys.modules, 'yaml must be imported where a file is read or written'\n"
         "print('imported', len(names))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -51,7 +56,8 @@ def test_sources_name_neither_jax_nor_the_jax_package(path):
         assert not re.search(r"\b(jax|jaxlib|flax|optax)\b", line), (path, line)
         assert not re.search(r"\bomgsr_tpu\b(?!_torch)", line), (path, line)
     # finished-kernel routes the port must not take
-    for banned in ("scaled_dot_product_attention", "torch.compile", "F.group_norm("):
+    for banned in ("scaled_dot_product_attention", "torch.compile", "F.group_norm(", "torch.group_norm(",
+                   "nn.GroupNorm", "spectral_norm("):
         if path != "chip_smoke.py":  # the smoke script times them as yardsticks only
             assert banned not in src, (path, banned)
 
@@ -61,12 +67,19 @@ def _no_cuda():
         pytest.skip("this host has a CUDA device: the default device works here")
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
-    from omgsr_tpu_torch.cli import serve
-    from omgsr_tpu_torch.convert.params import from_jax_tree, init_unet, init_vae
+    from omgsr_tpu_torch.cli import serve, train_omgsr_s
+    from omgsr_tpu_torch.config import TrainConfig
+    from omgsr_tpu_torch.convert.params import (
+        from_jax_tree,
+        init_convnext,
+        init_discriminator,
+        init_unet,
+        init_vae,
+    )
     from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
-    from omgsr_tpu_torch.models.configs import UNetConfig, VAEConfig
+    from omgsr_tpu_torch.models.configs import ConvNeXtConfig, UNetConfig, VAEConfig
     from omgsr_tpu_torch.serving import SRServer
     from omgsr_tpu_torch.serving.server import make_fused_infer
 
@@ -78,6 +91,10 @@ def test_entry_points_raise_without_cuda():
         "init_vae": lambda: init_vae(0, vc),
         "init_unet": lambda: init_unet(0, uc),
         "from_jax_tree": lambda: from_jax_tree({"kernel": np.zeros((2, 3), np.float32)}),
+        "init_convnext": lambda: init_convnext(0, ConvNeXtConfig(depths=(1, 1, 1, 1), dims=(8, 8, 8, 8))),
+        "init_discriminator": lambda: init_discriminator(0, (8, 8, 8)),
+        "run_training": lambda: train_omgsr_s.run_training(
+            TrainConfig(output_dir=str(tmp_path)), frozen={}, loader=[]),
         "pipeline": lambda: OMGSRSPipeline(vp, up, vc, uc),
         "server": lambda: SRServer(lambda lq, i: lq),
         "fused": lambda: make_fused_infer(lambda lq, i: lq, torch.float32),
@@ -114,10 +131,20 @@ def test_unported_options_raise_naming_their_slice():
         serve.parse_args(["--pipeline", "f"])
 
 
+def test_backward_kernels_hold_no_atomics_and_no_library_calls():
+    """The dQ and dK/dV kernels fix the order of every sum: their source
+    holds no atomic operation and no library product."""
+    src = (ROOT / "omgsr_tpu_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    code = "\n".join(l.split("//")[0] for l in src.splitlines())
+    assert "flash_bwd_dq_kernel" in code and "flash_bwd_dkv_kernel" in code
+    for banned in ("atomic", "cublas", "cudnn", "cutlass"):
+        assert banned not in code.lower(), banned
+
+
 def test_kernel_sources_ship_with_the_package():
     from omgsr_tpu_torch.ops import kernel_build
 
-    assert kernel_build.kernel_sources() == ["flash_attention_fwd", "group_norm_silu"]
+    assert kernel_build.kernel_sources() == ["flash_attention_bwd", "flash_attention_fwd", "group_norm_silu"]
     # no nvcc on a CPU host: a build is refused loudly, never skipped
     import shutil
 

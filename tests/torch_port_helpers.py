@@ -64,3 +64,50 @@ def jax_init(init_fn, seed, cfg):
         return jax.numpy.asarray(a.astype(np.float32))
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_lora_tree(jax_params, rank, seed, targets=None):
+    """A LoRA tree with the structure of the JAX package's init_lora_tree for
+    ``jax_params`` and values drawn with numpy: A ~ N(0,1)/rank and, unlike
+    the initialiser, B != 0, so the low-rank branch changes the output."""
+    from omgsr_tpu.lora import SD_TARGET_MODULES, init_lora_tree
+
+    shapes = jax.eval_shape(
+        lambda k: init_lora_tree(k, jax_params, targets or SD_TARGET_MODULES, rank), jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        scale = 1.0 / rank if path[-1].key == "lora_A" else 0.3
+        return jax.numpy.asarray((rng.standard_normal(leaf.shape) * scale).astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_diffaug_draws(key, shape):
+    """The seven draws that omgsr_tpu.losses.diffaug.diff_augment(key, x) makes
+    for x of ``shape`` under its default policy, replayed key by key in its
+    order, as the port's DiffAugDraws of CPU tensors."""
+    from omgsr_tpu_torch.losses.diffaug import DiffAugDraws
+
+    b, h, w, _ = shape
+    ks = jax.random.split(key, 8)
+    uniforms = [np.asarray(jax.random.uniform(ks[i], (b, 1, 1, 1), jax.numpy.float32)) for i in range(3)]
+    sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
+    k1, k2 = jax.random.split(ks[3])
+    ty = np.asarray(jax.random.randint(k1, (b, 1, 1), -sh, sh + 1))
+    tx = np.asarray(jax.random.randint(k2, (b, 1, 1), -sw, sw + 1))
+    ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
+    k1, k2 = jax.random.split(ks[4])
+    oy = np.asarray(jax.random.randint(k1, (b, 1, 1), 0, h + (1 - ch % 2)))
+    ox = np.asarray(jax.random.randint(k2, (b, 1, 1), 0, w + (1 - cw % 2)))
+    return DiffAugDraws(*(t(a) for a in uniforms), *(t(a).long() for a in (ty, tx, oy, ox)))
+
+
+def jit_unoptimised(fn, *args):
+    """``fn(*args)`` through one XLA compile with the optimisation passes
+    switched off: on the CPU that is several times quicker than running a
+    large function op by op (each primitive compiles on its own) and than
+    the fully optimised compile, and the numbers are the same f32 sums."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    return compiled(*args)
