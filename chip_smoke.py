@@ -22,6 +22,13 @@ them. Phases, each of which must pass:
            their plain versions
   timings  per-request latency and the VAE-encode / UNet / VAE-decode split;
            with --profile also kernel time by name and each stage's idle share
+  serve-fused  the same weights served with VAEConfig.fused_resblocks=True
+           (every VAE resnet through two launches of the fused GN+SiLU ->
+           conv3x3 kernel): four 512x512 requests and one 1024x1024 request
+           (nine latent tiles); launch counts against the structure's; the
+           fused route against the plain route and against the unfused kernel
+           route on identical inputs, per stage and on the image; request p50
+           and stage times of the fused and the unfused server, interleaved
   train    OMGSR-S LoRA-GAN training at full width (SD2.1 VAE + UNet,
            ConvNeXt-L, 512x512, batch 1, LoRA ranks 16/32, bf16, weights from
            a seed): cli.train_omgsr_s.run_training takes 2 optimizer steps at
@@ -37,6 +44,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import math
@@ -61,6 +69,7 @@ from omgsr_tpu_torch.inference.tiled import auto_tile_batch
 from omgsr_tpu_torch.losses.dists import init_dists
 from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.models.layers import count_params
+from omgsr_tpu_torch.ops import conv3x3 as C3
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
@@ -94,6 +103,14 @@ MAX_MEAN_STEPS = 6.0
 MAX_STAGE_REL_L2 = 0.05
 TOL_LSE = 1e-3
 TOL_SUMS_REL = 1e-4
+# conv3x3: max |kernel - plain| over the largest |plain| value of the shape (as
+# for flash attention), TOL per dtype. Its channel sums come from f32
+# accumulators on both sides; a sum of signed values can cancel to nothing, so
+# the sum is held against the channel's sum of |y| and the sum of squares
+# against itself. What differs is the order of the f32 sums and, in bf16, the
+# few activations of the prologue that round to the neighbouring bf16 value
+# (__expf against torch.sigmoid).
+TOL_CONV_SUMS_REL = 1e-3
 # training, kernels against plain versions, one micro-step in bf16 at full
 # depth with random weights: relative difference of each loss (means over
 # an image or a logit map, which average the per-element bf16 differences
@@ -127,6 +144,19 @@ def errors(out, ref):
 def randn(shape, dtype, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+
+ALL_COUNTERS = (FA.launches, FA.dq_launches, FA.dkv_launches, GN.stats_launches, GN.apply_launches,
+                C3.conv3x3_launches, C3.gn_fused_launches)
+
+
+def reset_counts():
+    for c in ALL_COUNTERS:
+        c.reset()
+
+
+def read_counts():
+    return {c.name: c.count for c in ALL_COUNTERS}
 
 
 # ----------------------------------------------------------------------------
@@ -399,28 +429,140 @@ def check_group_norm_bwd(shape, groups, dtype, seed):
           f"(bound {TOL[dtype]:.3g}); {ms:.4f} ms, autograd through plain {plain_ms:.4f} ms", flush=True)
 
 
+CONV_SHAPES = [
+    # (H, W, C_in, C_out), dtype, on the fused serving path?
+    ((512, 512, 128, 128), torch.bfloat16, True),  # the VAE's widest stage at 512 px
+    ((512, 512, 256, 128), torch.bfloat16, True),  # decoder up3, first resnet (conv_shortcut)
+    ((256, 256, 512, 256), torch.bfloat16, True),  # decoder up2, first resnet
+    ((64, 64, 512, 512), torch.bfloat16, True),  # the mid blocks
+    ((1024, 1024, 128, 128), torch.bfloat16, True),  # the widest stage of the 1024x1024 request
+    ((30, 50, 128, 256), torch.float32, False),  # the FMA kernels, ragged tiles
+    ((61, 45, 256, 128), torch.bfloat16, False),  # H and W no multiples of the 8 x 16 tile
+]
+
+
+def check_conv(shape, dtype, seed):
+    """K4 (with and without SiLU) and K5 (with skip and sums; without either)
+    against their plain versions, each twice for bit-identity, and timed."""
+    h, w_, cin, cout = shape
+    x = randn((1, h, w_, cin), dtype, seed)
+    w = (randn((cout, cin, 3, 3), dtype, seed + 1) * 0.05).contiguous(memory_format=torch.channels_last)
+    assert C3.kernel_weight(w, dtype) is w  # the parameter trees' layout is the kernels' own
+    b = randn((cout,), dtype, seed + 2) * 0.1
+    a = randn((cin,), torch.float32, seed + 3) * 0.2 + 1.0
+    c = randn((cin,), torch.float32, seed + 4) * 0.5 + 0.5  # silu(c) is far from 0: a wrong ring shows
+    skip = randn((1, h, w_, cout), dtype, seed + 5)
+    label = f"x[1, {h}, {w_}, {cin}]->{cout} {str(dtype)[6:]}"
+    iters = 5 if h * w_ * cin * cout > 2 ** 32 else 20
+
+    def held(name, got, ref):
+        assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got.float()).all(), name
+        err = errors(got, ref)[0]
+        scaled = err / ref.float().abs().max().item()
+        assert scaled <= TOL[dtype], f"{name} {label}: scaled err {scaled}"
+        return err, scaled
+
+    k4 = {}
+    for act in ("none", "silu"):
+        y = C3.conv3x3(x, w, b, act)
+        torch.cuda.synchronize()
+        assert torch.equal(y, C3.conv3x3(x, w, b, act)), f"conv3x3 {label} act={act}: two runs differ"
+        k4[act] = held(f"conv3x3 act={act}", y, C3.conv3x3_plain(x, w, b, act))
+    k5 = {}
+    for use_skip in (True, False):
+        sk = skip if use_skip else None
+        y, ssum, ssq = C3.conv3x3_gn_fused(x, w, b, a, c, skip=sk)
+        torch.cuda.synchronize()
+        y2, ssum2, ssq2 = C3.conv3x3_gn_fused(x, w, b, a, c, skip=sk)
+        y3, none1, none2 = C3.conv3x3_gn_fused(x, w, b, a, c, skip=sk, emit_stats=False)
+        assert torch.equal(y, y2) and torch.equal(ssum, ssum2) and torch.equal(ssq, ssq2) and torch.equal(y, y3), \
+            f"conv3x3_gn_fused {label} skip={use_skip}: two runs differ"
+        assert none1 is None and none2 is None
+        ref, rsum, rsq = C3.conv3x3_gn_fused_plain(x, w, b, a, c, skip=sk)
+        err, scaled = held(f"conv3x3_gn_fused skip={use_skip}", y, ref)
+        abs_sum = ref.float().abs().sum(dim=(0, 1, 2))
+        err_sum = ((ssum.sum(0) - rsum[0]).abs() / abs_sum).max().item()
+        err_sq = ((ssq.sum(0) - rsq[0]).abs() / rsq[0]).max().item()
+        assert ssum.shape == ssq.shape == (-(-h // 8) * -(-w_ // 16), cout) and ssum.dtype == torch.float32
+        assert max(err_sum, err_sq) <= TOL_CONV_SUMS_REL, f"conv3x3_gn_fused sums {label}: {err_sum}, {err_sq}"
+        k5[use_skip] = (err, scaled, err_sum, err_sq)
+
+    # the library call: cuDNN's convolution of the activated input, channels_last
+    # (it covers the nine products and the bias, not the prologue, the skip or the sums)
+    h32 = x.float() * a + c
+    xa = (h32 * torch.sigmoid(h32)).to(dtype).permute(0, 3, 1, 2)
+    xc = x.permute(0, 3, 1, 2)
+    es = x.element_size()
+    flops = 2.0 * 9 * cin * cout * h * w_
+    small = (w.numel() + cout) * es
+    n_part = ssum.shape[0]
+    t_flops = flops / PEAK_FLOPS[dtype]
+
+    def bound(nbytes):
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        return max(t_flops, t_bytes) * 1e3, "operations" if t_flops >= t_bytes else "bytes"
+
+    b4 = bound((h * w_ * (cin + cout)) * es + small)
+    b5 = bound((h * w_ * (cin + 2 * cout)) * es + small + 2 * cin * 4 + 2 * n_part * cout * 4)
+    row4 = {
+        "shape": label, "max_abs_err": max(k4["none"][0], k4["silu"][0]),
+        "max_err_over_max_ref": max(k4["none"][1], k4["silu"][1]), "bit_identical_twice": True,
+        "ms": time_ms(lambda: C3.conv3x3(x, w, b), iters),
+        "ms_silu": time_ms(lambda: C3.conv3x3(x, w, b, "silu"), iters),
+        "plain_ms": time_ms(lambda: C3.conv3x3_plain(x, w, b), iters),
+        "library_ms": time_ms(lambda: F.conv2d(xc, w, b, padding=1), iters),
+        "library_covers": "F.conv2d, channels_last: the whole function without SiLU",
+        "bound_ms": b4[0], "bound_by": b4[1],
+    }
+    row5 = {
+        "shape": label + " skip+sums", "max_abs_err": max(k5[True][0], k5[False][0]),
+        "max_err_over_max_ref": max(k5[True][1], k5[False][1]),
+        "max_rel_err_sum": max(k5[True][2], k5[False][2]), "max_rel_err_sumsq": max(k5[True][3], k5[False][3]),
+        "partials": n_part, "bit_identical_twice": True,
+        "ms": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c, skip=skip), iters),
+        "ms_sums_no_skip": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c), iters),
+        "ms_skip_no_sums": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c, skip=skip, emit_stats=False), iters),
+        "plain_ms": time_ms(lambda: C3.conv3x3_gn_fused_plain(x, w, b, a, c, skip=skip), iters),
+        "library_ms": time_ms(lambda: F.conv2d(xa, w, b, padding=1), iters),
+        "library_covers": "F.conv2d, channels_last, on the activated input: products and bias only",
+        "bound_ms": b5[0], "bound_by": b5[1],
+    }
+    return row4, row5
+
+
 def check_refusals():
     """On the card a wrapper launches its kernel or raises: a dtype or head dim
     the kernels do not take is refused, through the model's dispatch too, and
     never computed by the plain version."""
     from omgsr_tpu_torch.ops.attention import dot_product_attention
 
-    before = (FA.launches.count, GN.stats_launches.count, GN.apply_launches.count)
+    counters = (FA.launches, GN.stats_launches, GN.apply_launches, C3.conv3x3_launches, C3.gn_fused_launches)
+    before = [c.count for c in counters]
     q = randn((1, 64, 2, 64), torch.float16, 300)
     x = randn((1, 8, 8, 64), torch.float16, 301)
     w = torch.ones(64, dtype=torch.float16, device="cuda")
+    # conv3x3: a channel count that is no multiple of 128, and fp16
+    cx, cw = randn((1, 16, 16, 192), torch.bfloat16, 303), randn((128, 192, 3, 3), torch.bfloat16, 304)
+    hx, hw = randn((1, 16, 16, 128), torch.float16, 305), randn((128, 128, 3, 3), torch.float16, 306)
+    cb, one = torch.zeros(128, dtype=torch.bfloat16, device="cuda"), torch.ones(192, device="cuda")
+    calls = [(lambda: dot_product_attention(q, q, q), NotImplementedError),
+             (lambda: FA.flash_attention(q, q, q), NotImplementedError),
+             (lambda: FA.flash_attention(*[randn((1, 64, 1, 512), torch.bfloat16, 302)] * 3), NotImplementedError),
+             (lambda: GN.fused_group_norm_silu(x, w, w, 32), NotImplementedError),
+             (lambda: C3.conv3x3(cx, cw, cb), ValueError),
+             (lambda: C3.conv3x3_gn_fused(cx, cw, cb, one, one), ValueError),
+             (lambda: C3.conv3x3(hx, hw, cb.half()), NotImplementedError),
+             (lambda: C3.conv3x3_gn_fused(hx, hw, cb.half(), one[:128], one[:128]), NotImplementedError)]
     refused = 0
-    for call in (lambda: dot_product_attention(q, q, q),
-                 lambda: FA.flash_attention(q, q, q),
-                 lambda: FA.flash_attention(*[randn((1, 64, 1, 512), torch.bfloat16, 302)] * 3),
-                 lambda: GN.fused_group_norm_silu(x, w, w, 32)):
+    for call, error in calls:
         try:
             call()
-        except NotImplementedError:
+        except error:
             refused += 1
-    assert refused == 4, f"only {refused} of 4 unsupported calls were refused"
-    assert before == (FA.launches.count, GN.stats_launches.count, GN.apply_launches.count)
-    print("kernels: fp16 and head dim 512 are refused on the card by both wrappers", flush=True)
+    assert refused == len(calls), f"only {refused} of {len(calls)} unsupported calls were refused"
+    assert before == [c.count for c in counters]
+    print("kernels: fp16 and head dim 512 are refused on the card by the flash and GroupNorm wrappers, "
+          "192 channels and fp16 by both conv3x3 wrappers", flush=True)
 
 
 def phase_kernels():
@@ -455,8 +597,21 @@ def phase_kernels():
                   f"{r['pair_bound_ms']:.5f}", flush=True)
     check_group_norm_bwd((1, 512, 512, 128), 32, torch.bfloat16, 600)
     check_group_norm_bwd((1, 64, 64, 320), 32, torch.bfloat16, 610)
+    conv = {"conv3x3": [], "conv3x3_gn_fused": []}
+    for i, (shape, dtype, on_path) in enumerate(CONV_SHAPES):
+        for name, r in zip(conv, check_conv(shape, dtype, 700 + 10 * i)):
+            r["on_serving_path"] = on_path and name == "conv3x3_gn_fused"
+            conv[name].append(r)
+            extra = (f", sums rel err {r['max_rel_err_sum']:.3g} / {r['max_rel_err_sumsq']:.3g} over "
+                     f"{r['partials']} partials (bound {TOL_CONV_SUMS_REL}); sums without skip "
+                     f"{r['ms_sums_no_skip']:.4f} ms, skip without sums {r['ms_skip_no_sums']:.4f} ms"
+                     if "partials" in r else f"; with SiLU {r['ms_silu']:.4f} ms")
+            print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g} "
+                  f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[dtype]:.3g}), two runs "
+                  f"bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}){extra}", flush=True)
     return {"flash_attention_fwd": flash, "group_norm_stats": gn_stats, "group_norm_apply": gn_apply,
-            **bwd}
+            **bwd, **conv}
 
 
 # ----------------------------------------------------------------------------
@@ -464,24 +619,61 @@ def phase_kernels():
 # ----------------------------------------------------------------------------
 
 
+def vae_resnet_channels(cfg):
+    """(C_in, C_out) of every resnet of the encoder and of the decoder."""
+    bo = list(cfg.block_out_channels)
+    enc, ch = [], bo[0]
+    for out in bo:
+        enc += [(ch if j == 0 else out, out) for j in range(cfg.layers_per_block)]
+        ch = out
+    enc += [(ch, ch)] * 2  # mid block
+    dec = [(ch, ch)] * 2
+    for out in reversed(bo):
+        dec += [(ch if j == 0 else out, out) for j in range(cfg.layers_per_block + 1)]
+        ch = out
+    return enc, dec
+
+
 def structure_counts(vae_cfg, unet_cfg):
-    """Kernel launches of one encode, one UNet call and one decode, read off
-    the model's structure: (flash, group_norm) per stage."""
+    """Kernel launches of one encode, one UNet call and one decode at batch 1,
+    read off the model's structure: {stage: {counter name: launches}}."""
     n_down = len(unet_cfg.down_block_types)
     attn_down = sum("CrossAttn" in t for t in unet_cfg.down_block_types) * unet_cfg.layers_per_block
     attn_up = sum("CrossAttn" in t for t in unet_cfg.up_block_types) * (unet_cfg.layers_per_block + 1)
     blocks = (attn_down + 1 + attn_up) * unet_cfg.transformer_layers_per_block
     resnets = n_down * unet_cfg.layers_per_block + 2 + n_down * (unet_cfg.layers_per_block + 1)
-    n_vae = len(vae_cfg.block_out_channels)
-    enc_resnets = n_vae * vae_cfg.layers_per_block + 2
-    dec_resnets = n_vae * (vae_cfg.layers_per_block + 1) + 2
     head_dims = {c // h for c, h in zip(unet_cfg.block_out_channels, unet_cfg.num_attention_heads)}
     assert all(FA.supports(d, torch.bfloat16) for d in head_dims), head_dims
+
+    def vae_stage(channels):
+        # a fused resnet: one stats launch for GroupNorm 1 and two fused convs; any other: two
+        # GroupNorm+SiLU (stats + apply); conv_norm_out: one more. The mid head (dim 512) takes
+        # the matmul path, so no flash launch.
+        m = C3.CHANNEL_MULTIPLE
+        fused = sum(ci % m == 0 and co % m == 0 for ci, co in channels) if vae_cfg.fused_resblocks else 0
+        plain = len(channels) - fused
+        return {"flash_attention_fwd": 0, "group_norm_stats": 2 * plain + fused + 1,
+                "group_norm_apply": 2 * plain + 1, "conv3x3_gn_fused": 2 * fused}
+
+    enc, dec = vae_resnet_channels(vae_cfg)
+    assert len(enc) == len(vae_cfg.block_out_channels) * vae_cfg.layers_per_block + 2
     return {
-        "unet": (2 * blocks, 2 * resnets + 1),  # self + cross per block; 2 GN+SiLU per resnet + out
-        "encode": (0, 2 * enc_resnets + 1),  # the VAE mid head (dim 512) takes the matmul path
-        "decode": (0, 2 * dec_resnets + 1),
+        # self + cross attention per block; 2 GroupNorm+SiLU per resnet + the output norm
+        "unet": {"flash_attention_fwd": 2 * blocks, "group_norm_stats": 2 * resnets + 1,
+                 "group_norm_apply": 2 * resnets + 1, "conv3x3_gn_fused": 0},
+        "encode": vae_stage(enc),
+        "decode": vae_stage(dec),
     }
+
+
+def expected_launches(sizes, per, tile, overlap, downscale):
+    """Launches the structure predicts for one request of each (H, W)."""
+    total = dict.fromkeys(per["unet"], 0)
+    for h, w in sizes:
+        calls = unet_calls(h, w, tile, overlap, downscale)
+        for name in total:
+            total[name] += per["encode"][name] + calls * per["unet"][name] + per["decode"][name]
+    return total
 
 
 def unet_calls(h_px, w_px, tile, overlap, downscale):
@@ -545,25 +737,17 @@ def phase_serve(card, vae_params, unet_params, profile=False):
 
         tile, overlap = args.process_size // 8, args.process_size // 16
         per = structure_counts(SD21_VAE, SD21_UNET)
-        expect_flash = expect_gn = 0
-        for img, _ in jobs:
-            calls = unet_calls(img.shape[0], img.shape[1], tile, overlap, SD21_VAE.downscale)
-            expect_flash += per["encode"][0] + calls * per["unet"][0] + per["decode"][0]
-            expect_gn += per["encode"][1] + calls * per["unet"][1] + per["decode"][1]
-
-        for c in (FA.launches, GN.stats_launches, GN.apply_launches):
-            c.reset()
+        expect = expected_launches([img.shape[:2] for img, _ in jobs], per, tile, overlap, SD21_VAE.downscale)
+        reset_counts()
         t0 = time.perf_counter()
         outs = run_clients(server, jobs)
         wall = time.perf_counter() - t0
-        counts = {c.name: c.count for c in (FA.launches, GN.stats_launches, GN.apply_launches)}
+        counts = {k: v for k, v in read_counts().items() if k in expect}
         print(f"serve: 5 requests answered in {wall:.2f} s; launches {counts}; structure predicts "
-              f"flash {expect_flash}, group_norm {expect_gn} "
-              f"(one 512x512 request: flash {per['unet'][0]}, "
-              f"group_norm {sum(v[1] for v in per.values())})", flush=True)
-        assert counts["flash_attention_fwd"] == expect_flash > 0, counts
-        assert counts["group_norm_stats"] == expect_gn > 0, counts
-        assert counts["group_norm_apply"] == expect_gn, counts
+              f"{expect} (one 512x512 request: "
+              f"{expected_launches([(512, 512)], per, tile, overlap, SD21_VAE.downscale)})", flush=True)
+        assert counts == expect and expect["flash_attention_fwd"] > 0 and expect["group_norm_stats"] > 0, counts
+        assert expect["group_norm_stats"] == expect["group_norm_apply"] and expect["conv3x3_gn_fused"] == 0
 
         for (img, _), out in zip(jobs, outs):
             assert out.shape == img.shape and out.dtype == np.uint8, (out.shape, out.dtype)
@@ -650,7 +834,7 @@ def phase_serve(card, vae_params, unet_params, profile=False):
                     **{f"{k}_host_enqueue_ms": v for k, v in enqueue.items()}}
 
 
-def profile_stages(staged, stages, card):
+def profile_stages(staged, stages, card, label="512x512"):
     """With --profile: kernel time by name from torch.profiler. A stage's busy
     share is the sum of its kernels' times over the elapsed time measured
     without the profiler (its own overhead stretches the host side only)."""
@@ -676,11 +860,11 @@ def profile_stages(staged, stages, card):
         if busy_us == 0.0:
             print(f"profile: {name}: the profiler recorded no device time", flush=True)
             continue
-        print(f"profile: 512x512 {name} kernels busy {busy_us / 1e3:.3f} ms of {stages[name]:.3f} ms "
+        print(f"profile: {label} {name} kernels busy {busy_us / 1e3:.3f} ms of {stages[name]:.3f} ms "
               f"elapsed, idle share {1 - busy_us / 1e3 / stages[name]:.3f} [{card}]", flush=True)
     total = sum(t for _, t in by_kernel.values())
     for key, (n, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"profile: {t / 1e3:8.3f} ms {t / total:6.1%} {n:5d} x {key[:100]}", flush=True)
+        print(f"profile: {label} {t / 1e3:8.3f} ms {t / total:6.1%} {n:5d} x {key[:100]}", flush=True)
 
 
 def phase_http(server, small_u8):
@@ -712,21 +896,151 @@ def phase_http(server, small_u8):
 
 
 # ----------------------------------------------------------------------------
+# phase: serve-fused
+# ----------------------------------------------------------------------------
+
+
+def mean_steps(a, b):
+    d = np.abs(a.astype(int) - b.astype(int))
+    return d.mean(), d.max(), (d <= 16).mean()
+
+
+def phase_serve_fused(card, vae_params, unet_params, profile=False):
+    """The serving path in the fused-resblock configuration, beside the
+    unfused one built from the same parameters."""
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(4)
+    prompt = rng.standard_normal((1, 77, 1024)).astype(np.float32)
+    fused_cfg = dataclasses.replace(SD21_VAE, fused_resblocks=True)
+    args = serve_cli.parse_args(
+        ["--pipeline", "s", "--weight_dtype", "bf16", "--process_size", "512",
+         "--mid_timestep", "273", "--latent", "mean", "--port", "0"]
+    )
+    tile, overlap = args.process_size // 8, args.process_size // 16
+    servers = {
+        "fused": serve_cli.build_server(args, params=(vae_params, unet_params),
+                                        configs=(fused_cfg, SD21_UNET), prompt_embeds=prompt),
+        "unfused": serve_cli.build_server(args, params=(vae_params, unet_params), prompt_embeds=prompt),
+    }
+    try:
+        imgs512 = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(4)]
+        img1024 = rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8)  # a 256x256 input, upscaled 4x
+        jobs = [(imgs512[0], "nofix"), (imgs512[1], "adain"), (imgs512[2], "wavelet"),
+                (imgs512[3], "nofix"), (img1024, "nofix")]
+        per = structure_counts(fused_cfg, SD21_UNET)
+        one = expected_launches([(512, 512)], per, tile, overlap, SD21_VAE.downscale)
+        expect = expected_launches([img.shape[:2] for img, _ in jobs], per, tile, overlap, SD21_VAE.downscale)
+        n_resnets = sum(len(c) for c in vae_resnet_channels(fused_cfg))
+        assert one["conv3x3_gn_fused"] == 2 * n_resnets == 48, one  # every SD2.1 VAE resnet is eligible
+        assert unet_calls(1024, 1024, tile, overlap, SD21_VAE.downscale) > 1
+
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = run_clients(servers["fused"], jobs)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if k in expect}
+        print(f"serve-fused: 5 requests (four 512x512, one 1024x1024) answered in {wall:.2f} s; launches "
+              f"{counts}; structure predicts {expect} (one 512x512 request: {one})", flush=True)
+        assert counts == expect, (counts, expect)
+        for (img, _), out in zip(jobs, outs):
+            assert out.shape == img.shape and out.dtype == np.uint8, (out.shape, out.dtype)
+            assert out.std() > 1.0, "constant output"
+        m = servers["fused"].metrics()
+        assert m["requests"] == 5 and m["errors"] == 0, m
+
+        # identical requests: fused kernels, the same with every wrapper routed to its plain
+        # version, and the unfused kernel route (GroupNorm+SiLU kernels, cuDNN convolutions)
+        for name, img in (("512x512", imgs512[0]), ("1024x1024", img1024)):
+            fused = outs[0] if img is imgs512[0] else outs[4]
+            with route_kernels_to_plain():
+                plain = servers["fused"].process_array(img, "nofix")
+            unfused = servers["unfused"].process_array(img, "nofix")
+            again = servers["fused"].process_array(img, "nofix")
+            assert np.array_equal(again, fused), "the fused route gave two answers to one request"
+            for other, ref in (("its plain versions", plain), ("the unfused kernel route", unfused)):
+                mean, mx, share = mean_steps(fused, ref)
+                print(f"serve-fused: {name} request, fused route vs {other} (uint8 steps): mean {mean:.4f}, "
+                      f"max {mx}, share within 16 steps {share:.4f} (bounds: mean {MAX_MEAN_STEPS}, share 0.95)",
+                      flush=True)
+                assert mean <= MAX_MEAN_STEPS and share >= 0.95, (name, other, mean, share)
+
+        # request latency, fused beside unfused, in turns
+        lat = {"fused": [], "unfused": []}
+        for i in range(7):
+            for name in (("unfused", "fused") if i % 2 else ("fused", "unfused")):
+                t0 = time.perf_counter()
+                servers[name].process_array(imgs512[i % 4], "adain")
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        p50 = {k: statistics.median(v[1:]) for k, v in lat.items()}
+        print(f"timings: 512x512 request latency p50, in turns over 6 requests each (first excluded): fused "
+              f"{p50['fused']:.2f} ms, unfused {p50['unfused']:.2f} ms [{card}]", flush=True)
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+
+    pipes = {"fused": OMGSRSPipeline(vae_params, unet_params, fused_cfg, SD21_UNET, 273, device="cuda"),
+             "unfused": OMGSRSPipeline(vae_params, unet_params, SD21_VAE, SD21_UNET, 273, device="cuda")}
+    ctx = torch.from_numpy(prompt).to("cuda", dtype)
+    timings = {f"latency_ms_p50_512_{k}": v for k, v in p50.items()}
+    with torch.inference_mode():
+        for px, img in ((512, imgs512[0]), (1024, img1024)):
+            lq = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)[None].to("cuda", dtype)
+            z = pipes["unfused"].encode(lq, sample_latent=False)
+            z0 = pipes["unfused"].latent_mid(z, ctx, tile, overlap)
+            stages = {"vae_encode": lambda p: p.encode(lq, sample_latent=False),
+                      "unet": lambda p: p.latent_mid(z, ctx, tile, overlap),
+                      "vae_decode": lambda p: p.decode(z0)}
+            for name in ("vae_encode", "vae_decode"):
+                fn = stages[name]
+                a, a2 = fn(pipes["fused"]).float(), fn(pipes["fused"]).float()
+                with route_kernels_to_plain():
+                    plain = fn(pipes["fused"]).float()
+                unfused = fn(pipes["unfused"]).float()
+                rel_plain = ((a - plain).norm() / plain.norm()).item()
+                rel_unfused = ((a - unfused).norm() / unfused.norm()).item()
+                print(f"serve-fused: {px}x{px} {name}, same input: fused route vs its plain versions rel L2 "
+                      f"{rel_plain:.3g}, vs the unfused kernel route {rel_unfused:.3g} (bound "
+                      f"{MAX_STAGE_REL_L2}); fused twice: {'the same bits' if torch.equal(a, a2) else 'DIFFERENT'}",
+                      flush=True)
+                assert torch.isfinite(a).all() and torch.equal(a, a2), name
+                assert max(rel_plain, rel_unfused) <= MAX_STAGE_REL_L2, (name, rel_plain, rel_unfused)
+            iters = 5 if px == 512 else 3
+            for name, fn in stages.items():
+                if name == "unet" and px != 512:
+                    continue
+                # in turns: unfused, fused, fused, unfused
+                order = ("unfused", "fused", "fused", "unfused")
+                ms = {k: [] for k in pipes}
+                for k in order:
+                    ms[k].append(time_ms(lambda: fn(pipes[k]), iters=iters, warmup=1))
+                enqueue = {}
+                for k in pipes:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(pipes[k])
+                    enqueue[k] = (time.perf_counter() - t0) * 1e3
+                    torch.cuda.synchronize()
+                print(f"timings: {px}x{px} {name} on the device, in turns: fused {statistics.mean(ms['fused']):.2f} ms "
+                      f"({ms['fused'][0]:.2f}, {ms['fused'][1]:.2f}), unfused {statistics.mean(ms['unfused']):.2f} ms "
+                      f"({ms['unfused'][0]:.2f}, {ms['unfused'][1]:.2f}); host enqueue fused {enqueue['fused']:.2f} ms, "
+                      f"unfused {enqueue['unfused']:.2f} ms [{card}]", flush=True)
+                for k in pipes:
+                    timings[f"{name}_{px}_{k}_ms"] = statistics.mean(ms[k])
+                    timings[f"{name}_{px}_{k}_host_enqueue_ms"] = enqueue[k]
+            if profile and px == 512:
+                vae_stages = ("vae_encode", "vae_decode")
+                profile_stages({n: (lambda fn=stages[n]: fn(pipes["fused"])) for n in vae_stages},
+                               {n: timings[f"{n}_512_fused_ms"] for n in vae_stages}, card,
+                               "512x512 fused")
+    return counts, timings
+
+
+# ----------------------------------------------------------------------------
 # phase: train
 # ----------------------------------------------------------------------------
 
-ALL_COUNTERS = (FA.launches, FA.dq_launches, FA.dkv_launches, GN.stats_launches, GN.apply_launches)
 LOSSES = ("loss_LRR", "loss_Dv3D", "loss_L1", "loss_G", "loss_D_fake", "loss_D_real")
 METRICS = LOSSES + ("loss_total_G", "loss_total_D", "grad_norm_G", "grad_norm_D")
-
-
-def reset_counts():
-    for c in ALL_COUNTERS:
-        c.reset()
-
-
-def read_counts():
-    return {c.name: c.count for c in ALL_COUNTERS}
 
 
 def micro_step_counts(vae_cfg, unet_cfg):
@@ -734,10 +1048,11 @@ def micro_step_counts(vae_cfg, unet_cfg):
     two VAE encodes (hq frozen, lq with LoRA), one UNet call, one decode;
     every flash forward under autograd has one dQ and one dK/dV launch."""
     per = structure_counts(vae_cfg, unet_cfg)
-    flash = 2 * per["encode"][0] + per["unet"][0] + per["decode"][0]
-    gn = 2 * per["encode"][1] + per["unet"][1] + per["decode"][1]
+    flash, gn = (2 * per["encode"][k] + per["unet"][k] + per["decode"][k]
+                 for k in ("flash_attention_fwd", "group_norm_stats"))
     return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
-            "flash_attention_bwd_dkv": flash, "group_norm_stats": gn, "group_norm_apply": gn}
+            "flash_attention_bwd_dkv": flash, "group_norm_stats": gn, "group_norm_apply": gn,
+            "conv3x3": 0, "conv3x3_gn_fused": 0}
 
 
 def evaluate_micro_step(trainer, batch, noise):
@@ -1013,7 +1328,13 @@ KERNELS = [
      "omgsr_tpu/ops/fused_groupnorm.py:38"),
     ("group_norm_apply", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
      "omgsr_tpu/ops/fused_groupnorm.py:58"),
+    ("conv3x3", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:30"),
+    ("conv3x3_gn_fused", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:90"),
 ]
+# conv3x3 has no caller in the JAX package outside its tests (the fused resblock is two
+# launches of conv3x3_gn_fused), so no path of the port runs it: the kernels phase holds it
+# against its plain version, and its count over the paths is 0
+OFF_PATH = ("conv3x3",)
 
 
 def main():
@@ -1033,19 +1354,29 @@ def main():
     shapes = phase_kernels()
     vae_params, unet_params = init_sd21(torch.bfloat16)
     serve_counts, timings = phase_serve(card, vae_params, unet_params, args.profile)
+    fused_counts, fused_timings = phase_serve_fused(card, vae_params, unet_params, args.profile)
     train_counts, train_timings = phase_train(card, vae_params, unet_params, args.profile)
+    timings.update(fused_timings)
     timings.update(train_timings)
 
     kernels = []
     for name, source, replaces in KERNELS:
         head = shapes[name][0]  # the largest shape of the serving and training paths
-        on_path = [r for r in shapes[name] if r.get("on_serving_path") or r.get("on_training_path")]
+        on_path = [r for r in shapes[name] if r.get("on_serving_path") or r.get("on_training_path")] \
+            or shapes[name]
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
-        assert launches_train > 0 and (launches_serve > 0 or "bwd" in name), (name, launches_serve)
+        launches_fused = fused_counts.get(name, 0)
+        if name in OFF_PATH:
+            assert launches_serve + launches_fused + launches_train == 0, name
+        elif name.startswith("conv3x3"):
+            assert launches_fused > 0 and launches_serve == launches_train == 0, name
+        else:
+            assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0)), name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches_serve + launches_train,
-            "launches_serve": launches_serve, "launches_train": launches_train,
+            "launches": launches_serve + launches_fused + launches_train,
+            "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
+            "launches_train": launches_train, "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -27,6 +27,9 @@ class VAEConfig:
     use_quant_conv: bool = True
     use_post_quant_conv: bool = True
     mid_block_attention: bool = True
+    # route every eligible resnet (ops/conv3x3.fused_resblock_eligible) through
+    # the fused GN+SiLU -> conv3x3 kernels; inference only
+    fused_resblocks: bool = False
 
     @property
     def downscale(self) -> int:

@@ -3,8 +3,12 @@
 Parameter-tree key paths mirror the HF safetensors layout
 (encoder.down_blocks.0.resnets.0.conv1 ...). All tensors NHWC. GroupNorm eps
 is 1e-6 throughout the VAE (diffusers default for AutoencoderKL blocks).
-The GroupNorm-statistics hook and the fused-resblock selector of the JAX
-package arrive with the tiled-VAE slice.
+With ``cfg.fused_resblocks`` every eligible resnet of the encoder, the mid
+blocks and the decoder runs as ``ops/conv3x3.fused_resblock`` (two launches of
+the fused GN+SiLU -> conv3x3 kernel); the others, and every resnet without
+the flag, run ``_resnet``. The GroupNorm-statistics hook of the JAX package
+arrives with the tiled-VAE slice, its per-block remat with the slice that
+trains through it.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from omgsr_tpu_torch.models.layers import (
     upsample_conv_2x,
 )
 from omgsr_tpu_torch.ops.attention import dot_product_attention
+from omgsr_tpu_torch.ops.conv3x3 import fused_resblock, fused_resblock_eligible
 
 _EPS = 1e-6
 
@@ -48,11 +53,23 @@ def _mid_attention(p, x, groups):
     return x + o.reshape(b, hh, ww, c)
 
 
-def _mid_block(p, x, groups):
-    x = _resnet(p["resnets"]["0"], x, groups)
+def _mid_block(p, x, groups, res=_resnet):
+    x = res(p["resnets"]["0"], x, groups)
     if "attentions" in p:
         x = _mid_attention(p["attentions"]["0"], x, groups)
-    return _resnet(p["resnets"]["1"], x, groups)
+    return res(p["resnets"]["1"], x, groups)
+
+
+def _fused_or_plain_resnet(p, x, groups):
+    if fused_resblock_eligible(p, x, groups):
+        return fused_resblock(p, x, groups, _EPS)
+    return _resnet(p, x, groups)
+
+
+def _select_resnet(cfg: VAEConfig):
+    """Resnet executor for the given config: the fused kernels per eligible
+    shape (inference), or the plain block."""
+    return _fused_or_plain_resnet if cfg.fused_resblocks else _resnet
 
 
 def vae_encode_features(params, cfg: VAEConfig, x):
@@ -60,13 +77,14 @@ def vae_encode_features(params, cfg: VAEConfig, x):
     p = params["encoder"]
     g = cfg.norm_num_groups
     h = conv2d(p["conv_in"], x, padding=1)
+    res = _select_resnet(cfg)
     for i in range(len(cfg.block_out_channels)):
         blk = p["down_blocks"][str(i)]
         for j in range(cfg.layers_per_block):
-            h = _resnet(blk["resnets"][str(j)], h, g)
+            h = res(blk["resnets"][str(j)], h, g)
         if "downsamplers" in blk:
             h = downsample_conv_2x(blk["downsamplers"]["0"]["conv"], h)
-    h = _mid_block(p["mid_block"], h, g)
+    h = _mid_block(p["mid_block"], h, g, res=res)
     h = group_norm_silu(p["conv_norm_out"], h, g, _EPS)
     h = conv2d(p["conv_out"], h, padding=1)
     if "quant_conv" in params:
@@ -128,11 +146,12 @@ def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True):
     p = params["decoder"]
     g = cfg.norm_num_groups
     h = conv2d(p["conv_in"], z, padding=1)
-    h = _mid_block(p["mid_block"], h, g)
+    res = _select_resnet(cfg)
+    h = _mid_block(p["mid_block"], h, g, res=res)
     for i in range(len(cfg.block_out_channels)):
         blk = p["up_blocks"][str(i)]
         for j in range(cfg.layers_per_block + 1):
-            h = _resnet(blk["resnets"][str(j)], h, g)
+            h = res(blk["resnets"][str(j)], h, g)
         if "upsamplers" in blk:
             h = upsample_conv_2x(blk["upsamplers"]["0"]["conv"], h)
     h = group_norm_silu(p["conv_norm_out"], h, g, _EPS)

@@ -19,12 +19,18 @@ from omgsr_tpu_torch.ops import flash_attention as FA
 
 
 def matmul_attention(q, k, v, *, bias=None, scale: float | None = None):
-    """Explicit softmax attention; bias (B, H, Sq, Sk) is added to the scores."""
+    """Explicit softmax attention; bias (B, H, Sq, Sk) is added to the scores.
+
+    The scores are the f32 accumulation of the products, scaled, biased and
+    soft-maxed in f32, as ``jax.nn.dot_product_attention`` computes them: q
+    and k are widened before the product (a bf16 product is exact in f32), so
+    no score is rounded to the input type on its way to the softmax."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    s = torch.matmul(qh, kh.transpose(-1, -2)).float() * scale
+    wide = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(qh.to(wide), kh.to(wide).transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
     p = torch.softmax(s, dim=-1).to(q.dtype)

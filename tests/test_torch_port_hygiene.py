@@ -27,7 +27,7 @@ def test_every_module_imports_without_jax():
     assert len(names) > 35
     for sub in ("config", "lora.lora", "losses.dists", "losses.diffaug", "losses.discriminator",
                 "models.convnext", "training.optim", "training.trainer", "training.checkpoint",
-                "cli.train_omgsr_s", "utils.tree"):
+                "cli.train_omgsr_s", "utils.tree", "ops.conv3x3", "tools.check_conv3x3"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -141,10 +141,62 @@ def test_backward_kernels_hold_no_atomics_and_no_library_calls():
         assert banned not in code.lower(), banned
 
 
+def test_conv_kernels_hold_no_atomics_and_no_library_calls():
+    """The 3x3-conv kernels write one row of channel sums per block and the
+    caller adds the rows: their source holds no atomic operation, and the
+    nine products are its own, not a library's."""
+    src = (ROOT / "omgsr_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
+    code = "\n".join(l.split("//")[0] for l in src.splitlines())
+    assert "conv3x3_mma_kernel" in code and "conv3x3_fma_kernel" in code and "mma_bf16(" in code
+    for banned in ("atomic", "cublas", "cudnn", "cutlass"):
+        assert banned not in code.lower(), banned
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "fused_groupnorm", "conv3x3"])
+def test_kernel_wrappers_hold_no_try_that_gives_way(module):
+    """On a CUDA tensor a wrapper launches its kernel or raises: no wrapper
+    module catches an exception, and each reads the test-only plain route."""
+    src = (ROOT / "omgsr_tpu_torch" / "ops" / f"{module}.py").read_text()
+    assert not re.search(r"^\s*(try|except)\b", src, re.M)
+    assert "plain_route_active()" in src and "LaunchCounter(" in src
+
+
+def test_conv_wrappers_refuse_on_a_cuda_tensor_what_the_kernels_do_not_take(monkeypatch):
+    """The checks that run before a launch, driven on meta tensors made to
+    look like CUDA ones: a channel count that is no multiple of 128, fp16 and
+    batch 2 raise; nothing is computed by the plain version."""
+    from omgsr_tpu_torch.ops import conv3x3 as C3
+
+    def called(*a, **k):
+        raise AssertionError("the plain version was taken")
+
+    monkeypatch.setattr(C3, "conv3x3_plain", called)
+    monkeypatch.setattr(C3, "conv3x3_gn_fused_plain", called)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta").as_subclass(OnCard)
+
+    for x, w, err in (
+        (meta(1, 8, 8, 192), meta(128, 192, 3, 3), ValueError),
+        (meta(1, 8, 8, 128), meta(64, 128, 3, 3), ValueError),
+        (meta(1, 8, 8, 128, dtype=torch.float16), meta(128, 128, 3, 3, dtype=torch.float16), NotImplementedError),
+        (meta(2, 8, 8, 128), meta(128, 128, 3, 3), NotImplementedError),
+    ):
+        cout, cin = w.shape[:2]
+        with pytest.raises(err):
+            C3.conv3x3(x, w, meta(cout))
+        with pytest.raises(err):
+            C3.conv3x3_gn_fused(x, w, meta(cout), meta(cin, dtype=torch.float32), meta(cin, dtype=torch.float32))
+
+
 def test_kernel_sources_ship_with_the_package():
     from omgsr_tpu_torch.ops import kernel_build
 
-    assert kernel_build.kernel_sources() == ["flash_attention_bwd", "flash_attention_fwd", "group_norm_silu"]
+    assert kernel_build.kernel_sources() == ["conv3x3", "flash_attention_bwd", "flash_attention_fwd",
+                                             "group_norm_silu"]
     # no nvcc on a CPU host: a build is refused loudly, never skipped
     import shutil
 

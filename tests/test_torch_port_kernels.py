@@ -81,6 +81,30 @@ def test_dot_product_attention_matches_jax(d, bias):
     assert_close(out, ref, 1e-5)
 
 
+@pytest.mark.parametrize("shape,skv,bias", [((1, 256, 1, 512), 256, False), ((2, 64, 2, 64), 48, True)])
+def test_matmul_attention_bf16_keeps_f32_scores(shape, skv, bias):
+    """bf16 on the CPU: the VAE mid block's site (one 512-wide head) and a
+    biased site against jax.nn.dot_product_attention, which keeps the scores
+    as the f32 accumulator. Bound: one bf16 rounding of the output, 2^-8 of
+    its largest value (found: 0.0020 at |out| <= 4.2 and 0.0010 at 3.9; with
+    scores rounded to bf16 before the softmax 0.148 and 0.168). Inputs three
+    times the unit normal, so that the scores are large enough to show it."""
+    rng = np.random.default_rng(0)
+    b, s, h, d = shape
+    q = jnp.asarray(rng.standard_normal(shape) * 3.0, jnp.bfloat16)
+    k = jnp.asarray(rng.standard_normal((b, skv, h, d)) * 3.0, jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((b, skv, h, d)), jnp.bfloat16)
+    bb = jnp.asarray(rng.standard_normal((b, h, s, skv)), jnp.bfloat16) if bias else None
+    ref = np.asarray(j_dot_product_attention(q, k, v, bias=bb, implementation="xla").astype(jnp.float32))
+
+    def bf16(a):
+        return t(np.asarray(a.astype(jnp.float32))).bfloat16()
+
+    out = TA.dot_product_attention(bf16(q), bf16(k), bf16(v), bias=None if bb is None else bf16(bb))
+    assert out.dtype == torch.bfloat16
+    assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = (t(a) for a in _qkv((1, 8, 1, 64), 8, 4))
     with pytest.raises(ValueError):

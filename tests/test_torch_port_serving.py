@@ -298,12 +298,10 @@ def test_fused_matches_two_dispatch_path(model):
         srv_b.shutdown()
 
 
-@pytest.mark.parametrize("align", ["adain", "wavelet", "nofix"])
-def test_one_png_answered_by_both_servers(model, align):
-    """The same PNG through the JAX server and the port, shared weights,
-    posterior-mean latent: the images agree within one uint8 step (the
-    pipelines agree to 1e-3 in [-1,1], far below half a step, so only a
-    value sitting on a rounding boundary can differ)."""
+@pytest.fixture(scope="module")
+def both_servers(model):
+    """The JAX server and the port's on the same weights, built (and the JAX
+    pipeline compiled) once for the cases below."""
     vp, up, prompt = model
     jpipe = JPipeline(vp, up, J_TINY_VAE, J_TINY_UNET)
     jsrv = JSRServer(
@@ -312,15 +310,23 @@ def test_one_png_answered_by_both_servers(model, align):
     )
     infer_fn, fused_fn = _port_fns(model)
     tsrv = SRServer(infer_fn, ServeOptions(**OPTS), fused_infer_fn=fused_fn, device="cpu")
+    yield jsrv, tsrv
+    jsrv.shutdown()
+    tsrv.shutdown()
+
+
+@pytest.mark.parametrize("align", ["adain", "wavelet", "nofix"])
+def test_one_png_answered_by_both_servers(both_servers, align):
+    """The same PNG through the JAX server and the port, shared weights,
+    posterior-mean latent: the images agree within one uint8 step (the
+    pipelines agree to 1e-3 in [-1,1], far below half a step, so only a
+    value sitting on a rounding boundary can differ)."""
+    jsrv, tsrv = both_servers
     body = _png_bytes(8, 6, seed=5)
-    try:
-        a = np.asarray(Image.open(io.BytesIO(jsrv.process_image(body, align=align))))
-        b = np.asarray(Image.open(io.BytesIO(tsrv.process_image(body, align=align))))
-        assert a.shape == b.shape == (32, 24, 3)
-        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
-    finally:
-        jsrv.shutdown()
-        tsrv.shutdown()
+    a = np.asarray(Image.open(io.BytesIO(jsrv.process_image(body, align=align))))
+    b = np.asarray(Image.open(io.BytesIO(tsrv.process_image(body, align=align))))
+    assert a.shape == b.shape == (32, 24, 3)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
 class TestImageIO:
