@@ -9,7 +9,9 @@
 The checkpoint load path is not ported yet, so ``--sd_path`` raises; until
 then ``build_server`` takes the pipeline's parameters (and optionally the
 prompt embeddings) in memory from its caller. Dispatch defaults to serial
-batch-1 with opt-in fixed-size micro-batching.
+batch-1 with opt-in fixed-size micro-batching. ``--vae_tile N`` sends the VAE
+stages of images larger than N pixels through the tiled VAE, with
+``--vae_stats fast|exact|auto`` (see ``inference/pipeline_s.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,11 @@ def load_prompt_npz(path: str) -> dict:
 
 
 def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
-    """Build the pipeline and return (infer_fn, fused_infer_fn)."""
+    """Build the pipeline and return (infer_fn, fused_infer_fn | None).
+
+    The fused function folds the colour fix into the request's dispatch; as
+    in the JAX server there is none under ``--vae_tile``, where the colour fix
+    runs on the handler thread after the SR step."""
     tile_size = args.process_size // 8
     tile_overlap = tile_size // 2
 
@@ -56,7 +62,8 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     vae_params, unet_params = params
     vae_cfg, unet_cfg = configs
     pipe = OMGSRSPipeline(
-        vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep, device=device
+        vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep,
+        vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
     )
     sample = args.latent == "sample"
 
@@ -70,6 +77,8 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     def infer_fn(lq, i):
         return pipe_call(torch.as_tensor(lq).to(device=device, dtype=dtype), i)
 
+    if args.vae_tile:
+        return infer_fn, None
     return infer_fn, make_fused_infer(pipe_call, dtype, device)
 
 
@@ -134,6 +143,11 @@ def parse_args(argv=None):
                         help="the CUDA kernels take bf16 and f32")
     parser.add_argument("--prompt_npz", type=str, default=None)
     parser.add_argument("--mid_timestep", type=int, default=273)
+    parser.add_argument("--vae_tile", type=int, default=None,
+                        help="tile the VAE stages of images whose larger side exceeds this many pixels")
+    parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],
+                        help="GroupNorm statistics of the tiled VAE: from a downsampled copy (fast), "
+                        "exact over the whole image (exact), or exact past a downsample ratio of 4 (auto)")
     parser.add_argument("--size_bucket", type=int, default=64)
     parser.add_argument("--max_batch", type=int, default=1)
     parser.add_argument("--batch_window_ms", type=float, default=5.0)

@@ -17,16 +17,21 @@
 //     Sq and Skv itself, so no copy is made before or after the launch.
 //
 // Bound on this card: operations (4*B*H*Sq*Skv*D flops against ~1 byte per
-// 2*Skv flops of input). Two kernels share the block layout above:
+// 2*Skv flops of input). Three kernels share the block layout above:
 //   * flash_fwd_kernel (f32 inputs): plain f32 FMAs from
-//     shared memory (both tiles staged as f32, 4x4 register micro-tiles,
-//     conflict-free float4 reads). Exact for f32 inputs, far from the
-//     tensor-core rate. 256 threads; shared memory Q, K, V tiles [64][D+4]
-//     f32, scores [64][68] f32, m/l/alpha [64] each: 70,400 bytes for D=64
-//     and 119,552 bytes for D=128 (dynamic, opt-in).
-//   * flash_fwd_mma_kernel (bf16 inputs): tensor cores through mma.sync,
-//     described where it is defined. wgmma, TMA and double buffering are
-//     not used yet.
+//     shared memory (both tiles staged as f32, register micro-tiles of
+//     TQ/16 x TK/16 scores, conflict-free float4 reads). Exact for f32
+//     inputs, far from the tensor-core rate. 256 threads; shared memory Q
+//     [TQ][D+4], K and V [TK][D+4], scores [TQ][TK+4] f32, m/l/alpha [TQ]
+//     each (dynamic, opt-in): TQ = TK = 64 at D = 64 and 128 (70,400 and
+//     119,552 bytes); at D = 512 the tiles shrink to TQ = TK = 32 (203,136
+//     bytes of the 232,448 a block may have).
+//   * flash_fwd_mma_kernel (bf16 inputs, D = 64 and 128): tensor cores
+//     through mma.sync, described where it is defined.
+//   * flash_fwd_wide_kernel (bf16 inputs, D = 512, the VAE mid block's one
+//     head): tensor cores through mma.sync with the scores and the output
+//     split over eight warps, described where it is defined.
+//   wgmma, TMA and double buffering are not used yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +46,6 @@ using namespace omgsr_mma;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr int LS = BK + 4;
 constexpr float NEG_INF = -1e30f;
 
 template <typename T>
@@ -59,15 +63,15 @@ struct Vec16<float> {
   }
 };
 
-// Stage a 64-row tile of a (rows, D) matrix with the given row stride into
-// shared memory as f32 [64][D+4], times `mul`; rows >= rows_valid become 0.
-template <typename T, int D>
+// Stage a ROWS-row tile of a (rows, D) matrix with the given row stride into
+// shared memory as f32 [ROWS][D+4], times `mul`; rows >= rows_valid become 0.
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_stride,
                                           int rows_valid, float mul) {
   constexpr int N = Vec16<T>::N;
   constexpr int VPR = D / N;
   constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
     const int r = idx / VPR;
     const int v = idx % VPR;
     float vals[N];
@@ -94,22 +98,26 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-template <typename T, int D>
+template <typename T, int D, int TQ, int TK>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
   constexpr int LD = D + 4;
-  constexpr int DG = D / 64;  // float4 column groups per thread in the PV product
+  constexpr int LS = TK + 4;
+  constexpr int DG = D / 64;    // float4 column groups per thread in the PV product
+  constexpr int IQ = TQ / 16;   // q rows per thread
+  constexpr int JK = TK / 16;   // kv columns per thread
+  constexpr int TPR = NT / TQ;  // lanes that share one row in the softmax
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ss = Vs + BK * LD;
-  float* m_s = Ss + BQ * LS;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+  float* Ks = Qs + TQ * LD;
+  float* Vs = Ks + TK * LD;
+  float* Ss = Vs + TK * LD;
+  float* m_s = Ss + TQ * LS;
+  float* l_s = m_s + TQ;
+  float* a_s = l_s + TQ;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -117,83 +125,83 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TQ;
 
   const T* q_base = q + b * q_sb + h * q_sh + (int64_t)q0 * q_ss;
   const T* k_base = k + b * k_sb + h * k_sh;
   const T* v_base = v + b * v_sb + h * v_sh;
 
-  load_tile<T, D>(Qs, q_base, q_ss, min(BQ, Sq - q0), scale);
-  if (tid < BQ) {
+  load_tile<T, D, TQ>(Qs, q_base, q_ss, min(TQ, Sq - q0), scale);
+  if (tid < TQ) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
 
-  float acc[4][4 * DG];
+  float acc[IQ][4 * DG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < IQ; ++i)
 #pragma unroll
     for (int j = 0; j < 4 * DG; ++j) acc[i][j] = 0.f;
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    const int kvalid = min(BK, Skv - kv0);
+  for (int kv0 = 0; kv0 < Skv; kv0 += TK) {
+    const int kvalid = min(TK, Skv - kv0);
     __syncthreads();  // the previous tile's readers of Ks/Vs/Ss are done
-    load_tile<T, D>(Ks, k_base + (int64_t)kv0 * k_ss, k_ss, kvalid, 1.f);
-    load_tile<T, D>(Vs, v_base + (int64_t)kv0 * v_ss, v_ss, kvalid, 1.f);
+    load_tile<T, D, TK>(Ks, k_base + (int64_t)kv0 * k_ss, k_ss, kvalid, 1.f);
+    load_tile<T, D, TK>(Vs, v_base + (int64_t)kv0 * v_ss, v_ss, kvalid, 1.f);
     __syncthreads();
 
     // S = (Q*scale) K^T; this thread owns rows ty+16i and columns tx+16j
-    float s[4][4];
+    float s[IQ][JK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < IQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < JK; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      float4 qv[IQ], kv[JK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < IQ; ++i)
         qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < JK; ++j)
         kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < IQ; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < JK; ++j)
           s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y + qv[i].z * kv[j].z +
                      qv[i].w * kv[j].w;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < IQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const int col = tx + 16 * j;
         Ss[(ty + 16 * i) * LS + col] = (col < kvalid) ? s[i][j] : NEG_INF;
       }
     __syncthreads();
 
-    // online softmax: four neighbouring lanes share one row
+    // online softmax: TPR neighbouring lanes share one row
     {
-      const int row = tid >> 2;
-      const int part = tid & 3;
+      const int row = tid / TPR;
+      const int part = tid % TPR;
       float* srow = Ss + row * LS;
       float mx = NEG_INF;
 #pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj) mx = fmaxf(mx, srow[part + 4 * jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      for (int jj = 0; jj < TK / TPR; ++jj) mx = fmaxf(mx, srow[part + TPR * jj]);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = m_s[row];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj) {
-        const float p = __expf(srow[part + 4 * jj] - m_new);
-        srow[part + 4 * jj] = p;
+      for (int jj = 0; jj < TK / TPR; ++jj) {
+        const float p = __expf(srow[part + TPR * jj] - m_new);
+        srow[part + TPR * jj] = p;
         sum += p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       __syncwarp();  // every lane of the row has read m_old
       if (part == 0) {
         const float alpha = __expf(m_old - m_new);
@@ -206,16 +214,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
     // acc = acc*alpha + P V; rows ty+16i, columns g*64 + tx*4 .. +3
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < IQ; ++i) {
       const float alpha = a_s[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < 4 * DG; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
+    for (int c = 0; c < TK; c += 4) {
+      float4 pv[IQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < IQ; ++i)
         pv[i] = *reinterpret_cast<const float4*>(Ss + (ty + 16 * i) * LS + c);
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
           const float4 vv =
               *reinterpret_cast<const float4*>(Vs + (c + cc) * LD + g * 64 + tx * 4);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < IQ; ++i) {
             const float p = comp(pv[i], cc);
             acc[i][4 * g + 0] += p * vv.x;
             acc[i][4 * g + 1] += p * vv.y;
@@ -240,7 +248,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int64_t o_ss = (int64_t)H * D;
   T* o_base = o + ((int64_t)b * Sq + q0) * o_ss + (int64_t)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < IQ; ++i) {
     const int row = ty + 16 * i;
     if (q0 + row < Sq) {
       const float inv = 1.f / l_s[row];
@@ -250,7 +258,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
                acc[i][4 * g + 1] * inv, acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
     }
   }
-  if (tid < BQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+  if (tid < TQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
 // ----------------------------------------------------------------------------
@@ -410,6 +418,190 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
   }
 }
 
+// ----------------------------------------------------------------------------
+// bf16 path at D = 512 (the VAE mid block's single head): the same
+// recurrence, tiles cut for the width. At D = 512 one warp cannot hold 16 q
+// rows as flash_fwd_mma_kernel does (Q fragments 128 and the accumulator 256
+// registers a thread), so the block's eight warps split the work and share
+// what they must through shared memory:
+//   * a block owns WQ = 64 q rows, staged once in shared memory with the
+//     streamed K and V tiles of WK = 32 kv rows, all bf16 with rows padded by
+//     16 bytes;
+//   * scores: warp (rw, cw) = (warp % 4, warp / 4) computes the 16 x 16 block
+//     of q rows rw*16.. and kv columns cw*16.. over the 32 k-steps of D, A
+//     and B fragments by ldmatrix, and writes it scaled and masked as f32;
+//   * the online softmax runs from shared memory, four lanes per row: the
+//     row maxima, P = exp(S - m) rounded to bf16 into its own tile (row sums
+//     taken in f32 before the rounding), and the running m, l and the
+//     rescale factor of every row;
+//   * output: warp (rw, cw) owns q rows rw*16.. and the D/2 = 256 columns
+//     cw*256.., a 16 x 256 f32 accumulator (128 registers a thread); it reads
+//     P by ldmatrix and V by ldmatrix.trans.
+// Shared memory: Q 64 x 520, K and V 32 x 520 bf16, P 64 x 40 bf16, scores
+// 64 x 36 f32, m / l / alpha 64 f32 each: 148,224 bytes at D = 512 (opt-in),
+// so one block per SM; 4096 q rows give 64 blocks for 132 SMs.
+// ----------------------------------------------------------------------------
+
+constexpr int WQ = 64;    // q rows of a block
+constexpr int WK = 32;    // kv rows of a streamed tile
+constexpr int WNT = 256;  // eight warps
+
+template <int D>
+constexpr int wide_fwd_smem_bytes() {
+  return (WQ + 2 * WK) * (D + 8) * 2 + WQ * (WK + 8) * 2 + WQ * (WK + 4) * 4 + 3 * WQ * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WNT, 1) flash_fwd_wide_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int H, int Sq, int Skv, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
+  constexpr int LD = D + 8;     // bf16 row of a staged tile
+  constexpr int LP = WK + 8;    // bf16 row of P
+  constexpr int LSF = WK + 4;   // f32 row of the scores
+  constexpr int KS = D / 16;    // k-steps of the score product
+  constexpr int NW = D / 16;    // n-tiles of a warp's half of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + WQ * LD;
+  __nv_bfloat16* Vs = Ks + WK * LD;
+  __nv_bfloat16* Ps = Vs + WK * LD;
+  float* Ss = reinterpret_cast<float*>(Ps + WQ * LP);
+  float* m_s = Ss + WQ * LSF;
+  float* l_s = m_s + WQ;
+  float* a_s = l_s + WQ;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int rw = warp & 3;   // this warp's 16 rows
+  const int cw = warp >> 2;  // this warp's kv columns (scores) and half of D (output)
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * WQ;
+
+  const __nv_bfloat16* k_base = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* v_base = v + b * v_sb + h * v_sh;
+
+  stage_rows_bf16<D, WQ, WNT>(Qs, q + b * q_sb + h * q_sh + (int64_t)q0 * q_ss, q_ss,
+                              min(WQ, Sq - q0));
+  if (tid < WQ) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+
+  float acc[NW][4];
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kv0 = 0; kv0 < Skv; kv0 += WK) {
+    const int kvalid = min(WK, Skv - kv0);
+    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps, a_s are done
+    stage_rows_bf16<D, WK, WNT>(Ks, k_base + (int64_t)kv0 * k_ss, k_ss, kvalid);
+    stage_rows_bf16<D, WK, WNT>(Vs, v_base + (int64_t)kv0 * v_ss, v_ss, kvalid);
+    __syncthreads();
+
+    // S = Q K^T for rows rw*16.. and kv columns cw*16.. (two n-tiles)
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 4
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t af[4], bf[4];
+      ldmatrix_a(af, Qs, LD, rw * 16, ks * 16, lane);
+      ldmatrix_b2(bf, Ks, LD, cw * 16, ks * 16, lane);
+      mma_bf16(s[0], af, bf[0], bf[1]);
+      mma_bf16(s[1], af, bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = cw * 16 + j * 8 + tig * 2;
+      const int r = rw * 16 + g;
+      *reinterpret_cast<float2*>(Ss + r * LSF + col) =
+          make_float2(col < kvalid ? s[j][0] * scale : NEG_INF,
+                      col + 1 < kvalid ? s[j][1] * scale : NEG_INF);
+      *reinterpret_cast<float2*>(Ss + (r + 8) * LSF + col) =
+          make_float2(col < kvalid ? s[j][2] * scale : NEG_INF,
+                      col + 1 < kvalid ? s[j][3] * scale : NEG_INF);
+    }
+    __syncthreads();
+
+    // online softmax: four neighbouring lanes share one row, WK / 4 columns each
+    {
+      const int row = tid >> 2;
+      const int part = tid & 3;
+      const float* srow = Ss + row * LSF;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < WK / 4; ++jj) mx = fmaxf(mx, srow[part + 4 * jj]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = m_s[row];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < WK / 4; ++jj) {
+        const float p = __expf(srow[part + 4 * jj] - m_new);
+        Ps[row * LP + part + 4 * jj] = __float2bfloat16(p);
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      __syncwarp();  // every lane of the row has read m_old
+      if (part == 0) {
+        const float alpha = __expf(m_old - m_new);
+        a_s[row] = alpha;
+        l_s[row] = l_s[row] * alpha + sum;
+        m_s[row] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V over rows rw*16.. and columns cw*D/2..
+    const float al_lo = a_s[rw * 16 + g], al_hi = a_s[rw * 16 + g + 8];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      acc[j][0] *= al_lo;
+      acc[j][1] *= al_lo;
+      acc[j][2] *= al_hi;
+      acc[j][3] *= al_hi;
+    }
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      uint32_t pf[4];
+      ldmatrix_a(pf, Ps, LP, rw * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < NW; j += 2) {
+        uint32_t vf[4];
+        ldmatrix_b2_trans(vf, Vs, LD, kk * 16, cw * (D / 2) + j * 8, lane);
+        mma_bf16(acc[j], pf, vf[0], vf[1]);
+        mma_bf16(acc[j + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // l_s / m_s were last written before the barrier that precedes the final PV
+  const int64_t o_ss = (int64_t)H * D;
+  __nv_bfloat16* o_base = o + (int64_t)b * Sq * o_ss + (int64_t)h * D;
+  const int r_lo = q0 + rw * 16 + g, r_hi = r_lo + 8;
+  const float inv_lo = 1.f / l_s[rw * 16 + g], inv_hi = 1.f / l_s[rw * 16 + g + 8];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int c = cw * (D / 2) + j * 8 + tig * 2;
+    if (r_lo < Sq)
+      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_lo * o_ss + c) =
+          pack_bf16(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
+    if (r_hi < Sq)
+      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_hi * o_ss + c) =
+          pack_bf16(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
+  }
+  if (tid < WQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+}
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
@@ -422,16 +614,33 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
+  constexpr int smem_bytes = wide_fwd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + WQ - 1) / WQ, B * H);
+  flash_fwd_wide_kernel<D><<<grid, WNT, smem_bytes, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, lse, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], scale);
+  return (int)cudaGetLastError();
+}
+
+// The f32 FMA kernel with TQ q rows a block and TK kv rows a streamed tile.
+template <typename T, int D, int TQ, int TK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
            int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
   constexpr int LD = D + 4;
-  constexpr int smem_bytes = (BQ * LD + 2 * BK * LD + BQ * LS + 3 * BQ) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  constexpr int smem_bytes =
+      (TQ * LD + 2 * TK * LD + TQ * (TK + 4) + 3 * TQ) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, TQ, TK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem_bytes, stream>>>(
+  dim3 grid((Sq + TQ - 1) / TQ, B * H);
+  flash_fwd_kernel<T, D, TQ, TK><<<grid, NT, smem_bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Sq, Skv, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], scale);
   return (int)cudaGetLastError();
@@ -441,9 +650,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 // q (B,Sq,H,D), k/v (B,Skv,H,D) read through element strides (batch, seq,
 // head; the D axis is contiguous); o is a contiguous (B,Sq,H,D), lse a
-// contiguous (B*H,Sq) f32. dtype: 0 = bf16 (tensor-core kernel), 1 = f32 (FMA
-// kernel). Every row start must be 16-byte aligned. Returns 0, a CUDA error
-// code, or -1 for an unsupported dtype / head dim.
+// contiguous (B*H,Sq) f32. dtype: 0 = bf16 (tensor-core kernels), 1 = f32 (FMA
+// kernel). D: 64, 128 or 512. Every row start must be 16-byte aligned. Returns
+// 0, a CUDA error code, or -1 for an unsupported dtype / head dim.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int B, int H, int Sq, int Skv, int D,
                                    long long q_sb, long long q_ss, long long q_sh,
@@ -454,8 +663,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return launch_mma<64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 0 && D == 128) return launch_mma<128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
-  if (dtype == 1 && D == 64) return launch<float, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 0 && D == 512) return launch_wide<512>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch<float, 64, 64, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+    return launch<float, 128, 64, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 1 && D == 512)
+    return launch<float, 512, 32, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   return -1;
 }

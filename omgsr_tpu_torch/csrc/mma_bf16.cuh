@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the flash-attention kernels (forward
 // and backward): mma.sync m16n8k16 in bf16 with f32 accumulation, ldmatrix
-// loads of its operands from shared memory, and the staging of a 64-row bf16
-// tile. Included by the .cu files of this directory; everything is inline.
+// loads of its operands from shared memory, and the staging of bf16 tiles.
+// Included by the .cu files of this directory; everything is inline.
 //
 // Fragment layout of one warp (g = lane / 4, tig = lane % 4):
 //   A (16 x 16, row-major): a0 = (row g, cols 2 tig, 2 tig + 1), a1 = the same
@@ -51,15 +51,16 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-// 64 rows x D bf16 from global (row stride in elements) to shared [64][D+8];
-// rows >= rows_valid become 0. The 16 bytes of padding per row make every
-// ldmatrix phase hit 8 different 16-byte bank groups.
-template <int D>
-__device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+// ROWS rows x D bf16 from global (row stride in elements) to shared
+// [ROWS][D+8], by NTH threads; rows >= rows_valid become 0. The 16 bytes of
+// padding per row make every ldmatrix phase hit 8 different 16-byte bank
+// groups.
+template <int D, int ROWS, int NTH>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long row_stride, int rows_valid) {
   constexpr int LD = D + 8;
   constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += MMA_NT) {
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NTH) {
     const int r = idx / VPR;
     const int v = idx % VPR;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
@@ -67,6 +68,35 @@ __device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst, const __nv_b
       raw = *reinterpret_cast<const uint4*>(src + (long long)r * row_stride + v * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + v * 8) = raw;
   }
+}
+
+// A 64-row tile staged by the four warps of a block of MMA_NT threads.
+template <int D>
+__device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long row_stride, int rows_valid) {
+  stage_rows_bf16<D, 64, MMA_NT>(dst, src, row_stride, rows_valid);
+}
+
+// The A fragment of the 16 x 16 block at (r0, c0) of a row-major bf16 tile in
+// shared memory with row stride ld (elements).
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
+                                           int r0, int c0, int lane) {
+  ldmatrix_x4(a, tile + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + c0 + (lane >> 4) * 8);
+}
+
+// The B fragments of two neighbouring n-tiles (n0 and n0 + 8) at the k-step
+// k0 .. k0 + 15, from a tile stored [n][k] (row n holds the k values):
+// r[0], r[1] for n-tile n0, r[2], r[3] for n-tile n0 + 8.
+__device__ __forceinline__ void ldmatrix_b2(uint32_t (&r)[4], const __nv_bfloat16* tile, int ld,
+                                            int n0, int k0, int lane) {
+  ldmatrix_x4(r, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// The same from a tile stored [k][n] (row k holds the n values), transposed
+// on the way by ldmatrix.trans.
+__device__ __forceinline__ void ldmatrix_b2_trans(uint32_t (&r)[4], const __nv_bfloat16* tile,
+                                                  int ld, int k0, int n0, int lane) {
+  ldmatrix_x4_trans(r, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0 + (lane >> 4) * 8);
 }
 
 // The A fragments (KS k-steps of 16 columns) of 16 rows of a (rows, D) bf16

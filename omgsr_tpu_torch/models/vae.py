@@ -6,9 +6,16 @@ is 1e-6 throughout the VAE (diffusers default for AutoencoderKL blocks).
 With ``cfg.fused_resblocks`` every eligible resnet of the encoder, the mid
 blocks and the decoder runs as ``ops/conv3x3.fused_resblock`` (two launches of
 the fused GN+SiLU -> conv3x3 kernel); the others, and every resnet without
-the flag, run ``_resnet``. The GroupNorm-statistics hook of the JAX package
-arrives with the tiled-VAE slice, its per-block remat with the slice that
+the flag, run ``_resnet``. Its per-block remat arrives with the slice that
 trains through it.
+
+GroupNorm seam of the tiled VAE (``inference/tiled_vae.py``): every function
+below takes ``gn_hook``. When it is given, every GroupNorm of the network
+calls ``gn_hook(params, x, groups)`` instead of computing its own statistics,
+which either records the statistics (the collect pass) or applies statistics
+handed in from outside (the per-tile pass); the JAX package keeps the hook in
+a module global. With a hook every resnet runs plain: the fused kernel takes
+no statistics from outside. Without one nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from omgsr_tpu_torch.models.layers import (
     dense,
     group_norm,
     group_norm_silu,
+    silu,
     upsample_conv_2x,
 )
 from omgsr_tpu_torch.ops.attention import dot_product_attention
@@ -30,19 +38,32 @@ from omgsr_tpu_torch.ops.conv3x3 import fused_resblock, fused_resblock_eligible
 _EPS = 1e-6
 
 
-def _resnet(p, x, groups):
-    h = group_norm_silu(p["norm1"], x, groups, _EPS)
+def _vae_group_norm(p, x, groups, gn_hook=None):
+    if gn_hook is not None:
+        return gn_hook(p, x, groups)
+    return group_norm(p, x, groups, _EPS)
+
+
+def _vae_group_norm_silu(p, x, groups, gn_hook=None):
+    """GroupNorm+SiLU (the K3 kernels on the card) when no hook is given."""
+    if gn_hook is not None:
+        return silu(gn_hook(p, x, groups))
+    return group_norm_silu(p, x, groups, _EPS)
+
+
+def _resnet(p, x, groups, gn_hook=None):
+    h = _vae_group_norm_silu(p["norm1"], x, groups, gn_hook)
     h = conv2d(p["conv1"], h, padding=1)
-    h = group_norm_silu(p["norm2"], h, groups, _EPS)
+    h = _vae_group_norm_silu(p["norm2"], h, groups, gn_hook)
     h = conv2d(p["conv2"], h, padding=1)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0)
     return x + h
 
 
-def _mid_attention(p, x, groups):
+def _mid_attention(p, x, groups, gn_hook=None):
     b, hh, ww, c = x.shape
-    h = group_norm(p["group_norm"], x, groups, _EPS)
+    h = _vae_group_norm(p["group_norm"], x, groups, gn_hook)
     h = h.reshape(b, hh * ww, c)
     # single-head attention over spatial tokens (diffusers VAE mid block)
     q = dense(p["to_q"], h)[:, :, None, :]
@@ -53,10 +74,11 @@ def _mid_attention(p, x, groups):
     return x + o.reshape(b, hh, ww, c)
 
 
-def _mid_block(p, x, groups, res=_resnet):
+def _mid_block(p, x, groups, cfg: VAEConfig, gn_hook=None):
+    res = _select_resnet(cfg, gn_hook)
     x = res(p["resnets"]["0"], x, groups)
     if "attentions" in p:
-        x = _mid_attention(p["attentions"]["0"], x, groups)
+        x = _mid_attention(p["attentions"]["0"], x, groups, gn_hook)
     return res(p["resnets"]["1"], x, groups)
 
 
@@ -66,26 +88,29 @@ def _fused_or_plain_resnet(p, x, groups):
     return _resnet(p, x, groups)
 
 
-def _select_resnet(cfg: VAEConfig):
+def _select_resnet(cfg: VAEConfig, gn_hook=None):
     """Resnet executor for the given config: the fused kernels per eligible
-    shape (inference), or the plain block."""
+    shape (inference), or the plain block; with a GroupNorm hook always the
+    plain block, through the hook."""
+    if gn_hook is not None:
+        return lambda p, x, groups: _resnet(p, x, groups, gn_hook)
     return _fused_or_plain_resnet if cfg.fused_resblocks else _resnet
 
 
-def vae_encode_features(params, cfg: VAEConfig, x):
+def vae_encode_features(params, cfg: VAEConfig, x, gn_hook=None):
     """pixels (B,H,W,3) in [-1,1] -> moments (B,h,w,2*latent)."""
     p = params["encoder"]
     g = cfg.norm_num_groups
     h = conv2d(p["conv_in"], x, padding=1)
-    res = _select_resnet(cfg)
+    res = _select_resnet(cfg, gn_hook)
     for i in range(len(cfg.block_out_channels)):
         blk = p["down_blocks"][str(i)]
         for j in range(cfg.layers_per_block):
             h = res(blk["resnets"][str(j)], h, g)
         if "downsamplers" in blk:
             h = downsample_conv_2x(blk["downsamplers"]["0"]["conv"], h)
-    h = _mid_block(p["mid_block"], h, g, res=res)
-    h = group_norm_silu(p["conv_norm_out"], h, g, _EPS)
+    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook)
+    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook)
     h = conv2d(p["conv_out"], h, padding=1)
     if "quant_conv" in params:
         h = conv2d(params["quant_conv"], h, padding=0)
@@ -137,7 +162,7 @@ def vae_encode(params, cfg: VAEConfig, x, noise=None, generator=None, sample: bo
     return scale_latent(cfg, z)
 
 
-def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True):
+def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True, gn_hook=None):
     """scaled latent -> pixels in [-1,1] (un-clamped; callers clamp)."""
     if unscale:
         z = unscale_latent(cfg, z)
@@ -146,13 +171,13 @@ def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True):
     p = params["decoder"]
     g = cfg.norm_num_groups
     h = conv2d(p["conv_in"], z, padding=1)
-    res = _select_resnet(cfg)
-    h = _mid_block(p["mid_block"], h, g, res=res)
+    res = _select_resnet(cfg, gn_hook)
+    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook)
     for i in range(len(cfg.block_out_channels)):
         blk = p["up_blocks"][str(i)]
         for j in range(cfg.layers_per_block + 1):
             h = res(blk["resnets"][str(j)], h, g)
         if "upsamplers" in blk:
             h = upsample_conv_2x(blk["upsamplers"]["0"]["conv"], h)
-    h = group_norm_silu(p["conv_norm_out"], h, g, _EPS)
+    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook)
     return conv2d(p["conv_out"], h, padding=1)

@@ -1,12 +1,12 @@
 """Attention dispatch. All model attention in the port funnels through
 ``dot_product_attention``; shapes are (B, S, H, D).
 
-Every bias-free site whose head dim the flash-attention kernel takes goes to
-that kernel, whatever the sequence length or dtype: on the card the wrapper
-launches the kernel or raises (a dtype it does not take raises there). Every
-other site (a bias is present; the VAE mid block's single 512-wide head) is
-computed as an explicit matmul -> softmax(f32) -> matmul, which is what the
-JAX package leaves to XLA at those sites.
+Every bias-free site whose head dim the flash-attention kernel takes (64 and
+128 in the UNet, 512 for the VAE mid block's single head) goes to that
+kernel, whatever the sequence length or dtype: on the card the wrapper
+launches the kernel or raises (a dtype it does not take raises there). The
+sites with a bias are computed as an explicit matmul -> softmax(f32) ->
+matmul, which is what the JAX package leaves to XLA at those sites.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from omgsr_tpu_torch.ops import flash_attention as FA
 
 
 def matmul_attention(q, k, v, *, bias=None, scale: float | None = None):
-    """Explicit softmax attention; bias (B, H, Sq, Sk) is added to the scores.
+    """Explicit softmax attention for the sites with a bias (B, H, Sq, Sk),
+    which is added to the scores. It holds the (Sq, Sk) score matrix in f32.
 
     The scores are the f32 accumulation of the products, scaled, biased and
     soft-maxed in f32, as ``jax.nn.dot_product_attention`` computes them: q

@@ -14,8 +14,13 @@ and Skv itself (no padding in device memory), accumulates in f32 and also
 writes the f32 log-sum-exp per query row. bf16 inputs go to a tensor-core
 kernel (``mma.sync`` m16n8k16, Q fragments and the accumulator in registers,
 K/V tiles in shared memory read with ``ldmatrix``); f32 inputs go to a
-kernel that multiplies with f32 FMAs and is exact. Neither uses ``wgmma`` or
-TMA yet; PERF.md holds their times beside the bound.
+kernel that multiplies with f32 FMAs and is exact. Head dims 64, 128 and 512
+(the VAE mid block's single head). At D = 512 a warp cannot hold 16 rows of
+fragments and their 16 x 512 accumulator in registers, so the bf16 kernel
+there stages the q tile in shared memory and its eight warps split the score
+block and the output columns, exchanging P through shared memory; the f32
+kernel takes smaller tiles. None uses ``wgmma`` or TMA yet; PERF.md holds
+their times beside the bound.
 
 ``flash_attention_bwd`` replaces the Pallas TPU kernels ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` of the same file (reached through ``_backward``, the
@@ -28,8 +33,10 @@ same bits on every run. Both read their operands through strides and mask the
 ragged ends themselves. bf16 inputs go to tensor-core kernels (``mma.sync``
 m16n8k16: the owned tile's operand fragments and the accumulators in
 registers, the streamed tiles in shared memory read with ``ldmatrix``, P and
-dS rounded to bf16 only for the second products); f32 inputs go to kernels
-that multiply with f32 FMAs from shared memory and are exact. delta =
+dS rounded to bf16 only for the second products; at D = 512 the owned tile
+is staged in shared memory too, the warps split the score blocks and the
+output columns and exchange P and dS through shared memory); f32 inputs go
+to kernels that multiply with f32 FMAs from shared memory and are exact. delta =
 rowsum(dO * O), which the JAX package computes with tensor code outside its
 kernels, is a prologue of the dQ kernel here: it writes the (B*H, Sq) f32 sums
 that the dK/dV kernel, launched after it on the same stream, reads.
@@ -54,7 +61,7 @@ from omgsr_tpu_torch.ops.kernel_build import (
     plain_route_active,
 )
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 512)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 launches = LaunchCounter("flash_attention_fwd")

@@ -3,9 +3,10 @@
     python -m omgsr_tpu_torch.tools.check_flash_bwd
 
 Builds ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` (the
-compiler's register and spill report is printed), runs the backward wrapper
-once at each training shape, and prints for each: the error of dq, dk, dv
-against the plain backward over the largest |plain| value, whether the outputs
+compiler's register and spill report is printed), runs the forward and the
+backward wrapper once at each training shape and at the VAE mid block's head
+dim 512, and prints for each: the error of the output and of dq, dk, dv
+against the plain versions over the largest |plain| value, whether the outputs
 are finite and bit-identical when run twice, the error of the delta prologue,
 and the time of each kernel alone. It asserts nothing: it is meant for the
 first run after a change to a kernel, before ``chip_smoke.py``, which holds the
@@ -34,6 +35,11 @@ SHAPES = [
     ((2, 300, 2, 128), 77, torch.float32, False),
     ((2, 300, 2, 128), 77, torch.bfloat16, False),
     ((1, 4608, 24, 128), 4608, torch.bfloat16, False),
+    # the VAE mid block's single 512-wide head: 512 px, 1024 px, ragged
+    ((1, 4096, 1, 512), 4096, torch.bfloat16, False),
+    ((1, 16384, 1, 512), 16384, torch.bfloat16, False),
+    ((2, 300, 2, 512), 300, torch.bfloat16, True),
+    ((1, 300, 1, 512), 177, torch.float32, False),
 ]
 
 
@@ -71,6 +77,8 @@ def main():
             v = _randn((b, skv, h, d), dtype, i + 40)
             dout = _randn(shape, dtype, i + 50)
         out, lse = FA.flash_attention(q, k, v, return_lse=True)
+        ref_out = FA.flash_attention_plain(q, k, v)
+        fwd_err = ((out.float() - ref_out.float()).abs().max() / ref_out.float().abs().max()).item()
         got = FA.flash_attention_bwd(q, k, v, out, lse, dout)
         torch.cuda.synchronize()
         again = FA.flash_attention_bwd(q, k, v, out, lse, dout)
@@ -83,7 +91,7 @@ def main():
         delta_ref = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, sq)
         print(
             f"q{list(shape)} kv{skv} {str(dtype)[6:]}{' packed' if packed else ''}: "
-            f"err/max|plain| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}; "
+            f"err/max|plain| out {fwd_err:.2e}, fwd {_time_ms(lambda: FA.flash_attention(q, k, v)):.4f} ms; dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}; "
             f"finite {all(bool(torch.isfinite(a.float()).all()) for a in got)}; "
             f"bit-identical twice {all(torch.equal(a, c) for a, c in zip(got, again))}; "
             f"delta err {(delta - delta_ref).abs().max().item():.2e}; "

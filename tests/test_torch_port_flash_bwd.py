@@ -158,3 +158,67 @@ def test_group_norm_silu_function_matches_autograd_through_plain(shape, groups, 
     again = TGN.group_norm_silu_bwd(t(x), partial, t(w), t(b), t(dy), groups, 1e-6, apply_silu)
     for g, want in zip(again, got):
         assert_close(g, want.numpy(), 1e-6)
+
+
+# bf16 at D = 512: both sides round q, k, v, the output and the gradients to
+# bf16 and the Pallas kernels also round P and dS for their second products;
+# two bf16 steps of the largest value (found: 7.8e-4 forward, 1.9e-3 backward)
+D512_BF16_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_d512_matches_pallas_interpret(dtype):
+    """The VAE mid block's single 512-wide head, ragged (300 tokens): the
+    port's forward and, under autograd, its backward (the wrapper's autograd
+    function, plain versions on the CPU) against flash_attention_bshd in
+    interpret mode and jax.vjp of it."""
+    q, k, v, g = _operands((1, 300, 1, 512), 300, 5)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    out_ref, vjp = jax.vjp(JFA.flash_attention_bshd, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    grads_ref = vjp(jnp.asarray(g, jdt))
+    assert TFA.supports(512, dtype)
+    leaves = [t(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    out = TFA.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, t(g).to(dtype))
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads), (out_ref, *grads_ref)):
+        assert got.dtype == dtype, name
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == torch.float32:
+            assert_close(got, want, FLASH_TOL, name)
+        else:
+            err = np.abs(got.float().numpy() - want).max()
+            assert err <= D512_BF16_TOL * np.abs(want).max(), (name, err)
+
+
+def test_encoder_mid_attention_gradient_goes_through_flash(monkeypatch):
+    """The training path's VAE-encoder mid attention (one 512-wide head) under
+    autograd: dot_product_attention sends it to the flash wrapper, whose
+    autograd function calls flash_attention_bwd at D = 512; the gradient with
+    respect to the block's input agrees with jax.vjp of the JAX package's
+    _mid_attention (1e-4: GroupNorm, four dense layers and the attention, f32
+    sums in another order)."""
+    from omgsr_tpu.models import vae as JV
+    from omgsr_tpu_torch.models import vae as TV
+    from tests.torch_port_helpers import bridge, jax_init
+
+    jp = jax_init(lambda key, ch: JV._init_attn(key, ch, jnp.float32), 0, 512)
+    tp = bridge(jp)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1, 6, 5, 512)).astype(np.float32)
+    g = rng.standard_normal((1, 6, 5, 512)).astype(np.float32)
+    ref_out, vjp = jax.vjp(lambda a: JV._mid_attention(jp, a, 32), jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(g))
+    seen = []
+    real = TFA.flash_attention_bwd
+
+    def spy(*args):
+        seen.append(tuple(args[0].shape))
+        return real(*args)
+
+    monkeypatch.setattr(TFA, "flash_attention_bwd", spy)
+    xt = t(x).requires_grad_()
+    out = TV._mid_attention(tp, xt, 32)
+    (dx,) = torch.autograd.grad(out, xt, t(g))
+    assert seen == [(1, 30, 1, 512)]
+    assert_close(out.detach(), ref_out, 1e-4, "out")
+    assert_close(dx, ref_dx, 1e-4, "dx")

@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax():
     assert len(names) > 35
     for sub in ("config", "lora.lora", "losses.dists", "losses.diffaug", "losses.discriminator",
                 "models.convnext", "training.optim", "training.trainer", "training.checkpoint",
-                "cli.train_omgsr_s", "utils.tree", "ops.conv3x3", "tools.check_conv3x3"):
+                "cli.train_omgsr_s", "utils.tree", "ops.conv3x3", "tools.check_conv3x3",
+                "inference.tiled_vae", "inference.vae_routing"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -96,10 +97,14 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "run_training": lambda: train_omgsr_s.run_training(
             TrainConfig(output_dir=str(tmp_path)), frozen={}, loader=[]),
         "pipeline": lambda: OMGSRSPipeline(vp, up, vc, uc),
+        "tiled pipeline": lambda: OMGSRSPipeline(vp, up, vc, uc, vae_tile=64, vae_stats="exact"),
         "server": lambda: SRServer(lambda lq, i: lq),
         "fused": lambda: make_fused_infer(lambda lq, i: lq, torch.float32),
         "build_server": lambda: serve.build_server(
             serve.parse_args([]), params=(vp, up), configs=(vc, uc),
+            prompt_embeds=np.zeros((1, 7, 16), np.float32)),
+        "build_server --vae_tile": lambda: serve.build_server(
+            serve.parse_args(["--vae_tile", "64", "--vae_stats", "auto"]), params=(vp, up), configs=(vc, uc),
             prompt_embeds=np.zeros((1, 7, 16), np.float32)),
     }
     for name, call in calls.items():
@@ -119,10 +124,13 @@ def test_unported_options_raise_naming_their_slice():
     uc = UNetConfig(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
                     cross_attention_dim=16, norm_num_groups=4)
     vp, up = init_vae(0, vc, device="cpu"), init_unet(1, uc, device="cpu")
-    with pytest.raises(NotImplementedError, match="tiled-VAE slice"):
-        OMGSRSPipeline(vp, up, vc, uc, vae_tile=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="tiled-VAE slice"):
-        OMGSRSPipeline(vp, up, vc, uc, vae_stats="exact", device="cpu")
+    from omgsr_tpu_torch.inference import tiled_vae
+
+    # the tiled VAE is ported; its multi-GPU sharded mode is not
+    OMGSRSPipeline(vp, up, vc, uc, vae_tile=64, vae_stats="exact", device="cpu")
+    for fn in (tiled_vae.sharded_vae_encode, tiled_vae.sharded_vae_decode):
+        with pytest.raises(NotImplementedError, match="distribution slice"):
+            fn(vp, vc, torch.zeros(1, 16, 16, 3), None)
     with pytest.raises(NotImplementedError, match="distribution slice"):
         OMGSRSPipeline(vp, up, vc, uc, device="cpu").shard_for_mesh(None)
     with pytest.raises(NotImplementedError, match="load-path slice"):

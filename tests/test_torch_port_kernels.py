@@ -83,8 +83,8 @@ def test_dot_product_attention_matches_jax(d, bias):
 
 @pytest.mark.parametrize("shape,skv,bias", [((1, 256, 1, 512), 256, False), ((2, 64, 2, 64), 48, True)])
 def test_matmul_attention_bf16_keeps_f32_scores(shape, skv, bias):
-    """bf16 on the CPU: the VAE mid block's site (one 512-wide head) and a
-    biased site against jax.nn.dot_product_attention, which keeps the scores
+    """bf16 on the CPU: one 512-wide head and a biased site against
+    jax.nn.dot_product_attention, which keeps the scores
     as the f32 accumulator. Bound: one bf16 rounding of the output, 2^-8 of
     its largest value (found: 0.0020 at |out| <= 4.2 and 0.0010 at 3.9; with
     scores rounded to bf16 before the softmax 0.148 and 0.168). Inputs three
@@ -100,7 +100,8 @@ def test_matmul_attention_bf16_keeps_f32_scores(shape, skv, bias):
     def bf16(a):
         return t(np.asarray(a.astype(jnp.float32))).bfloat16()
 
-    out = TA.dot_product_attention(bf16(q), bf16(k), bf16(v), bias=None if bb is None else bf16(bb))
+    # matmul_attention itself: the dispatch sends the bias-free 512-wide head to flash attention
+    out = TA.matmul_attention(bf16(q), bf16(k), bf16(v), bias=None if bb is None else bf16(bb))
     assert out.dtype == torch.bfloat16
     assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
 
@@ -110,7 +111,8 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         TFA.flash_attention(q, k[:, :, :, :32], v)
     assert TFA.supports(64, torch.bfloat16) and TFA.supports(128, torch.float32)
-    assert not TFA.supports(512, torch.bfloat16) and not TFA.supports(64, torch.float16)
+    assert TFA.supports(512, torch.bfloat16) and TFA.supports(512, torch.float32)
+    assert not TFA.supports(96, torch.bfloat16) and not TFA.supports(64, torch.float16)
 
 
 @pytest.mark.parametrize(
@@ -119,7 +121,9 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
      # a dtype the kernel does not take still goes to its wrapper, which raises
      # on the card: the dispatch never picks the matmul path for it
      (64, torch.float16, False, True),
-     (64, torch.float32, True, False), (512, torch.float32, False, False)],
+     # the VAE mid block's single 512-wide head goes to the kernel too; a head
+     # dim it does not take goes to the matmul path
+     (64, torch.float32, True, False), (512, torch.float32, False, True), (96, torch.float32, False, False)],
 )
 def test_dot_product_attention_routes_by_head_dim_and_bias_only(monkeypatch, d, dtype, bias, to_kernel):
     seen = []
