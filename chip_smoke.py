@@ -88,14 +88,15 @@ from omgsr_tpu_torch.ops import conv3x3 as C3
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
 from omgsr_tpu_torch.training.trainer import draw_step_noise, grads_of
 from omgsr_tpu_torch.utils.tree import flatten_dict
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# published dense peaks of one H100 SXM (NVIDIA data sheet; f32 without tensor cores)
+PEAK_BYTES_PER_S = K1.PEAK_BYTES_PER_S
+PEAK_FLOPS = {torch.bfloat16: K1.PEAK_BF16_FLOPS, torch.float32: 67e12}
 
 # kernel against plain version.
 #   group norm: max over the elements of |kernel - plain| / max(1, |plain|).
@@ -107,7 +108,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #         in the last bits can land one bf16 step apart (2^-7 relative at
 #         worst); the bound is two such steps. f32: summation order and the
 #         fast exp / rsqrt approximations only.
-TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-4}
+TOL = {torch.bfloat16: K1.TOL, torch.float32: 2e-4}
 # log-sum-exp and group sums are f32 whatever the input type
 # end to end, kernels against plain versions, one 512x512 request in bf16 at
 # full depth with random weights: both runs round every activation to bf16
@@ -116,7 +117,7 @@ TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-4}
 MAX_MEAN_STEPS = 6.0
 # per stage on identical inputs, ||kernel - plain|| / ||plain|| in bf16
 MAX_STAGE_REL_L2 = 0.05
-TOL_LSE = 1e-3
+TOL_LSE = K1.TOL_LSE
 TOL_SUMS_REL = 1e-4
 # conv3x3: max |kernel - plain| over the largest |plain| value of the shape (as
 # for flash attention), TOL per dtype. Its channel sums come from f32
@@ -223,17 +224,9 @@ def phase_device():
 
 FLASH_SHAPES = [
     # (B, Sq, H, D), Skv, dtype, on the serving path?, q/k/v as views of one packed tensor?
-    ((1, 4096, 5, 64), 4096, torch.bfloat16, True, False),
-    ((1, 4096, 5, 64), 77, torch.bfloat16, True, False),
-    ((1, 1024, 10, 64), 1024, torch.bfloat16, True, False),
-    ((1, 64, 20, 64), 64, torch.bfloat16, True, False),
-    ((1, 4608, 24, 128), 4608, torch.bfloat16, False, False),
+    # bf16 at D = 64 and 128: the shapes of tools/check_flash_fwd.py
+    *((shape, skv, torch.bfloat16, on_path, packed) for shape, skv, on_path, packed in K1.K1_SHAPES),
     ((2, 300, 1, 64), 300, torch.float32, False, False),
-    # ragged Sq and Skv through the tensor-core kernel, read by strides
-    ((2, 300, 3, 64), 300, torch.bfloat16, False, True),
-    # the 768x768 request runs its four latent tiles as one UNet batch of 4
-    ((4, 1024, 10, 64), 1024, torch.bfloat16, True, False),
-    ((4, 4096, 5, 64), 77, torch.bfloat16, True, False),
     # the VAE mid block's single 512-wide head: the whole latent at 512, 1024 and
     # 2048 px (the full-image and exact routes), the fast tiled decode's 86x86-latent
     # window (7396 tokens end inside a 64-row q tile and a 32-row kv tile), ragged f32
@@ -307,6 +300,8 @@ def check_flash(shape, skv, dtype, seed, packed=False):
         "bound_ms": max(t_flops, t_bytes) * 1e3,
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
     }
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     if d == 512 and b * h * sq * skv <= 2 ** 28:  # what ran at the VAE mid block before: explicit
         # matmul attention (its (S x S) f32 scores: 16 GiB at 65,536 tokens, not timed)
         row["matmul_attention_ms"] = time_ms(lambda: ATT.matmul_attention(q, k, v), iters)
@@ -650,7 +645,8 @@ def phase_kernels():
         flash.append(r)
         print(f"kernels: flash_attention_fwd {r['shape']}: err {r['max_abs_err']:.3g} "
               f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[dtype]:.3g}) "
-              f"lse err {r['max_abs_err_lse']:.3g}, two runs bit-identical; {r['ms']:.4f} ms, plain "
+              f"lse err {r['max_abs_err_lse']:.3g}, two runs bit-identical; {r['ms']:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the bound), plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} (SDPA {r['library_backend']}), bound "
               f"{r['bound_ms']:.5f} ({r['bound_by']})"
               + (f", matmul_attention {r['matmul_attention_ms']:.4f}" if "matmul_attention_ms" in r else ""),
@@ -898,15 +894,19 @@ def phase_serve(card, vae_params, unet_params, profile=False):
             "unet": time_ms(lambda: pipe.latent_mid(z, ctx, tile, overlap), iters=5, warmup=1),
             "vae_decode": time_ms(lambda: pipe.decode(z0), iters=5, warmup=1),
         }
-        # how long the host takes to enqueue one stage (no synchronize inside):
-        # where this reaches the device time, the stage waits for the host
+        # how long the host takes to enqueue one stage (no synchronize inside),
+        # median of five: where this reaches the device time, the stage waits
+        # for the host
         enqueue = {}
         for name, fn in staged.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            enqueue[name] = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
+            samples = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            enqueue[name] = statistics.median(samples)
         if profile:
             profile_stages(staged, stages, card)
         mid_head = vae_stages_mid_head_routes(pipe, imgs512[0], card)

@@ -8,7 +8,7 @@
 // What differs from the TPU kernel, and why:
 //   * The TPU grid ran the kv axis sequentially and carried (acc, m, l) in
 //     VMEM scratch between grid steps. Blocks on a GPU run in no order, so
-//     one block owns one (batch*head, 64-row q tile) and loops over the kv
+//     one block owns one (batch*head, q tile) and loops over the kv
 //     tiles itself; (m, l) live in shared memory, the accumulator in
 //     registers.
 //   * The TPU wrapper transposed (B,S,H,D) to (B*H,S,D) and padded S to the
@@ -17,7 +17,7 @@
 //     Sq and Skv itself, so no copy is made before or after the launch.
 //
 // Bound on this card: operations (4*B*H*Sq*Skv*D flops against ~1 byte per
-// 2*Skv flops of input). Three kernels share the block layout above:
+// 2*Skv flops of input). Three kernels:
 //   * flash_fwd_kernel (f32 inputs): plain f32 FMAs from
 //     shared memory (both tiles staged as f32, register micro-tiles of
 //     TQ/16 x TK/16 scores, conflict-free float4 reads). Exact for f32
@@ -26,25 +26,31 @@
 //     each (dynamic, opt-in): TQ = TK = 64 at D = 64 and 128 (70,400 and
 //     119,552 bytes); at D = 512 the tiles shrink to TQ = TK = 32 (203,136
 //     bytes of the 232,448 a block may have).
-//   * flash_fwd_mma_kernel (bf16 inputs, D = 64 and 128): tensor cores
-//     through mma.sync, described where it is defined.
+//   * flash_fwd_wgmma_kernel (bf16 inputs, D = 64 and 128): Hopper's
+//     tensor-core path, TMA loads into a ring of shared-memory stages
+//     guarded by mbarriers, wgmma products, a producer warpgroup and two
+//     consumer warpgroups on a 128-row q tile; described where it is
+//     defined.
 //   * flash_fwd_wide_kernel (bf16 inputs, D = 512, the VAE mid block's one
 //     head): tensor cores through mma.sync with the scores and the output
-//     split over eight warps, described where it is defined.
-//   wgmma, TMA and double buffering are not used yet.
+//     split over eight warps, described where it is defined; it stages its
+//     tiles through registers, without TMA or wgmma.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace omgsr_mma;
+using namespace omgsr_sm90;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
 constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -262,166 +268,342 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 // ----------------------------------------------------------------------------
-// bf16 path: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+// bf16 path at D = 64 and 128: flash_fwd_wgmma_kernel, built for Hopper.
 //
-// One block = 4 warps = a 64-row q tile; each warp owns 16 q rows and keeps
-// its Q fragments, the 16 x 64 score tile, the running (m, l) of its rows and
-// the 16 x D accumulator in registers. K and V tiles (64 rows) are staged in
-// shared memory as bf16 with rows padded by 16 bytes, which makes every
-// ldmatrix phase hit 8 different 16-byte bank groups. K fragments come from
-// ldmatrix, V fragments from ldmatrix.trans (V is the "k x n" operand and sits
-// row-major in kv). P is rounded to bf16 for the second product, its row sum
-// is taken in f32 before the rounding. Shared memory: 2 * 64 * (D+8) * 2
-// bytes = 18,432 (D=64) or 34,816 (D=128).
+// What bounds it: operations (4*Sq*Skv*D flops per head against 2*(Sq+2*Skv)*D
+// bytes), so the design keeps the tensor cores fed:
+//   * Block = three warpgroups (384 threads) on a 128-row q tile of one
+//     (batch, head). Warpgroup 0 is the producer: after giving up registers
+//     (setmaxnreg 24) one of its threads issues every TMA load. Warpgroups 1
+//     and 2 are consumers (setmaxnreg 240), 64 q rows each; each kv tile staged
+//     feeds all 128 q rows.
+//   * Shared memory: the Q tile, loaded once, and a ring of STAGES stages of K
+//     and V tiles of 128 kv rows, all as TMA writes them with the 128-byte
+//     swizzle (a row of 64 bf16 per box; at D = 128 a tile is two boxes), tile
+//     bases 1024-byte aligned. TMA reads q/k/v through 4-D tensor maps over
+//     (D, H, S, B) with the caller's strides, so packed views go in without a
+//     copy, and fills rows past S with zeros.
+//   * Per stage a `full` mbarrier (the producer's arrive.expect_tx, completed
+//     by the TMA bytes) and an `empty` mbarrier (one arrival per consumer warp
+//     once its P V product on that stage has retired); the producer waits on
+//     `empty` before it reloads a stage, so loads run STAGES - 1 tiles ahead.
+//   * S = Q K^T by wgmma m64n128k16, both operands from shared memory (K-major),
+//     D/16 k-steps; the online softmax in registers, in the base-2 domain
+//     (scores times scale * log2(e), ex2.approx); kv columns past Skv are masked on
+//     the last tile only (TMA's zero rows would score 0, not -inf).
+//   * O += P V by wgmma m64nDk16: A = P rounded to bf16 in registers (the
+//     accumulator layout of S is the A fragment layout, so no shuffle; the row
+//     sums are taken in f32 before the rounding), B = V from shared memory with
+//     the transpose bit (V lies (kv, D) with D contiguous: MN-major). O is
+//     rescaled by alpha before the product is issued.
+//   * Inside a consumer warpgroup, S of tile t and P V of tile t - 1 are
+//     issued together and only S is waited for, so the softmax of tile t runs
+//     while the tensor cores finish P V of tile t - 1; O is rescaled, and the
+//     stage of tile t - 1 released, once that product has retired.
+//   * The two consumer warpgroups take turns to issue their products (two
+//     named barriers), so one's softmax runs while the other's products
+//     occupy the tensor cores; the producer's loads overlap both. Without the turns both warpgroups, released by the same `full`
+//     barrier, ran their products and their softmax at the same times.
+//   * Epilogue: O / l rounded to bf16, staged into the warpgroup's own rows of
+//     the Q tile (free once its last S product has retired) in the swizzled
+//     layout and written by TMA stores, which drop rows >= Sq;
+//     lse = m + log(l) into the f32 (B*H, Sq) buffer. A consumer warpgroup
+//     whose 64 rows all lie past Sq exits at once.
+// No atomics and no split over kv: every output element is summed by one
+// thread in one order, so a run gives the same bits every time.
 // ----------------------------------------------------------------------------
 
+constexpr int HQ = 128;          // q rows of a block (two consumer warpgroups of 64)
+constexpr int HK = 128;          // kv rows of a staged tile
+constexpr int STAGES = 3;        // K/V ring: 112 KiB at D = 64, 225 KiB at D = 128
+constexpr int HNT = 384;         // three warpgroups
+constexpr int BOX_BYTES = 128 * 128;  // one 64-column box of 128 rows
+
 template <int D>
-__global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    int H, int Sq, int Skv, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k-steps of the first product
-  constexpr int NO = D / 8;   // n-tiles of the accumulator
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK * LD;
+struct HopperFwdSmem {
+  static constexpr int TILE = HQ * D * 2;  // bytes of a 128-row tile (q or kv)
+  static constexpr int Q = 0;
+  __host__ __device__ static constexpr int K(int s) { return TILE * (1 + 2 * s); }
+  __host__ __device__ static constexpr int V(int s) { return TILE * (2 + 2 * s); }
+  static constexpr int BARS = TILE * (1 + 2 * STAGES);  // q_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
+// S (64 x 128) = Q K^T for the warpgroup's 64 q rows at shared address q_wg,
+// one kv tile at k_tile: D/16 k-steps of 32 bytes inside each 64-column box.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_wg, uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
+    wgmma_ss_m64n128k16(sc, wgmma_desc(q_wg + off, 16, 1024), wgmma_desc(k_tile + off, 16, 1024), ks > 0);
+  }
+}
+
+// O (64 x D) += P V: 8 k-steps of 16 kv rows (2048 bytes of the tile each).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pf)[8][4], uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HK / 16; ++kk) {
+    const uint64_t dv = wgmma_desc(v_tile + kk * 2048, BOX_BYTES, 1024);
+    if constexpr (D == 64) {
+      wgmma_rs_m64n64k16_tb(acc, pf[kk], dv, 1);
+    } else {
+      wgmma_rs_m64n128k16_tb(acc, pf[kk], dv, 1);
+    }
+  }
+}
+
+// One online-softmax step on the scores of one kv tile (this thread's rows
+// g and g + 8, columns 8j + 2 tig (+1)), in the base-2 domain: scale, mask the
+// columns >= kvalid, new row maxima (m), rescale factors (al), P = 2^(s - m) in
+// place, and l = l * al + rowsum(P) in f32.
+__device__ __forceinline__ void online_softmax(float (&sc)[64], int kvalid, int tig, float scale_log2,
+                                               float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+                                               float& al_lo, float& al_hi) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+  if (kvalid < HK) {
+    const float neg_inf = __int_as_float(0xff800000u);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = (i >> 2) * 8 + tig * 2 + (i & 1);
+      if (col >= kvalid) sc[i] = neg_inf;
+    }
+  }
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  al_lo = fast_exp2(m_lo - mx_lo);
+  al_hi = fast_exp2(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = fast_exp2(sc[4 * j] - mx_lo);
+    sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] - mx_lo);
+    sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] - mx_hi);
+    sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] - mx_hi);
+    sum_lo += sc[4 * j] + sc[4 * j + 1];
+    sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
+  l_lo = l_lo * al_lo + sum_lo;
+  l_hi = l_hi * al_hi + sum_hi;
+}
+
+// P rounded to bf16 as the A fragments of P V: k-step kk = n-tiles 2kk, 2kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[8][4], const float (&sc)[64]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+__device__ __forceinline__ void fence_fragments(uint32_t (&pf)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(pf[kk][e]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HNT, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+    float* __restrict__ lse, int H, int Sq, int Skv, float scale_log2) {
+  using L = HopperFwdSmem<D>;
+  constexpr int CB = D / 64;  // 64-column boxes of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BARS;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;    // row of the fragment (and row + 8)
-  const int tig = lane & 3;   // column pair of the fragment
-  const int lrow = lane & 7;  // ldmatrix: row within the 8x8 matrix this lane addresses
-  const int lmat = lane >> 3; // ldmatrix: which of the four matrices
+  const int wg = tid >> 7;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ + warp * 16;  // first q row of this warp
+  const int q0 = blockIdx.x * HQ;
+  const int n_kv = (Skv + HK - 1) / HK;
+  // consumer warpgroups that own a row < Sq (the second one owns none when the
+  // tile holds at most 64 rows, e.g. Sq = 64)
+  const int n_cw = Sq - q0 > 64 ? 2 : 1;
 
-  const __nv_bfloat16* k_base = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* v_base = v + b * v_sb + h * v_sh;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * n_cw);  // one arrival per working consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  // Q fragments of this warp's 16 rows, straight from global memory
-  uint32_t qf[KS][4];
-  load_a_fragments<KS>(qf, q + b * q_sb + h * q_sh, q_ss, q0, Sq, g, tig);
-
-  float acc[NO][4];
+  if (wg == 0) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_arrive_expect_tx(q_full, L::TILE);
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
+      for (int c = 0; c < CB; ++c) tma_load_4d(base + L::Q + c * BOX_BYTES, &tm_q, q_full, c * 64, h, q0, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty(s), ((t / STAGES) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), 2 * L::TILE);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    const int kvalid = min(BK, Skv - kv0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile_bf16<D>(Ks, k_base + (int64_t)kv0 * k_ss, k_ss, kvalid);
-    stage_tile_bf16<D>(Vs, v_base + (int64_t)kv0 * v_ss, v_ss, kvalid);
-    __syncthreads();
-
-    // S = Q K^T: 8 n-tiles of 8 kv columns
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ks += 2) {
-        // matrices: (d 0..7, d 8..15) of k-step ks, then of k-step ks+1
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (j * 8 + lrow) * LD + ks * 16 + lmat * 8);
-        mma_bf16(s[j], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[j], qf[ks + 1], kf[2], kf[3]);
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(base + L::K(s) + c * BOX_BYTES, &tm_k, full(s), c * 64, h, t * HK, b);
+          tma_load_4d(base + L::V(s) + c * BOX_BYTES, &tm_v, full(s), c * 64, h, t * HK, b);
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup cw owns q rows 64 cw .. 64 cw + 63 of the tile ----
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    if (cw >= n_cw) return;  // no row of this warpgroup exists
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int r_lo = q0 + cw * 64 + warp * 16 + g;  // this thread's rows r_lo, r_lo + 8
+    const uint32_t q_wg = base + L::Q + cw * 64 * 128;
 
-    // scale, mask the ragged kv edge, row maxima (rows g and g+8)
-    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const int col = j * 8 + tig * 2;
-      s[j][0] = (col < kvalid) ? s[j][0] * scale : NEG_INF;
-      s[j][1] = (col + 1 < kvalid) ? s[j][1] * scale : NEG_INF;
-      s[j][2] = (col < kvalid) ? s[j][2] * scale : NEG_INF;
-      s[j][3] = (col + 1 < kvalid) ? s[j][3] * scale : NEG_INF;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float al_lo = __expf(m_lo - mn_lo), al_hi = __expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const float neg_inf = __int_as_float(0xff800000u);
+    float m_lo = neg_inf, m_hi = neg_inf, l_lo = 0.f, l_hi = 0.f;
 
-    // P = exp(S - m), its f32 row sums, and P as bf16 A fragments
-    uint32_t pf[BK / 16][4];
-    float sum_lo = 0.f, sum_hi = 0.f;
+    // Tile t's softmax runs while the tensor cores do P V of tile t - 1:
+    // S(t) and PV(t-1) are issued together, S(t) is waited for alone.
+    float sc[64];
+    uint32_t pf[8][4];
+    float al_lo, al_hi;
+    // The two warpgroups take turns to issue their products (named barriers 1
+    // and 2), so one's products run while the other does its softmax; with one
+    // kv tile there is nothing to overlap. Warpgroup 0 goes first; each passes
+    // the turn after each of its n_kv + 1 issues, the second one not after its
+    // last, so every barrier ends balanced.
+    const bool turns = n_cw == 2 && n_kv > 1;
+    int turn = 0;
+    auto my_turn = [&] {
+      if (turns) named_barrier_sync(1 + cw, 256);
+    };
+    auto pass_turn = [&] {
+      if (turns && (cw == 0 || ++turn < n_kv + 1)) named_barrier_arrive(2 - cw, 256);
+    };
+    if (turns && cw == 1) named_barrier_arrive(1, 256);
+    mbar_wait(q_full, 0);
+    mbar_wait(full(0), 0);
+    my_turn();
+    wgmma_fence();
+    issue_qk<D>(sc, q_wg, base + L::K(0));
+    wgmma_commit_group();
+    pass_turn();
+    wgmma_wait_group<0>();
+    fence_operands(sc);
+    online_softmax(sc, Skv, tig, scale_log2, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi);
+    pack_p(pf, sc);
+    for (int t = 1; t < n_kv; ++t) {
+      const int s = t % STAGES;
+      const int sp = (t - 1) % STAGES;
+      mbar_wait(full(s), (t / STAGES) & 1);
+      fence_operands(acc);
+      fence_fragments(pf);
+      my_turn();
+      wgmma_fence();
+      issue_qk<D>(sc, q_wg, base + L::K(s));
+      wgmma_commit_group();
+      issue_pv<D>(acc, pf, base + L::V(sp));
+      wgmma_commit_group();
+      pass_turn();
+      wgmma_wait_group<1>();  // S(t) has landed; PV(t-1) may still run
+      fence_operands(sc);
+      online_softmax(sc, Skv - t * HK, tig, scale_log2, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi);
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+      fence_fragments(pf);  // the A fragments stay untouched until PV(t-1) has read them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(sp));  // this warp is done with stage sp
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float p0 = __expf(s[j][0] - mn_lo), p1 = __expf(s[j][1] - mn_lo);
-      const float p2 = __expf(s[j][2] - mn_hi), p3 = __expf(s[j][3] - mn_hi);
-      sum_lo += p0 + p1;
-      sum_hi += p2 + p3;
-      pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
-    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
-    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
-    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
-    l_lo = l_lo * al_lo + sum_lo;
-    l_hi = l_hi * al_hi + sum_hi;
-
-    // acc = acc * alpha + P V
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= al_lo;
-      acc[j][1] *= al_lo;
-      acc[j][2] *= al_hi;
-      acc[j][3] *= al_hi;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        // matrices: kv rows (0..7, 8..15) of k-step kk for n-tile j, then for n-tile j+1
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lmat & 1) * 8 + lrow) * LD + (j + (lmat >> 1)) * 8);
-        mma_bf16(acc[j], pf[kk], vf[0], vf[1]);
-        mma_bf16(acc[j + 1], pf[kk], vf[2], vf[3]);
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= al_lo;
+        acc[4 * j + 1] *= al_lo;
+        acc[4 * j + 2] *= al_hi;
+        acc[4 * j + 3] *= al_hi;
       }
+      pack_p(pf, sc);
     }
-  }
+    {
+      const int sp = (n_kv - 1) % STAGES;
+      fence_operands(acc);
+      fence_fragments(pf);
+      my_turn();
+      wgmma_fence();
+      issue_pv<D>(acc, pf, base + L::V(sp));
+      wgmma_commit_group();
+      pass_turn();
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+      fence_fragments(pf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(sp));
+    }
 
-  const int64_t o_ss = (int64_t)H * D;
-  __nv_bfloat16* o_base = o + (int64_t)b * Sq * o_ss + (int64_t)h * D;
-  const int r_lo = q0 + g, r_hi = q0 + g + 8;
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    // ---- epilogue ----
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    // this warpgroup's Q rows are free (its last S product has retired): stage
+    // O there in the swizzled layout TMA reads, then store it by TMA
+    const int rl = warp * 16 + g;  // row within the warpgroup's 64, and rl + 8
 #pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int c = j * 8 + tig * 2;
-    if (r_lo < Sq)
-      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_lo * o_ss + c) =
-          pack_bf16(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
-    if (r_hi < Sq)
-      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_hi * o_ss + c) =
-          pack_bf16(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
-  }
-  if (tig == 0) {
-    if (r_lo < Sq) lse[(int64_t)bh * Sq + r_lo] = m_lo + logf(l_lo);
-    if (r_hi < Sq) lse[(int64_t)bh * Sq + r_hi] = m_hi + logf(l_hi);
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t box = q_wg + (j >> 3) * BOX_BYTES;
+      const int chunk = j & 7;
+      st_shared_u32(box + rl * 128 + ((chunk ^ (rl & 7)) << 4) + tig * 4,
+                    pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo));
+      st_shared_u32(box + (rl + 8) * 128 + ((chunk ^ ((rl + 8) & 7)) << 4) + tig * 4,
+                    pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi));
+    }
+    fence_proxy_async();
+    named_barrier_sync(3 + cw, 128);
+    if ((tid & 127) == 0) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) tma_store_4d(&tm_o, q_wg + c * BOX_BYTES, c * 64, h, q0 + cw * 64, b);
+      bulk_commit_group();
+      bulk_wait_group_read0();
+    }
+    if (tig == 0) {
+      // lse = ln(sum exp(s*scale)) = (m2 + log2 l) * ln 2, m2 the base-2 row maximum
+      const int r_hi = r_lo + 8;
+      if (r_lo < Sq) lse[(int64_t)bh * Sq + r_lo] = (m_lo + log2f(l_lo)) * 0.69314718055994531f;
+      if (r_hi < Sq) lse[(int64_t)bh * Sq + r_hi] = (m_hi + log2f(l_hi)) * 0.69314718055994531f;
+    }
   }
 }
 
 // ----------------------------------------------------------------------------
 // bf16 path at D = 512 (the VAE mid block's single head): the same
 // recurrence, tiles cut for the width. At D = 512 one warp cannot hold 16 q
-// rows as flash_fwd_mma_kernel does (Q fragments 128 and the accumulator 256
+// rows of mma.sync fragments (Q fragments 128 and the accumulator 256
 // registers a thread), so the block's eight warps split the work and share
 // what they must through shared memory:
 //   * a block owns WQ = 64 q rows, staged once in shared memory with the
@@ -602,15 +784,86 @@ __global__ void __launch_bounds__(WNT, 1) flash_fwd_wide_kernel(
   if (tid < WQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
+// ---- host side of flash_fwd_wgmma_kernel ----
+
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                         const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the host side (CUDA's own codes stay below 1000).
+constexpr int NO_ENCODE_ENTRY = 1000;     // the driver has no cuTensorMapEncodeTiled
+constexpr int ENCODE_FAILED = 2000;       // + the driver's CUresult
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime once, so
+// that the library needs no -lcuda.
+TensorMapEncodeTiled encode_tiled() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<TensorMapEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, H, D) operand with element strides (sb, ss, sh) and a
+// contiguous D axis, as a 4-D tensor map over (D, H, S, B), innermost first,
+// whose box is 64 columns x `rows` rows of one (batch, head), 128-byte
+// swizzled. Rows past S read as zeros; stores past S are dropped.
+int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
+                long long ss, long long sh, int rows) {
+  const TensorMapEncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return NO_ENCODE_ENTRY;
+  // the stride of a dimension of extent 1 is never used: give it one the map takes
+  if (H == 1) sh = D;
+  if (S == 1) ss = sh * H;
+  if (B == 1) sb = ss * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-               int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes = 2 * BK * (D + 8) * (int)sizeof(__nv_bfloat16);
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_mma_kernel<D><<<grid, MMA_NT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, lse, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                 int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
+  using L = HopperFwdSmem<D>;
+  // the shared-memory opt-in, once per device (not on every launch: the host's
+  // launch path is what a UNet stage at batch 1 waits for)
+  constexpr int MAX_DEVICES = 64;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t opted_in[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    opted_in[dev] = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  });
+  if (opted_in[dev] != cudaSuccess) return (int)opted_in[dev];
+  CUtensorMap tq, tk, tv, to;
+  int code = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], HQ);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, D, st[3], st[4], st[5], HK);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, D, st[6], st[7], st[8], HK);
+  const long long o_ss = (long long)H * D;
+  if (code == 0) code = encode_bshd(&to, o, B, Sq, H, D, (long long)Sq * o_ss, o_ss, D, 64);
+  if (code != 0) return code;
+  dim3 grid((Sq + HQ - 1) / HQ, B * H);
+  flash_fwd_wgmma_kernel<D><<<grid, HNT, L::BYTES, stream>>>(tq, tk, tv, to, lse, H, Sq, Skv,
+                                                             scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -661,8 +914,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64) return launch_mma<64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
-  if (dtype == 0 && D == 128) return launch_mma<128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 0 && D == 64)
+    return launch_wgmma<64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_wgmma<128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 0 && D == 512) return launch_wide<512>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 1 && D == 64)
     return launch<float, 64, 64, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);

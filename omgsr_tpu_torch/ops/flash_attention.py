@@ -6,21 +6,21 @@ Source note. ``flash_attention`` replaces the Pallas TPU kernel
 ``omgsr_tpu/ops/flash_attention.py:_fwd_kernel`` (reached through
 ``_forward`` / ``flash_attention_bshd``). On an H100 the function is bound
 by operations: 4*B*H*Sq*Skv*D flops against inputs that are read once. The
-kernel (``csrc/flash_attention_fwd.cu``) gives one block a 64-row q tile of
-one (batch, head) and loops over 64-row kv tiles inside the block, which
-takes the place of the TPU's sequential kv grid axis; it reads q/k/v through
-their strides (no head-major transpose copy), masks the ragged ends of Sq
-and Skv itself (no padding in device memory), accumulates in f32 and also
-writes the f32 log-sum-exp per query row. bf16 inputs go to a tensor-core
-kernel (``mma.sync`` m16n8k16, Q fragments and the accumulator in registers,
-K/V tiles in shared memory read with ``ldmatrix``); f32 inputs go to a
-kernel that multiplies with f32 FMAs and is exact. Head dims 64, 128 and 512
-(the VAE mid block's single head). At D = 512 a warp cannot hold 16 rows of
-fragments and their 16 x 512 accumulator in registers, so the bf16 kernel
-there stages the q tile in shared memory and its eight warps split the score
-block and the output columns, exchanging P through shared memory; the f32
-kernel takes smaller tiles. None uses ``wgmma`` or TMA yet; PERF.md holds
-their times beside the bound.
+kernels (``csrc/flash_attention_fwd.cu``) give one block a q tile of one
+(batch, head) and loop over kv tiles inside the block, which takes the place
+of the TPU's sequential kv grid axis; they read q/k/v through their strides
+(no head-major transpose copy), mask the ragged ends of Sq and Skv
+themselves (no padding in device memory), accumulate in f32 and also write
+the f32 log-sum-exp per query row. bf16 inputs at head dims 64 and 128 go to
+a kernel built for Hopper: TMA loads through tensor maps over the caller's
+strides into a ring of shared-memory stages guarded by mbarriers, ``wgmma``
+for both products, a producer warpgroup and two consumer warpgroups of 64 q
+rows that take turns on the tensor cores. At D = 512 (the VAE mid block's
+single head) the bf16 kernel stages the q tile in shared memory and its
+eight warps split the score block and the output columns through
+``mma.sync``, exchanging P through shared memory. f32 inputs go to a kernel
+that multiplies with f32 FMAs and is exact. PERF.md holds their times beside
+the bound.
 
 ``flash_attention_bwd`` replaces the Pallas TPU kernels ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` of the same file (reached through ``_backward``, the
@@ -105,12 +105,15 @@ def _library():
 
 
 def _kernel_operand(x):
-    """The kernel reads 16-byte vectors along a contiguous D axis."""
+    """The operand as the kernels take it, copied only where they cannot: they
+    read 16-byte vectors along a contiguous D axis, and the bf16 kernel at head
+    dims 64 and 128 reads through a TMA tensor map, whose base and strides are
+    multiples of 16 bytes and whose strides are not 0 (an expanded dimension)."""
     vec = 16 // x.element_size()
     ok = (
         x.stride(3) == 1
         and x.data_ptr() % 16 == 0
-        and all(x.stride(i) % vec == 0 for i in range(3))
+        and all(x.stride(i) % vec == 0 and (x.stride(i) > 0 or x.shape[i] == 1) for i in range(3))
     )
     return x if ok else x.contiguous()
 

@@ -12,9 +12,9 @@ against two-pass statistics), the pipeline 1e-3 as in
 test_torch_port_pipeline.py, one served image within 1 uint8 step.
 
 Every JAX result is computed once per module, in one interpret-mode context,
-and every chain of Pallas calls under one ``jax.jit``: run op by op, the
-interpreter's callbacks can deadlock against the thread that dispatches the
-next call.
+and every chain of Pallas calls under one ``jax.jit`` (``jax_once``: compiled at
+optimisation level 0): run op by op, the interpreter's callbacks can deadlock
+against the thread that dispatches the next call.
 """
 
 from dataclasses import replace
@@ -36,7 +36,7 @@ from omgsr_tpu_torch.models import vae as TV
 from omgsr_tpu_torch.models.configs import VAEConfig
 from omgsr_tpu_torch.ops import conv3x3 as TC
 from omgsr_tpu_torch.ops import fused_groupnorm as TGN
-from tests.torch_port_helpers import J_TINY_UNET, T_TINY_UNET, assert_close, bridge, jax_init, t
+from tests.torch_port_helpers import J_TINY_UNET, T_TINY_UNET, assert_close, bridge, jax_init, jax_once, t
 
 CONV_TOL = 1e-4
 SUMS_RTOL = 1e-4
@@ -118,21 +118,24 @@ def jax_side():
         for case in K4_CASES:
             h, w_, cin, cout, act = case
             x, w, b = (jnp.asarray(a) for a in _conv_inputs(h, w_, cin, cout, 1))
-            out["k4", case] = (np.asarray(JC.conv3x3_pallas(x, w, b, act=act, bh=8)),
-                               np.asarray(JC.conv3x3_reference(x, w, b, act=act)))
+            out["k4", case] = tuple(np.asarray(v) for v in jax_once(
+                lambda x, w, b: (JC.conv3x3_pallas(x, w, b, act=act, bh=8),
+                                 JC.conv3x3_reference(x, w, b, act=act)), x, w, b))
         x, w, b, a, c, skip = (jnp.asarray(v) for v in _k5_inputs())
         for use_skip, emit in K5_CASES:
-            y, ssum, ssq = JC.conv3x3_gn_fused(x, w, b, a, c, skip=skip if use_skip else None, bh=8,
-                                               emit_stats=emit)
+            y, ssum, ssq = jax_once(
+                lambda x, w, b, a, c, skip: JC.conv3x3_gn_fused(
+                    x, w, b, a, c, skip=skip if use_skip else None, bh=8, emit_stats=emit),
+                x, w, b, a, c, skip)
             out["k5", use_skip, emit] = tuple(np.asarray(v) for v in (y, ssum, ssq))
         for cin, cout in RESBLOCK_CASES:
             p, xr = _resblock_params(cin, cout, 30 + cout)
             out["resblock", cin, cout] = np.asarray(
-                jax.jit(lambda p, x: JC.fused_resblock(p, x, 32))(jax.tree.map(jnp.asarray, p), jnp.asarray(xr)))
+                jax_once(lambda p, x: JC.fused_resblock(p, x, 32), jax.tree.map(jnp.asarray, p), jnp.asarray(xr)))
         vp, z, img, prompt, _ = _vae_inputs()
-        out["decode"] = np.asarray(jax.jit(lambda p, z: JV.vae_decode(p, J_FUSED_VAE, z))(vp, jnp.asarray(z)))
+        out["decode"] = np.asarray(jax_once(lambda p, z: JV.vae_decode(p, J_FUSED_VAE, z), vp, jnp.asarray(z)))
         out["encode"] = np.asarray(
-            jax.jit(lambda p, x: JV.vae_encode_features(p, J_FUSED_VAE, x))(vp, jnp.asarray(img)))
+            jax_once(lambda p, x: JV.vae_encode_features(p, J_FUSED_VAE, x), vp, jnp.asarray(img)))
         up = jax_init(JU.init_unet, 1, J_TINY_UNET)
         jpipe = JPipeline(vp, up, J_FUSED_VAE, J_TINY_UNET)
         out["pipeline"] = np.asarray(jpipe(jnp.asarray(img), jnp.asarray(prompt), 16, 8, sample_latent=False))

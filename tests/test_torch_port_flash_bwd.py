@@ -3,7 +3,8 @@ flash-attention backward against the JAX package's Pallas backward kernels
 (interpret mode), against jax.vjp of jax.nn.dot_product_attention and against
 torch autograd through the plain forward; the GroupNorm+SiLU autograd
 function against autograd through its plain version. fp32 (f64 for
-gradcheck), inputs made with numpy from a seed."""
+gradcheck), inputs made with numpy from a seed; each JAX reference runs as one
+jit compiled at optimisation level 0 (``jax_once``)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +15,7 @@ import torch
 from omgsr_tpu.ops import flash_attention as JFA
 from omgsr_tpu_torch.ops import flash_attention as TFA
 from omgsr_tpu_torch.ops import fused_groupnorm as TGN
-from tests.torch_port_helpers import assert_close, t
+from tests.torch_port_helpers import assert_close, jax_once, t
 
 
 @pytest.fixture(autouse=True)
@@ -56,9 +57,9 @@ def _plain_grads(q, k, v, g, scale):
 @pytest.mark.parametrize("shape,skv,scale", SHAPES)
 def test_flash_bwd_plain_matches_pallas_interpret(shape, skv, scale):
     q, k, v, g = _operands(shape, skv, 0)
-    _, vjp = jax.vjp(lambda a, b, c: JFA.flash_attention_bshd(a, b, c, scale),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = vjp(jnp.asarray(g))
+    ref = jax_once(lambda a, b, c, gg: jax.vjp(lambda a, b, c: JFA.flash_attention_bshd(a, b, c, scale),
+                                               a, b, c)[1](gg),
+                   jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g))
     for name, got, want in zip(("dq", "dk", "dv"), _plain_grads(q, k, v, g, scale), ref):
         assert_close(got, want, FLASH_TOL, name)
 
@@ -66,9 +67,9 @@ def test_flash_bwd_plain_matches_pallas_interpret(shape, skv, scale):
 @pytest.mark.parametrize("shape,skv,scale", SHAPES)
 def test_flash_bwd_plain_matches_jax_dot_product_attention(shape, skv, scale):
     q, k, v, g = _operands(shape, skv, 1)
-    _, vjp = jax.vjp(lambda a, b, c: jax.nn.dot_product_attention(a, b, c, scale=scale),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = vjp(jnp.asarray(g))
+    ref = jax_once(lambda a, b, c, gg: jax.vjp(lambda a, b, c: jax.nn.dot_product_attention(a, b, c, scale=scale),
+                                               a, b, c)[1](gg),
+                   jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g))
     for name, got, want in zip(("dq", "dk", "dv"), _plain_grads(q, k, v, g, scale), ref):
         assert_close(got, want, FLASH_TOL, name)
 
@@ -174,8 +175,9 @@ def test_flash_d512_matches_pallas_interpret(dtype):
     interpret mode and jax.vjp of it."""
     q, k, v, g = _operands((1, 300, 1, 512), 300, 5)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
-    out_ref, vjp = jax.vjp(JFA.flash_attention_bshd, *(jnp.asarray(a, jdt) for a in (q, k, v)))
-    grads_ref = vjp(jnp.asarray(g, jdt))
+    out_ref, grads_ref = jax_once(
+        lambda a, b, c, gg: (lambda o, vjp: (o, vjp(gg)))(*jax.vjp(JFA.flash_attention_bshd, a, b, c)),
+        *(jnp.asarray(a, jdt) for a in (q, k, v, g)))
     assert TFA.supports(512, dtype)
     leaves = [t(a).to(dtype).requires_grad_() for a in (q, k, v)]
     out = TFA.flash_attention(*leaves)
@@ -206,8 +208,9 @@ def test_encoder_mid_attention_gradient_goes_through_flash(monkeypatch):
     rng = np.random.default_rng(6)
     x = rng.standard_normal((1, 6, 5, 512)).astype(np.float32)
     g = rng.standard_normal((1, 6, 5, 512)).astype(np.float32)
-    ref_out, vjp = jax.vjp(lambda a: JV._mid_attention(jp, a, 32), jnp.asarray(x))
-    (ref_dx,) = vjp(jnp.asarray(g))
+    ref_out, (ref_dx,) = jax_once(
+        lambda p, a, gg: (lambda o, vjp: (o, vjp(gg)))(*jax.vjp(lambda a: JV._mid_attention(p, a, 32), a)),
+        jp, jnp.asarray(x), jnp.asarray(g))
     seen = []
     real = TFA.flash_attention_bwd
 

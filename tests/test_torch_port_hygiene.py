@@ -149,6 +149,24 @@ def test_backward_kernels_hold_no_atomics_and_no_library_calls():
         assert banned not in code.lower(), banned
 
 
+def test_forward_kernels_hold_no_atomics_and_no_library_calls():
+    """The forward kernels fix the order of every sum and compute their own
+    products: no atomic operation and no library call in the forward source or
+    the Hopper header it includes; the bf16 kernel at head dims 64 and 128 is the
+    TMA + wgmma one, and the mma.sync kernel it replaced is gone."""
+    csrc = ROOT / "omgsr_tpu_torch" / "csrc"
+    fwd = "\n".join(l.split("//")[0] for l in (csrc / "flash_attention_fwd.cu").read_text().splitlines())
+    sm90 = "\n".join(l.split("//")[0] for l in (csrc / "sm90.cuh").read_text().splitlines())
+    for code in (fwd, sm90):
+        for banned in ("atomic", "cublas", "cudnn", "cutlass", "scaled_dot_product", "sdpa"):
+            assert banned not in code.lower(), banned
+    assert "flash_fwd_wgmma_kernel" in fwd and '#include "sm90.cuh"' in fwd
+    assert "flash_fwd_mma_kernel" not in fwd and "launch_mma" not in fwd
+    assert "cuTensorMapEncodeTiled" in fwd and "__grid_constant__ CUtensorMap" in fwd
+    for instruction in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
+        assert instruction in sm90, instruction
+
+
 def test_conv_kernels_hold_no_atomics_and_no_library_calls():
     """The 3x3-conv kernels write one row of channel sums per block and the
     caller adds the rows: their source holds no atomic operation, and the
@@ -205,6 +223,9 @@ def test_kernel_sources_ship_with_the_package():
 
     assert kernel_build.kernel_sources() == ["conv3x3", "flash_attention_bwd", "flash_attention_fwd",
                                              "group_norm_silu"]
+    # the headers the sources include ship beside them and take part in the build's hash
+    assert sorted(p.name for p in kernel_build.CSRC_DIR.glob("*.cuh")) == ["mma_bf16.cuh", "sm90.cuh"]
+    assert '"csrc/*.cuh"' in (ROOT / "pyproject.toml").read_text()
     # no nvcc on a CPU host: a build is refused loudly, never skipped
     import shutil
 

@@ -15,7 +15,7 @@ from omgsr_tpu.ops.fused_groupnorm import fused_group_norm_silu as j_fused_group
 from omgsr_tpu_torch.ops import attention as TA
 from omgsr_tpu_torch.ops import flash_attention as TFA
 from omgsr_tpu_torch.ops import fused_groupnorm as TGN
-from tests.torch_port_helpers import assert_close, t
+from tests.torch_port_helpers import assert_close, jax_once, t
 
 
 @pytest.fixture(autouse=True)
@@ -51,7 +51,7 @@ FLASH_TOL = 2e-3
 )
 def test_flash_plain_matches_pallas_interpret(shape, skv, scale):
     q, k, v = _qkv(shape, skv, 0)
-    ref = JFA.flash_attention_bshd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    ref = jax_once(lambda a, b, c: JFA.flash_attention_bshd(a, b, c, scale), *(jnp.asarray(a) for a in (q, k, v)))
     out = TFA.flash_attention_plain(t(q), t(k), t(v), scale)
     assert_close(out, ref, FLASH_TOL)
     # the wrapper takes the plain version for CPU tensors, and counts nothing
@@ -104,6 +104,38 @@ def test_matmul_attention_bf16_keeps_f32_scores(shape, skv, bias):
     out = TA.matmul_attention(bf16(q), bf16(k), bf16(v), bias=None if bb is None else bf16(bb))
     assert out.dtype == torch.bfloat16
     assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize(
+    "make,copied",
+    [
+        # q, k, v as views of one packed (B, S, 3, H, D) tensor, at D = 64 and 128
+        (lambda: torch.zeros(2, 300, 3, 3, 64, dtype=torch.bfloat16).unbind(2)[1], False),
+        (lambda: torch.zeros(2, 300, 3, 3, 128, dtype=torch.bfloat16).unbind(2)[0], False),
+        (lambda: torch.zeros(1, 64, 20, 64, dtype=torch.bfloat16), False),
+        # head strides of 68 bf16 (136 bytes) and 66 f32 (264 bytes) are no multiples
+        # of 16 bytes; 72 bf16 (144 bytes) and 68 f32 (272 bytes) are
+        (lambda: torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64], True),
+        (lambda: torch.zeros(1, 64, 2, 66)[..., :64], True),
+        (lambda: torch.zeros(1, 64, 2, 72, dtype=torch.bfloat16)[..., :64], False),
+        (lambda: torch.zeros(1, 64, 2, 68)[..., :64], False),
+        # an expanded batch (stride 0) cannot go into a TMA tensor map
+        (lambda: torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16).expand(3, 64, 2, 64), True),
+        # D not contiguous
+        (lambda: torch.zeros(1, 64, 64, 2, dtype=torch.bfloat16).transpose(2, 3), True),
+    ],
+)
+def test_kernel_operand_copies_only_what_the_kernels_cannot_read(make, copied):
+    """The operands go to the kernels as they are where the kernels (and the
+    TMA tensor maps of the D = 64/128 bf16 kernel) can read them: a 16-byte
+    aligned base, a contiguous D axis, strides that are nonzero multiples of 16
+    bytes; anything else is copied to a contiguous tensor first."""
+    x = make()
+    y = TFA._kernel_operand(x)
+    assert (y is not x) == copied
+    assert torch.equal(y, x)
+    if copied:
+        assert y.is_contiguous() and y.stride(0) > 0
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
@@ -159,13 +191,12 @@ GN_TOL = 2e-5
 )
 def test_group_norm_silu_plain_matches_pallas_and_unfused(shape, groups, apply_silu):
     x, scale, bias = _gn_inputs(shape, 5)
-    pallas = j_fused_group_norm_silu(
-        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups, 1e-6,
-        apply_silu=apply_silu, block_rows=64,
-    )
-    unfused = j_group_norm({"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}, jnp.asarray(x), groups, 1e-6)
-    if apply_silu:
-        unfused = j_silu(unfused)
+    def jax_side(x, scale, bias):
+        pallas = j_fused_group_norm_silu(x, scale, bias, groups, 1e-6, apply_silu=apply_silu, block_rows=64)
+        unfused = j_group_norm({"scale": scale, "bias": bias}, x, groups, 1e-6)
+        return pallas, j_silu(unfused) if apply_silu else unfused
+
+    pallas, unfused = jax_once(jax_side, *(jnp.asarray(a) for a in (x, scale, bias)))
     plain = TGN.group_norm_silu_plain(t(x), t(scale), t(bias), groups, 1e-6, apply_silu)
     assert_close(plain, pallas, GN_TOL, "plain vs pallas interpret")
     assert_close(plain, unfused, GN_TOL, "plain vs silu(group_norm)")

@@ -29,6 +29,7 @@ from tests.torch_port_helpers import (
     assert_close,
     bridge,
     jax_init,
+    jax_once,
     t,
     to_numpy_tree,
 )
@@ -55,14 +56,14 @@ def _pixels(seed, shape=(2, 16, 16, 3)):
 def test_vae_encode_features(vae_pair):
     jp, tp = vae_pair
     x = _pixels(0)
-    ref = JV.vae_encode_features(jp, J_TINY_VAE, jnp.asarray(x))
+    ref = jax_once(lambda p, x: JV.vae_encode_features(p, J_TINY_VAE, x), jp, jnp.asarray(x))
     assert_close(TV.vae_encode_features(tp, T_TINY_VAE, t(x)), ref, TOL)
 
 
 def test_vae_encode_mean(vae_pair):
     jp, tp = vae_pair
     x = _pixels(1)
-    ref = JV.vae_encode(jp, J_TINY_VAE, jnp.asarray(x), rng=None)
+    ref = jax_once(lambda p, x: JV.vae_encode(p, J_TINY_VAE, x, rng=None), jp, jnp.asarray(x))
     assert_close(TV.vae_encode(tp, T_TINY_VAE, t(x)), ref, TOL)
     assert_close(TV.vae_encode(tp, T_TINY_VAE, t(x), sample=False, noise=t(x[..., :1])), ref, TOL)
 
@@ -74,7 +75,7 @@ def test_vae_encode_with_shared_noise(vae_pair):
     jp, tp = vae_pair
     x = _pixels(2)
     noise = np.random.default_rng(3).standard_normal((2, 8, 8, 4)).astype(np.float32)
-    moments = JV.vae_encode_features(jp, J_TINY_VAE, jnp.asarray(x))
+    moments = jax_once(lambda p, x: JV.vae_encode_features(p, J_TINY_VAE, x), jp, jnp.asarray(x))
     mean, logvar = jnp.split(moments, 2, axis=-1)
     ref = JV.scale_latent(J_TINY_VAE, mean + jnp.exp(0.5 * jnp.clip(logvar, -30.0, 20.0)) * noise)
     assert_close(TV.vae_encode(tp, T_TINY_VAE, t(x), noise=t(noise)), ref, TOL)
@@ -83,9 +84,9 @@ def test_vae_encode_with_shared_noise(vae_pair):
 def test_vae_decode(vae_pair):
     jp, tp = vae_pair
     z = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32) * 0.2
-    ref = JV.vae_decode(jp, J_TINY_VAE, jnp.asarray(z))
+    ref = jax_once(lambda p, z: JV.vae_decode(p, J_TINY_VAE, z), jp, jnp.asarray(z))
     assert_close(TV.vae_decode(tp, T_TINY_VAE, t(z)), ref, TOL)
-    ref_raw = JV.vae_decode(jp, J_TINY_VAE, jnp.asarray(z), unscale=False)
+    ref_raw = jax_once(lambda p, z: JV.vae_decode(p, J_TINY_VAE, z, unscale=False), jp, jnp.asarray(z))
     assert_close(TV.vae_decode(tp, T_TINY_VAE, t(z), unscale=False), ref_raw, TOL)
 
 

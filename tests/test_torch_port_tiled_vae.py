@@ -26,6 +26,7 @@ from omgsr_tpu_torch.inference import vae_routing as TR
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline as TPipeline
 from omgsr_tpu_torch.models import vae as TV
 from tests.torch_port_helpers import (
+    FAST_COMPILE,
     J_TINY_UNET,
     J_TINY_VAE,
     T_TINY_UNET,
@@ -33,6 +34,7 @@ from tests.torch_port_helpers import (
     assert_close,
     bridge,
     jax_init,
+    jax_once,
     t,
 )
 
@@ -68,11 +70,13 @@ def test_streaming_fast_matches_jax(vae_pair, what):
     jp, tp = vae_pair
     if what == "encode":
         x = _pixels((1, 40, 88, 3), 0)  # tile 16: 3 x 6 windows of 32 x 32
-        ref = JT.streaming_vae_encode(jp, J_TINY_VAE, jnp.asarray(x), tile=16, pad=8, est_size=24)
+        ref = jax_once(lambda p, x: JT.streaming_vae_encode(p, J_TINY_VAE, x, tile=16, pad=8, est_size=24),
+                       jp, jnp.asarray(x))
         out = TT.streaming_vae_encode(tp, T_TINY_VAE, t(x), tile=16, pad=8, est_size=24)
     else:
         z = _latent((1, 21, 37, 4), 1)  # odd sizes: 3 x 5 windows of 8 + 2 * 4
-        ref = JT.streaming_vae_decode(jp, J_TINY_VAE, jnp.asarray(z), tile=8, pad=4, est_size=16)
+        ref = jax_once(lambda p, z: JT.streaming_vae_decode(p, J_TINY_VAE, z, tile=8, pad=4, est_size=16),
+                       jp, jnp.asarray(z))
         out = TT.streaming_vae_decode(tp, T_TINY_VAE, t(z), tile=8, pad=4, est_size=16)
     assert_close(out, ref, TOL, what)
 
@@ -85,12 +89,12 @@ def test_exact_matches_jax_and_the_full_image_vae(vae_pair, what):
     jp, tp = vae_pair
     if what == "encode":
         x = _pixels((1, 48, 40, 3), 2)
-        ref = JT.exact_vae_encode(jp, J_TINY_VAE, jnp.asarray(x), stat_rows=7)
+        ref = jax_once(lambda p, x: JT.exact_vae_encode(p, J_TINY_VAE, x, stat_rows=7), jp, jnp.asarray(x))
         out = TT.exact_vae_encode(tp, T_TINY_VAE, t(x))
         full = TV.vae_encode(tp, T_TINY_VAE, t(x))
     else:
         z = _latent((1, 24, 20, 4), 3)
-        ref = JT.exact_vae_decode(jp, J_TINY_VAE, jnp.asarray(z), stat_rows=5)
+        ref = jax_once(lambda p, z: JT.exact_vae_decode(p, J_TINY_VAE, z, stat_rows=5), jp, jnp.asarray(z))
         out = TT.exact_vae_decode(tp, T_TINY_VAE, t(z))
         full = TV.vae_decode(tp, T_TINY_VAE, t(z))
     assert_close(out, ref, TOL, what)
@@ -106,13 +110,15 @@ def test_streaming_auto_matches_jax(vae_pair, what, ratio):
     if what == "encode":
         x = _pixels((1, 40, 88, 3), 0)
         est = 24 if ratio == "within" else 16  # 88 / 24 = 3.7, 88 / 16 = 5.5
-        ref = JT.streaming_vae_encode(jp, J_TINY_VAE, jnp.asarray(x), tile=16, pad=8, est_size=est, stats="auto")
+        ref = jax_once(lambda p, x: JT.streaming_vae_encode(p, J_TINY_VAE, x, tile=16, pad=8, est_size=est,
+                                                             stats="auto"), jp, jnp.asarray(x))
         out = TT.streaming_vae_encode(tp, T_TINY_VAE, t(x), tile=16, pad=8, est_size=est, stats="auto")
         full = TV.vae_encode(tp, T_TINY_VAE, t(x))
     else:
         z = _latent((1, 21, 37, 4), 1)
         est = 16 if ratio == "within" else 8  # 37 / 16 = 2.3, 37 / 8 = 4.6
-        ref = JT.streaming_vae_decode(jp, J_TINY_VAE, jnp.asarray(z), tile=8, pad=4, est_size=est, stats="auto")
+        ref = jax_once(lambda p, z: JT.streaming_vae_decode(p, J_TINY_VAE, z, tile=8, pad=4, est_size=est,
+                                                             stats="auto"), jp, jnp.asarray(z))
         out = TT.streaming_vae_decode(tp, T_TINY_VAE, t(z), tile=8, pad=4, est_size=est, stats="auto")
         full = TV.vae_decode(tp, T_TINY_VAE, t(z))
     assert_close(out, ref, TOL, what)
@@ -125,14 +131,16 @@ def test_routed_batch_of_two_matches_jax(vae_pair):
     small batch that stays on the full-image route."""
     jp, tp = vae_pair
     x = _pixels((2, 32, 56, 3), 5)
-    ref = JR.routed_vae_encode(jp, J_TINY_VAE, jnp.asarray(x), 16, jax.random.key(0), sample=False)
+    ref = jax_once(lambda p, x: JR.routed_vae_encode(p, J_TINY_VAE, x, 16, jax.random.key(0), sample=False),
+                   jp, jnp.asarray(x))
     z = TR.routed_vae_encode(tp, T_TINY_VAE, t(x), 16, sample=False)
     assert_close(z, ref, TOL, "encode")
-    ref = JR.routed_vae_decode(jp, J_TINY_VAE, jnp.asarray(z.numpy()), 16)
+    ref = jax_once(lambda p, z: JR.routed_vae_decode(p, J_TINY_VAE, z, 16), jp, jnp.asarray(z.numpy()))
     assert_close(TR.routed_vae_decode(tp, T_TINY_VAE, z, 16), ref, TOL, "decode")
     small = _pixels((2, 16, 16, 3), 6)
     assert_close(TR.routed_vae_encode(tp, T_TINY_VAE, t(small), 16, sample=False),
-                 JV.vae_encode(jp, J_TINY_VAE, jnp.asarray(small), rng=None), TOL, "untiled")
+                 jax_once(lambda p, x: JV.vae_encode(p, J_TINY_VAE, x, rng=None), jp, jnp.asarray(small)),
+                 TOL, "untiled")
 
 
 def test_sampled_tiles_and_images_draw_their_own_noise(vae_pair):
@@ -211,24 +219,36 @@ def _keys(tree):
 
 @pytest.fixture(scope="module")
 def pipelines(vae_pair, unet_pair):
-    """Weights, prompt, a 64 x 80 input (larger than the 48-px VAE tile along
-    both axes) and the JAX pipelines, built once: the served request reuses
-    the exact one and what it compiled."""
+    """Weights, prompt, the inputs and the JAX pipelines, built once. The fast
+    route runs a 64 x 80 input, the exact route a 128 x 160 one: the size at
+    which the served 16 x 20 PNG below reaches the pipeline (process_size 128),
+    so the served request reuses what the exact route compiled. Both inputs
+    are larger than the 48-px VAE tile along both axes. Each JAX pipeline runs
+    as one jit compiled at optimisation level 0, once per route and shape."""
     (jv, tv), (ju, tu) = vae_pair, unet_pair
     prompt = np.random.default_rng(8).standard_normal((1, 7, 16)).astype(np.float32)
-    lq = _pixels((1, 64, 80, 3), 9)
+    lq = {"fast": _pixels((1, 64, 80, 3), 9), "exact": _pixels((1, 128, 160, 3), 9)}
     jpipes = {s: JPipeline(jv, ju, J_TINY_VAE, J_TINY_UNET, vae_tile=48, vae_stats=s) for s in ("fast", "exact")}
-    return jpipes, tv, tu, prompt, lq
+    compiled = {}
+
+    def jax_pipeline(stats, x):
+        x, pr = jnp.asarray(x, jnp.float32), jnp.asarray(prompt)
+        if (stats, x.shape) not in compiled:
+            compiled[stats, x.shape] = jax.jit(
+                lambda img, p: jpipes[stats](img, p, 16, 8, sample_latent=False)
+            ).lower(x, pr).compile(compiler_options=FAST_COMPILE)
+        return compiled[stats, x.shape](x, pr)
+
+    return jax_pipeline, tv, tu, prompt, lq
 
 
 @pytest.mark.parametrize("stats", ["fast", "exact"])
 def test_pipeline_tiled_matches_jax(pipelines, stats):
-    jpipes, tv, tu, prompt, lq = pipelines
-    jpipe = jpipes[stats]
+    jax_pipeline, tv, tu, prompt, lq = pipelines
     tpipe = TPipeline(tv, tu, T_TINY_VAE, T_TINY_UNET, vae_tile=48, vae_stats=stats, device="cpu")
-    ref = jpipe(jnp.asarray(lq), jnp.asarray(prompt), 16, 8, sample_latent=False)
-    out = tpipe(lq, prompt, 16, 8, sample_latent=False)
-    assert out.shape == lq.shape
+    ref = jax_pipeline(stats, lq[stats])
+    out = tpipe(lq[stats], prompt, 16, 8, sample_latent=False)
+    assert out.shape == lq[stats].shape
     assert_close(out, ref, PIPE_TOL, stats)
 
 
@@ -236,11 +256,12 @@ def test_pipeline_exact_route_matches_its_full_image_route(pipelines):
     _, tv, tu, prompt, lq = pipelines
     exact = TPipeline(tv, tu, T_TINY_VAE, T_TINY_UNET, vae_tile=48, vae_stats="exact", device="cpu")
     full = TPipeline(tv, tu, T_TINY_VAE, T_TINY_UNET, device="cpu")
-    assert_close(exact(lq, prompt, 16, 8), full(lq, prompt, 16, 8).numpy(), TOL)
+    x = lq["fast"]
+    assert_close(exact(x, prompt, 16, 8), full(x, prompt, 16, 8).numpy(), TOL)
 
 
 def test_served_request_exact_route_matches_jax(pipelines, tmp_path):
-    """One PNG (16 x 20, served at 64 x 80) through build_server(--vae_tile 48
+    """One PNG (16 x 20, run at 128 x 160, returned at 64 x 80) through build_server(--vae_tile 48
     --vae_stats exact) on the CPU, against the JAX pipeline's exact route
     behind the JAX server (no fused colour fix under --vae_tile on either
     side): within one uint8 step."""
@@ -250,7 +271,7 @@ def test_served_request_exact_route_matches_jax(pipelines, tmp_path):
     from omgsr_tpu.serving.server import SRServer as JSRServer
     from omgsr_tpu_torch.cli import serve as serve_cli
 
-    jpipes, tv, tu, prompt, _ = pipelines
+    jax_pipeline, tv, tu, prompt, _ = pipelines
     np.savez(tmp_path / "prompt.npz", prompt_embeds=prompt)
     args = serve_cli.parse_args([
         "--prompt_npz", str(tmp_path / "prompt.npz"), "--process_size", "128", "--upscale", "4",
@@ -259,7 +280,7 @@ def test_served_request_exact_route_matches_jax(pipelines, tmp_path):
     ])
     server = serve_cli.build_server(args, params=(tv, tu), configs=(T_TINY_VAE, T_TINY_UNET))
     jsrv = JSRServer(
-        lambda lq, i: jpipes["exact"](jnp.asarray(lq, jnp.float32), jnp.asarray(prompt), 16, 8, sample_latent=False),
+        lambda lq, i: jax_pipeline("exact", lq),
         JServeOptions(process_size=128, upscale=4, size_bucket=16), np_dtype=np.float32,
     )
     buf = io.BytesIO()

@@ -10,15 +10,34 @@ from omgsr_tpu.models.configs import VAEConfig as JVAEConfig
 from omgsr_tpu_torch.convert.params import from_jax_tree
 from omgsr_tpu_torch.models.configs import UNetConfig, VAEConfig
 
-_TINY_VAE = dict(block_out_channels=(8, 16), norm_num_groups=4, latent_channels=4)
+# Both resolutions of the VAE, the mid block with its attention, one resnet per
+# encoder block and two per decoder block: every code path of the SD2.1 VAE.
+_TINY_VAE = dict(block_out_channels=(8, 16), norm_num_groups=4, latent_channels=4, layers_per_block=1)
+# Every block type of SD2.1's UNet at one resnet (and one transformer) per down
+# block, two per up block: the same code paths at half the depth, which halves
+# what the JAX side traces and compiles in every test that runs the UNet.
 _TINY_UNET = dict(
     block_out_channels=(8, 16, 16, 16),
     num_attention_heads=(1, 2, 2, 2),
     cross_attention_dim=16,
     norm_num_groups=4,
+    layers_per_block=1,
 )
 J_TINY_VAE, T_TINY_VAE = JVAEConfig(**_TINY_VAE), VAEConfig(**_TINY_VAE)
 J_TINY_UNET, T_TINY_UNET = JUNetConfig(**_TINY_UNET), UNetConfig(**_TINY_UNET)
+
+
+# XLA's CPU backend at optimisation level 0. Run op by op, a JAX reference
+# compiles every primitive apart and dispatches it from Python; as one jit at
+# level 0 it compiles in a fraction of that time and computes the same
+# function (the two agree to a few f32 ulps).
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_once(fn, *args):
+    """``fn(*args)`` as one jax.jit compiled at optimisation level 0; static
+    arguments go into ``fn`` as a closure."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
 
 
 def to_numpy_tree(tree):
