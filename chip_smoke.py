@@ -88,6 +88,7 @@ from omgsr_tpu_torch.ops import conv3x3 as C3
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
@@ -367,19 +368,13 @@ def check_group_norm(shape, groups, dtype, seed):
     return stats, apply
 
 
-BWD_SHAPES = [
-    # (B, Sq, H, D), Skv, dtype, on the training path?, packed q/k/v and a non-contiguous dO?
-    ((1, 4096, 5, 64), 4096, torch.bfloat16, True, False),
-    ((1, 4096, 5, 64), 77, torch.bfloat16, True, False),
-    ((1, 1024, 10, 64), 1024, torch.bfloat16, True, False),
-    ((1, 1024, 10, 64), 77, torch.bfloat16, True, False),
-    ((1, 256, 20, 64), 256, torch.bfloat16, True, False),
-    ((1, 64, 20, 64), 77, torch.bfloat16, True, False),
-    ((2, 300, 3, 64), 300, torch.bfloat16, False, True),
+# (B, Sq, H, D), Skv, dtype, on the training path?, packed q/k/v and a non-contiguous dO?
+# The bf16 rows are check_flash_bwd's: at head dims 64 and 128 (K2_SHAPES) the training
+# path's, the -F training shape, short kv at batch 4, and a row on each side of the dK/dV
+# kernel's split choice; at 512 (WIDE_SHAPES) the VAE mid block's.
+BWD_SHAPES = [(shape, skv, torch.bfloat16, on_path, packed)
+              for shape, skv, on_path, packed in K2.K2_SHAPES + K2.WIDE_SHAPES] + [
     ((2, 300, 1, 64), 300, torch.float32, False, False),
-    ((1, 4608, 24, 128), 4608, torch.bfloat16, False, False),  # the -F training shape
-    ((1, 4096, 1, 512), 4096, torch.bfloat16, True, False),  # the VAE mid block at 512 px
-    ((1, 1100, 1, 512), 700, torch.bfloat16, False, False),  # ends inside a 64-row q and a 32-row kv tile
     ((1, 300, 1, 512), 177, torch.float32, False, False),
 ]
 
@@ -461,6 +456,8 @@ def check_flash_bwd(shape, skv, dtype, seed, packed=False):
             "bound_ms": max(t_flops, t_bytes) * 1e3,
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
         }
+    if dtype == torch.bfloat16 and d in (64, 128):
+        rows["flash_attention_bwd_dkv"]["q_loop_splits"] = FA.dkv_splits(b, h, sq, skv, d, FA.sm_count(q.device))
     # the pair against the least work for all three gradients: five products
     pair_bytes = (3 * q.numel() + 4 * k.numel() + q.numel()) * es
     pair = max(10.0 * work / PEAK_FLOPS[dtype], pair_bytes / PEAK_BYTES_PER_S) * 1e3
@@ -669,6 +666,7 @@ def phase_kernels():
                   f"bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library (dq+dk+dv, SDPA "
                   f"{r['library_backend']}) {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
                   f"pair bound {r['pair_bound_ms']:.5f}"
+                  + (f", q loop in {r['q_loop_splits']} chunks" if "q_loop_splits" in r else "")
                   + (f", autograd through matmul_attention (dq+dk+dv) {r['matmul_attention_bwd_ms']:.4f}"
                      if "matmul_attention_bwd_ms" in r else ""), flush=True)
     check_group_norm_bwd((1, 512, 512, 128), 32, torch.bfloat16, 600)
@@ -1607,24 +1605,35 @@ def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
           f"idle share {1 - busy_us / 1e3 / elapsed_ms:.3f} [{card}]", flush=True)
     for key, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:16]:
         print(f"profile: train {us / 1e3:8.3f} ms {us / busy_us:6.1%} {n:5d} x {key[:100]}", flush=True)
+    flash_bwd = [(n, us) for key, (n, us) in by_kernel.items() if "flash_bwd" in key]
+    us = sum(u for _, u in flash_bwd)
+    print(f"profile: train flash backward kernels (K2a, K2b, the split reduction) {us / 1e3:.3f} ms over "
+          f"{sum(n for n, _ in flash_bwd)} launches, {us / busy_us:.3f} of kernel time [{card}]", flush=True)
 
 # ----------------------------------------------------------------------------
 
 
 KERNELS = [
-    # name (also its launch counter's), source, the TPU kernel it replaces
+    # name (also its launch counter's), source, the TPU kernel it replaces, the CUDA kernels its
+    # wrapper launches (bf16 at D = 64/128 first)
     ("flash_attention_fwd", "omgsr_tpu_torch/csrc/flash_attention_fwd.cu",
-     "omgsr_tpu/ops/flash_attention.py:40"),
+     "omgsr_tpu/ops/flash_attention.py:40",
+     ["flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "flash_fwd_kernel"]),
     ("flash_attention_bwd_dq", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
-     "omgsr_tpu/ops/flash_attention.py:88"),
+     "omgsr_tpu/ops/flash_attention.py:88",
+     ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wide_kernel", "flash_bwd_dq_kernel"]),
     ("flash_attention_bwd_dkv", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
-     "omgsr_tpu/ops/flash_attention.py:127"),
+     "omgsr_tpu/ops/flash_attention.py:127",
+     ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel", "flash_bwd_dkv_wide_kernel",
+      "flash_bwd_dkv_kernel"]),
     ("group_norm_stats", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
-     "omgsr_tpu/ops/fused_groupnorm.py:38"),
+     "omgsr_tpu/ops/fused_groupnorm.py:38", ["gn_stats_kernel"]),
     ("group_norm_apply", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
-     "omgsr_tpu/ops/fused_groupnorm.py:58"),
-    ("conv3x3", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:30"),
-    ("conv3x3_gn_fused", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:90"),
+     "omgsr_tpu/ops/fused_groupnorm.py:58", ["gn_apply_kernel"]),
+    ("conv3x3", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:30",
+     ["conv3x3_mma_kernel<false>", "conv3x3_fma_kernel<false>"]),
+    ("conv3x3_gn_fused", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:90",
+     ["conv3x3_mma_kernel<true>", "conv3x3_fma_kernel<true>"]),
 ]
 # conv3x3 has no caller in the JAX package outside its tests (the fused resblock is two
 # launches of conv3x3_gn_fused), so no path of the port runs it: the kernels phase holds it
@@ -1657,7 +1666,7 @@ def main():
     timings.update(tiled_timings)
 
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, cuda_kernels in KERNELS:
         head = shapes[name][0]  # the largest shape of the serving and training paths
         on_path = [r for r in shapes[name] if r.get("on_serving_path") or r.get("on_training_path")] \
             or shapes[name]
@@ -1670,7 +1679,7 @@ def main():
         else:
             assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0)), name
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches_serve + launches_fused + launches_train + launches_tiled,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
             "launches_train": launches_train, "launches_serve_tiled": launches_tiled,

@@ -13,24 +13,27 @@
 //   * The TPU grids ran the streamed axis sequentially (kv for dQ, q for
 //     dK/dV) and carried the accumulators in VMEM scratch between grid steps.
 //     Blocks on a GPU run in no order, so one block owns one output tile and
-//     loops over the streamed axis itself, the accumulators in registers:
-//     flash_bwd_dq_kernel owns a 64-row q tile and loops over kv tiles,
-//     flash_bwd_dkv_kernel owns a 64-row kv tile and loops over q tiles. Each
-//     output element is summed by one thread in one fixed order: there are no
-//     atomics, and the same inputs give the same bits on every run.
+//     loops over the streamed axis itself, the accumulators in registers: the
+//     dQ kernels own q rows and loop over kv tiles, the dK/dV kernels own kv
+//     rows and loop over q tiles (where its grid would leave SMs idle the
+//     bf16 dK/dV kernel splits that loop into chunks and a second kernel adds
+//     the chunks' partials).
+//     Each output element is summed by one thread in one fixed order: there
+//     are no atomics, and the same inputs give the same bits on every run.
 //   * The TPU wrapper transposed (B,S,H,D) to (B*H,S,D), padded S to the block
 //     size in device memory and computed delta with tensor code. Here the
-//     kernels read (B,S,H,D) through the strides they are given and mask the
-//     ragged ends themselves (kv columns >= Skv in the dQ kernel, q rows >= Sq
-//     in the dK/dV kernel; rows that do not exist are never stored), and delta
-//     is a prologue of the dQ kernel: the block that owns a q tile has its dO
-//     rows in shared memory, reads the matching O rows once, and writes the
-//     64 sums to a (B*H, Sq) f32 buffer that the dK/dV kernel, launched after
-//     it on the same stream, reads.
+//     kernels read (B,S,H,D) through the strides they are given (the bf16
+//     kernels at D = 64 and 128 through TMA tensor maps built from them) and
+//     mask the ragged ends themselves (kv columns >= Skv in the dQ kernels, q
+//     rows >= Sq in the dK/dV kernels; rows that do not exist are never
+//     stored), and delta is a prologue of the dQ kernels: the block that owns
+//     a q tile reads the matching dO and O rows once and writes their sums to
+//     a (B*H, Sq) f32 buffer that the dK/dV kernel, launched after it on the
+//     same stream, reads.
 //
 // Bound on this card: operations. The dQ kernel does three products
 // (6*B*H*Sq*Skv*D flops), the dK/dV kernel four (8*B*H*Sq*Skv*D), against
-// inputs that are read once. Two pairs of kernels share the block layout
+// inputs that are read once. Three pairs of kernels share the block layout
 // above:
 //   * flash_bwd_dq_kernel / flash_bwd_dkv_kernel (f32 inputs): plain f32 FMAs
 //     from shared memory: 256 threads, every tile [64][D+4] f32, 4x4 register
@@ -40,21 +43,31 @@
 //     kernel 4 tiles + one [64][68] score tile + 128 floats = 87,552 bytes
 //     (D=64) or 153,088 (D=128); dK/dV kernel 4 tiles + two score tiles =
 //     104,960 or 170,496 bytes.
-//   * flash_bwd_dq_mma_kernel / flash_bwd_dkv_mma_kernel (bf16 inputs): tensor
-//     cores through mma.sync, described where they are defined. wgmma, TMA and
-//     async copies are not used yet.
+//   * flash_bwd_dq_wgmma_kernel / flash_bwd_dkv_wgmma_kernel (bf16 inputs,
+//     D = 64 and 128): Hopper's tensor-core path, TMA loads into a ring of
+//     shared-memory stages guarded by mbarriers, wgmma products, a producer
+//     warpgroup and two consumer warpgroups on a 128-row owned tile, and
+//     where the grid would leave SMs idle a split of the q loop whose partials
+//     flash_bwd_dkv_reduce_kernel adds in a fixed order; described where they
+//     are defined.
+//   * flash_bwd_dq_wide_kernel / flash_bwd_dkv_wide_kernel (bf16 inputs,
+//     D = 512): tensor cores through mma.sync, the owned rows staged in shared
+//     memory, the warps splitting score blocks and output columns; described
+//     where they are defined.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace omgsr_mma;
+using namespace omgsr_sm90;
 
-constexpr int BT = 64;  // rows of every tile of the D = 64 / 128 kernels, q and kv alike
 constexpr int NT = 256;
 
 struct Strides {
@@ -418,306 +431,617 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 // ----------------------------------------------------------------------------
-// bf16 path: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// with the block layout of the kernels above. One block = 4 warps = a 64-row
-// output tile; each warp owns 16 of its rows and keeps their operand
-// fragments and their accumulators in registers. The streamed tiles (64 rows)
-// are staged in shared memory as bf16 with rows padded by 16 bytes and read
-// with ldmatrix: plain for the score products, where the tile is the "n x k"
-// operand, and .trans for the output products, where the same tile is the
-// "k x n" operand. The scores are made one 16 x 8 tile at a time and go
-// straight into the A fragments of the output products (P and dS rounded to
-// bf16 there; the exponent and dS itself are f32), so no score tile is ever
-// written to shared memory.
+// bf16 path at D = 64 and 128: flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel, built for Hopper like the forward's
+// flash_fwd_wgmma_kernel (csrc/flash_attention_fwd.cu; helpers in sm90.cuh).
+//
+// What bounds them: operations (K2a 6, K2b 8 times B*H*Sq*Skv*D flops against
+// inputs read once), so the design keeps the tensor cores fed:
+//   * Block = a producer warpgroup and two consumer warpgroups (384
+//     threads). The producer (setmaxnreg 24): one of its threads issues every
+//     TMA load, through 4-D tensor maps over (D, H, S, B) with the caller's
+//     strides, so packed and permuted operands go in without a copy; rows
+//     past S read as zeros. The consumers (setmaxnreg 240) own 64 rows each,
+//     so a block owns a 128-row tile and every streamed byte feeds 128 rows.
+//     At D = 64 the dQ kernel takes three consumer warpgroups (setmaxnreg
+//     160, 192-row tiles) where that cuts the waves of blocks times rows a
+//     block (dq_warpgroups: q(1,4096,5,64) gives 110 blocks in one wave on
+//     132 SMs, not 160 in two); the dK/dV kernel's two output accumulators
+//     do not fit in 160 registers.
+//   * Shared memory: the two owned tiles (Q and dO for dQ, K and V for dK/dV),
+//     loaded once, and a ring of HSTAGES stages of two streamed tiles of 64
+//     rows (K and V for dQ, Q and dO for dK/dV), all 128-byte swizzled as TMA
+//     writes them; per stage a `full` mbarrier (the producer's
+//     arrive.expect_tx, completed by the TMA bytes) and an `empty` one (one
+//     arrival per working consumer warp once its last product on the stage
+//     has retired).
+//   * The score products by wgmma m64n64k16 with both operands in shared
+//     memory (K-major); P and dS in registers, P = 2^(s * scale * log2(e) -
+//     lse * log2(e)) by ex2.approx; the output products by wgmma m64nDk16
+//     with P or dS rounded to bf16 as register A fragments (the accumulator
+//     layout of a score tile is the A fragment layout) and the streamed tile
+//     as the transposed (MN-major) B operand, as the forward does P V.
+//   * dQ kernel (K2a): a block owns 128 (or 192) q rows of one (batch, head) and
+//     streams K and V: S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+//     Its prologue is delta = rowsum(dO * O) of the owned rows, read from
+//     device memory by the consumers while the first tiles load, written to
+//     the (B*H, Sq) f32 buffer that the dK/dV kernel reads. kv columns past
+//     Skv are masked on the last tile (P = 0); rows past Sq take lse = +inf,
+//     so P = 0, and are never stored.
+//   * dK/dV kernel (K2b): a block owns 128 kv rows and streams Q and dO, and
+//     with them the lse and delta of the tile's q rows, which a second
+//     producer warp reads from device memory into the stage (lse times log2(e),
+//     +inf past Sq, so P = 0 there) before its arrival on `full`. The score
+//     products are taken transposed, S^T = K Q^T and dP^T = V dO^T, so their
+//     rows are kv rows and P^T and dS^T are the A fragments of dV += P^T dO
+//     and dK += dS^T Q directly. At D = 128 the two f32 output accumulators
+//     take 128 registers a thread; the streamed q tile is 64 rows so that the
+//     score tiles, the fragments and the accumulators stay within 240.
+//   * Short kv (the 77 text tokens of cross-attention): ceil(Skv / 128) * B * H
+//     blocks would leave most of the SMs idle (or, past one wave, the last
+//     wave part-empty), so the wrapper splits the q tiles into `splits`
+//     contiguous chunks (blockIdx.z), chosen by
+//     ops/flash_attention.dkv_splits(B, H, Sq, Skv, D, SMs). Each block then writes
+//     its f32 partial dK and dV to a scratch buffer the wrapper allocates, and
+//     flash_bwd_dkv_reduce_kernel adds the partials in the order of the chunks
+//     and writes bf16. Both launches are made by the one C entry
+//     (flash_attention_bwd_dkv_split).
+// Deterministic: no atomics; each output element is summed by one thread in
+// one order (chunk partials in chunk order), so a run gives the same bits
+// every time. The price is the recomputation of S and dP in both kernels: 14
+// units of B*H*Sq*Skv*D work where the three gradients need 10.
 // ----------------------------------------------------------------------------
 
-// dQ: the warp's rows are q rows; K and V tiles are streamed.
-// Shared memory: 2 * 64 * (D+8) * 2 bytes = 18,432 (D=64) or 34,816 (D=128).
-template <int D>
-__global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv, Strides qs,
-    Strides ks, Strides vs, Strides os, Strides gs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k-steps of the score products
-  constexpr int NO = D / 8;   // n-tiles of the accumulator
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BT * LD;
+constexpr int HS = 64;                 // rows of a streamed tile (ops/flash_attention.Q_TILE_ROWS)
+constexpr int HSTAGES = 4;             // ring of streamed tiles: 64 KiB at D = 64, 128 KiB at D = 128
+constexpr int STREAM_BOX = HS * 128;   // bytes of one 64-column box of a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int lrow = lane & 7;   // ldmatrix: row within the 8x8 matrix this lane addresses
-  const int lmat = lane >> 3;  // ldmatrix: which of the four matrices
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BT + warp * 16;  // first q row of this warp
-  const int r_lo = q0 + g, r_hi = q0 + g + 8;
+// Shared memory of a block that owns HO = 64 * (consumer warpgroups) rows.
+template <int D, int HO>
+struct BwdSmem {
+  static constexpr int OWN_BOX = HO * 128;   // bytes of one 64-column box of an owned tile
+  static constexpr int OWN = HO * D * 2;     // bytes of an owned tile
+  static constexpr int STREAM = HS * D * 2;  // bytes of a streamed tile
+  static constexpr int A = 0;                // owned: Q (dQ kernel) or K (dK/dV kernel)
+  static constexpr int B = OWN;              // owned: dO or V
+  // streamed, stage s: K (dQ kernel) or Q (dK/dV kernel), then V or dO
+  __host__ __device__ static constexpr int S0(int s) { return 2 * OWN + 2 * STREAM * s; }
+  __host__ __device__ static constexpr int S1(int s) { return 2 * OWN + 2 * STREAM * s + STREAM; }
+  static constexpr int ROWS = 2 * OWN + 2 * STREAM * HSTAGES;  // dK/dV kernel: lse, delta of stage s (HS f32 each)
+  static constexpr int BARS = ROWS + HSTAGES * 2 * HS * 4;      // own_full, full[HSTAGES], empty[HSTAGES]
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * HSTAGES) + 1024;  // + alignment slack
+};
 
-  const __nv_bfloat16* k_base = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* v_base = v + b * vs.b + h * vs.h;
-
-  uint32_t qf[KS][4], gf[KS][4];
-  load_a_fragments<KS>(qf, q + b * qs.b + h * qs.h, qs.s, q0, Sq, g, tig);
-  load_a_fragments<KS>(gf, dout + b * gs.b + h * gs.h, gs.s, q0, Sq, g, tig);
-
-  // delta = rowsum(dO * O) in f32 over this thread's columns, then over the
-  // four lanes that share a row
-  float delta_lo = 0.f, delta_hi = 0.f;
-  {
-    uint32_t of[KS][4];
-    load_a_fragments<KS>(of, o + b * os.b + h * os.h, os.s, q0, Sq, g, tig);
+// C (64 x 64) = A B^T over D: A the warpgroup's 64 rows of an owned tile at
+// a_wg (64-column boxes OWN_BOX bytes apart), B the 64 rows of a streamed tile
+// at b_tile, both K-major; D/16 k-steps of 32 bytes inside each box.
+template <int D, int OWN_BOX>
+__device__ __forceinline__ void issue_abt(float (&c)[32], uint32_t a_wg, uint32_t b_tile) {
 #pragma unroll
-    for (int ksi = 0; ksi < KS; ++ksi)
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t in_box = (ks & 3) * 32;
+    wgmma_ss_m64n64k16(c, wgmma_desc(a_wg + (ks >> 2) * OWN_BOX + in_box, 16, 1024),
+                       wgmma_desc(b_tile + (ks >> 2) * STREAM_BOX + in_box, 16, 1024), ks > 0);
+  }
+}
+
+// C (64 x D) += A B: A (64 x 64) as bf16 fragments in registers, B a streamed
+// tile (64 x D, D contiguous: MN-major, the transpose bit set); four k-steps of
+// 16 rows (2048 bytes of the tile each).
+template <int D>
+__device__ __forceinline__ void issue_fb(float (&c)[D / 2], const uint32_t (&af)[4][4], uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HS / 16; ++kk) {
+    const uint64_t db = wgmma_desc(b_tile + kk * 2048, STREAM_BOX, 1024);
+    if constexpr (D == 64) {
+      wgmma_rs_m64n64k16_tb(c, af[kk], db, 1);
+    } else {
+      wgmma_rs_m64n128k16_tb(c, af[kk], db, 1);
+    }
+  }
+}
+
+// A 64 x 64 f32 accumulator rounded to bf16 as the A fragments of the next
+// product: k-step kk = n-tiles 2kk and 2kk + 1.
+__device__ __forceinline__ void pack_fragments(uint32_t (&f)[4][4], const float (&c)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2 + 0] = pack_bf16(c[4 * j], c[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(c[4 * j + 2], c[4 * j + 3]);
+  }
+}
+
+// This thread's part of rowsum(dO * O) for one row: the 16-byte chunks tig,
+// tig + 4, ... of the D/8 (the four lanes of a row take turns, so a warp reads
+// whole rows); 0 for a row >= Sq.
+template <int D>
+__device__ __forceinline__ float row_dot_part(const __nv_bfloat16* o, const __nv_bfloat16* g,
+                                              Strides os, Strides gs, int b, int h, int row, int Sq,
+                                              int tig) {
+  float sum = 0.f;
+  if (row < Sq) {
+    const __nv_bfloat16* o_row = o + b * os.b + h * os.h + (long long)row * os.s;
+    const __nv_bfloat16* g_row = g + b * gs.b + h * gs.h + (long long)row * gs.s;
+#pragma unroll
+    for (int c = tig; c < D / 8; c += 4) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o_row + c * 8);
+      const uint4 gv = *reinterpret_cast<const uint4*>(g_row + c * 8);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 a = unpack_bf16(gf[ksi][e]);
-        const float2 c = unpack_bf16(of[ksi][e]);
-        const float part = a.x * c.x + a.y * c.y;
-        if (e & 1) delta_hi += part; else delta_lo += part;
-      }
-    delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 1);
-    delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 2);
-    delta_hi += __shfl_xor_sync(0xffffffffu, delta_hi, 1);
-    delta_hi += __shfl_xor_sync(0xffffffffu, delta_hi, 2);
-  }
-  float lse_lo = 0.f, lse_hi = 0.f;
-  if (r_lo < Sq) lse_lo = lse[(long long)bh * Sq + r_lo];
-  if (r_hi < Sq) lse_hi = lse[(long long)bh * Sq + r_hi];
-  if (tig == 0) {
-    if (r_lo < Sq) delta[(long long)bh * Sq + r_lo] = delta_lo;
-    if (r_hi < Sq) delta[(long long)bh * Sq + r_hi] = delta_hi;
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BT) {
-    const int kvalid = min(BT, Skv - kv0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile_bf16<D>(Ks, k_base + (long long)kv0 * ks.s, ks.s, kvalid);
-    stage_tile_bf16<D>(Vs, v_base + (long long)kv0 * vs.s, vs.s, kvalid);
-    __syncthreads();
-
-    // dS, one 16 x 8 tile (8 kv columns) at a time, as bf16 A fragments
-    uint32_t dsf[BT / 16][4];
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ksi = 0; ksi < KS; ksi += 2) {
-        // matrices: (d 0..7, d 8..15) of k-step ksi, then of k-step ksi+1
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, Ks + (j * 8 + lrow) * LD + ksi * 16 + lmat * 8);
-        mma_bf16(s, qf[ksi], kf[0], kf[1]);
-        mma_bf16(s, qf[ksi + 1], kf[2], kf[3]);
-        ldmatrix_x4(vf, Vs + (j * 8 + lrow) * LD + ksi * 16 + lmat * 8);
-        mma_bf16(dp, gf[ksi], vf[0], vf[1]);
-        mma_bf16(dp, gf[ksi + 1], vf[2], vf[3]);
-      }
-      const int col = j * 8 + tig * 2;
-      const bool ok0 = col < kvalid, ok1 = col + 1 < kvalid;
-      const float p0 = ok0 ? __expf(s[0] * scale - lse_lo) : 0.f;
-      const float p1 = ok1 ? __expf(s[1] * scale - lse_lo) : 0.f;
-      const float p2 = ok0 ? __expf(s[2] * scale - lse_hi) : 0.f;
-      const float p3 = ok1 ? __expf(s[3] * scale - lse_hi) : 0.f;
-      dsf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0 * (dp[0] - delta_lo), p1 * (dp[1] - delta_lo));
-      dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2 * (dp[2] - delta_hi), p3 * (dp[3] - delta_hi));
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        // matrices: kv rows (0..7, 8..15) of k-step kk for n-tile j, then for n-tile j+1
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, Ks + (kk * 16 + (lmat & 1) * 8 + lrow) * LD + (j + (lmat >> 1)) * 8);
-        mma_bf16(acc[j], dsf[kk], kf[0], kf[1]);
-        mma_bf16(acc[j + 1], dsf[kk], kf[2], kf[3]);
+        const float2 a = unpack_bf16(ow[e]), d = unpack_bf16(gw[e]);
+        sum += a.x * d.x + a.y * d.y;
       }
     }
   }
-
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* dq_base = dq + (long long)b * Sq * o_ss + (long long)h * D;
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int c = j * 8 + tig * 2;
-    if (r_lo < Sq)
-      *reinterpret_cast<uint32_t*>(dq_base + (long long)r_lo * o_ss + c) =
-          pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
-    if (r_hi < Sq)
-      *reinterpret_cast<uint32_t*>(dq_base + (long long)r_hi * o_ss + c) =
-          pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
-  }
+  return sum;
 }
 
-// dK/dV: the warp's rows are kv rows, so the score tiles come out transposed
-// (kv rows, q columns) as in the FMA kernel; Q and dO tiles are streamed, with
-// the log-sum-exp and delta of their rows. Shared memory: 2 * 64 * (D+8) * 2
-// + 512 bytes = 18,944 (D=64) or 35,328 (D=128).
-template <int D>
-__global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-    Strides gs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + BT * LD;  // dO
-  float* lse_s = reinterpret_cast<float*>(Gs + BT * LD);
-  float* delta_s = lse_s + BT;
+// NCW consumer warpgroups (2, or 3 at D = 64 where the registers allow and the
+// grid of 128-row tiles would leave a partial second wave).
+template <int D, int NCW>
+__global__ void __launch_bounds__(128 * (NCW + 1), 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
+    int Sq, int Skv, Strides os, Strides gs, float scale) {
+  constexpr int HO = 64 * NCW;
+  using L = BwdSmem<D, HO>;
+  constexpr int CB = D / 64;  // 64-column boxes of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t own_full = base + L::BARS;
+  auto full = [&](int s) { return own_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return own_full + 8u * (1 + HSTAGES + s); };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int lrow = lane & 7;
-  const int lmat = lane >> 3;
+  const int wg = tid >> 7;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int kv0 = blockIdx.x * BT + warp * 16;  // first kv row of this warp
-  const int c_lo = kv0 + g, c_hi = kv0 + g + 8;
+  const int q0 = blockIdx.x * HO;
+  const int n_kv = (Skv + HS - 1) / HS;
+  const int n_cw = min(NCW, (Sq - q0 + 63) / 64);  // consumer warpgroups that own a row < Sq
 
-  const __nv_bfloat16* q_base = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* g_base = dout + b * gs.b + h * gs.h;
-
-  uint32_t kf[KS][4], vf[KS][4];
-  load_a_fragments<KS>(kf, k + b * ks.b + h * ks.h, ks.s, kv0, Skv, g, tig);
-  load_a_fragments<KS>(vf, v + b * vs.b + h * vs.h, vs.s, kv0, Skv, g, tig);
-
-  float acc_k[NO][4], acc_v[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_k[j][e] = 0.f;
-      acc_v[j][e] = 0.f;
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < HSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * n_cw);
     }
-
-  for (int q0 = 0; q0 < Sq; q0 += BT) {
-    const int qvalid = min(BT, Sq - q0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile_bf16<D>(Qs, q_base + (long long)q0 * qs.s, qs.s, qvalid);
-    stage_tile_bf16<D>(Gs, g_base + (long long)q0 * gs.s, gs.s, qvalid);
-    if (tid < BT) {
-      const bool ok = tid < qvalid;
-      lse_s[tid] = ok ? lse[(long long)bh * Sq + q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[(long long)bh * Sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // P^T and dS^T, one 16 x 8 tile (8 q columns) at a time, as bf16 A fragments
-    uint32_t pf[BT / 16][4], dsf[BT / 16][4];
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-      float st[4] = {0.f, 0.f, 0.f, 0.f}, dpt[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ksi = 0; ksi < KS; ksi += 2) {
-        uint32_t qf[4], gf[4];
-        ldmatrix_x4(qf, Qs + (j * 8 + lrow) * LD + ksi * 16 + lmat * 8);
-        mma_bf16(st, kf[ksi], qf[0], qf[1]);
-        mma_bf16(st, kf[ksi + 1], qf[2], qf[3]);
-        ldmatrix_x4(gf, Gs + (j * 8 + lrow) * LD + ksi * 16 + lmat * 8);
-        mma_bf16(dpt, vf[ksi], gf[0], gf[1]);
-        mma_bf16(dpt, vf[ksi + 1], gf[2], gf[3]);
-      }
-      const int r = j * 8 + tig * 2;  // q row of this thread's first column
-      const float l0 = lse_s[r], l1 = lse_s[r + 1];
-      const float d0 = delta_s[r], d1 = delta_s[r + 1];
-      const bool q0ok = r < qvalid, q1ok = r + 1 < qvalid;
-      const bool lo_ok = c_lo < Skv, hi_ok = c_hi < Skv;
-      const float p0 = (q0ok && lo_ok) ? __expf(st[0] * scale - l0) : 0.f;
-      const float p1 = (q1ok && lo_ok) ? __expf(st[1] * scale - l1) : 0.f;
-      const float p2 = (q0ok && hi_ok) ? __expf(st[2] * scale - l0) : 0.f;
-      const float p3 = (q1ok && hi_ok) ? __expf(st[3] * scale - l1) : 0.f;
-      pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      dsf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0 * (dpt[0] - d0), p1 * (dpt[1] - d1));
-      dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2 * (dpt[2] - d0), p3 * (dpt[3] - d1));
-    }
-
-    // dV += P^T dO and dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        // matrices: q rows (0..7, 8..15) of k-step kk for n-tile j, then for n-tile j+1
-        uint32_t gf[4], qf[4];
-        const int off = (kk * 16 + (lmat & 1) * 8 + lrow) * LD + (j + (lmat >> 1)) * 8;
-        ldmatrix_x4_trans(gf, Gs + off);
-        mma_bf16(acc_v[j], pf[kk], gf[0], gf[1]);
-        mma_bf16(acc_v[j + 1], pf[kk], gf[2], gf[3]);
-        ldmatrix_x4_trans(qf, Qs + off);
-        mma_bf16(acc_k[j], dsf[kk], qf[0], qf[1]);
-        mma_bf16(acc_k[j + 1], dsf[kk], qf[2], qf[3]);
-      }
-    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const long long o_ss = (long long)H * D;
-  const long long base = (long long)b * Skv * o_ss + (long long)h * D;
+  if (wg == 0) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_do);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_arrive_expect_tx(own_full, 2 * L::OWN);
 #pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int c = j * 8 + tig * 2;
-    if (c_lo < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + base + (long long)c_lo * o_ss + c) =
-          pack_bf16(acc_k[j][0] * scale, acc_k[j][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + (long long)c_lo * o_ss + c) =
-          pack_bf16(acc_v[j][0], acc_v[j][1]);
+      for (int c = 0; c < CB; ++c) {
+        tma_load_4d(base + L::A + c * L::OWN_BOX, &tm_q, own_full, c * 64, h, q0, b);
+        tma_load_4d(base + L::B + c * L::OWN_BOX, &tm_do, own_full, c * 64, h, q0, b);
+      }
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % HSTAGES;
+        if (t >= HSTAGES) mbar_wait(empty(s), ((t / HSTAGES) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), 2 * L::STREAM);
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(base + L::S0(s) + c * STREAM_BOX, &tm_k, full(s), c * 64, h, t * HS, b);
+          tma_load_4d(base + L::S1(s) + c * STREAM_BOX, &tm_v, full(s), c * 64, h, t * HS, b);
+        }
+      }
     }
-    if (c_hi < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + base + (long long)c_hi * o_ss + c) =
-          pack_bf16(acc_k[j][2] * scale, acc_k[j][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + (long long)c_hi * o_ss + c) =
-          pack_bf16(acc_v[j][2], acc_v[j][3]);
+  } else {
+    // ---- consumers: warpgroup cw owns q rows 64 cw .. 64 cw + 63 of the tile ----
+    setmaxnreg_inc<NCW == 2 ? 240 : 160>();  // 128 * (24 + NCW * that) <= 65,536
+    const int cw = wg - 1;
+    if (cw >= n_cw) return;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int r_lo = q0 + cw * 64 + warp * 16 + g;  // this thread's rows r_lo, r_hi
+    const int r_hi = r_lo + 8;
+
+    // delta = rowsum(dO * O) in f32 while the first tiles load
+    float dl_lo = row_dot_part<D>(o, dout, os, gs, b, h, r_lo, Sq, tig);
+    float dl_hi = row_dot_part<D>(o, dout, os, gs, b, h, r_hi, Sq, tig);
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, 1);
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, 2);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, 1);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, 2);
+    if (tig == 0) {
+      if (r_lo < Sq) delta[(long long)bh * Sq + r_lo] = dl_lo;
+      if (r_hi < Sq) delta[(long long)bh * Sq + r_hi] = dl_hi;
+    }
+    // lse in the base-2 domain; +inf past Sq makes P = 0 there
+    const float inf = __int_as_float(0x7f800000u);
+    const float l_lo = r_lo < Sq ? lse[(long long)bh * Sq + r_lo] * LOG2E : inf;
+    const float l_hi = r_hi < Sq ? lse[(long long)bh * Sq + r_hi] * LOG2E : inf;
+    const float scale_log2 = scale * LOG2E;
+
+    const uint32_t q_wg = base + L::A + cw * 64 * 128;
+    const uint32_t do_wg = base + L::B + cw * 64 * 128;
+    float acc[D / 2], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    uint32_t dsf[4][4];
+
+    mbar_wait(own_full, 0);
+    for (int t = 0; t < n_kv; ++t) {
+      const int s = t % HSTAGES;
+      mbar_wait(full(s), (t / HSTAGES) & 1);
+      fence_operands(sc);
+      fence_operands(dp);
+      wgmma_fence();
+      issue_abt<D, L::OWN_BOX>(sc, q_wg, base + L::S0(s));  // S = Q K^T
+      wgmma_commit_group();
+      issue_abt<D, L::OWN_BOX>(dp, do_wg, base + L::S1(s));  // dP = dO V^T
+      wgmma_commit_group();
+      wgmma_wait_group<1>();
+      fence_operands(sc);
+      const int kvalid = Skv - t * HS;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * tig;
+        sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -l_lo));
+        sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -l_lo));
+        sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -l_hi));
+        sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -l_hi));
+        if (kvalid < HS) {  // the last tile: kv columns >= Skv
+          if (col >= kvalid) sc[4 * j] = sc[4 * j + 2] = 0.f;
+          if (col + 1 >= kvalid) sc[4 * j + 1] = sc[4 * j + 3] = 0.f;
+        }
+      }
+      wgmma_wait_group<0>();
+      fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dp[4 * j] = sc[4 * j] * (dp[4 * j] - dl_lo);
+        dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - dl_lo);
+        dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - dl_hi);
+        dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - dl_hi);
+      }
+      pack_fragments(dsf, dp);
+      fence_fragments(dsf);
+      fence_operands(acc);
+      wgmma_fence();
+      issue_fb<D>(acc, dsf, base + L::S0(s));  // dQ += dS K
+      wgmma_commit_group();
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+      fence_fragments(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+    }
+
+    // ---- epilogue: dQ = scale * acc, rows < Sq ----
+    const long long o_ss = (long long)H * D;
+    __nv_bfloat16* dq_base = dq + (long long)b * Sq * o_ss + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (r_lo < Sq)
+        *reinterpret_cast<uint32_t*>(dq_base + (long long)r_lo * o_ss + c) =
+            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (r_hi < Sq)
+        *reinterpret_cast<uint32_t*>(dq_base + (long long)r_hi * o_ss + c) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
     }
   }
 }
 
+// splits == 1: dk, dv (B, Skv, H, D) bf16 are written directly. splits > 1:
+// block (x, y, z) streams the z-th chunk of the q tiles and writes its f32
+// partial dK (without the scale) and dV to partial[z][0 or 1][bh][kv][d].
 template <int D>
-int launch_dq_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
-                  const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes = 2 * BT * (D + 8) * (int)sizeof(__nv_bfloat16);
-  dim3 grid((Sq + BT - 1) / BT, B * H);
-  flash_bwd_dq_mma_kernel<D><<<grid, MMA_NT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dq, H, Sq,
-      Skv, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
-      Strides{st[12], st[13], st[14]}, scale);
+__global__ void __launch_bounds__(384, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, float* __restrict__ partial, int H, int Sq, int Skv,
+    float scale) {
+  constexpr int HO = 128;  // two consumer warpgroups
+  using L = BwdSmem<D, HO>;
+  constexpr int CB = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + L::ROWS);  // [stage][lse | delta][HS]
+  const uint32_t own_full = base + L::BARS;
+  auto full = [&](int s) { return own_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return own_full + 8u * (1 + HSTAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kv0 = blockIdx.x * HO;
+  const int splits = gridDim.z;
+  const int n_q = (Sq + HS - 1) / HS;
+  const int t_lo = (int)((long long)blockIdx.z * n_q / splits);  // this block's q tiles t_lo .. t_hi - 1
+  const int n_t = (int)((long long)(blockIdx.z + 1) * n_q / splits) - t_lo;
+  const int n_cw = Skv - kv0 > 64 ? 2 : 1;  // consumer warpgroups that own a row < Skv
+
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < HSTAGES; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA thread and the 32 lanes of the row warp
+      mbar_init(empty(s), 4 * n_cw);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: thread 0 issues the TMA loads, warp 1 the lse and delta rows ----
+    setmaxnreg_dec<24>();
+    const int pw = tid >> 5;
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_do);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_arrive_expect_tx(own_full, 2 * L::OWN);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        tma_load_4d(base + L::A + c * L::OWN_BOX, &tm_k, own_full, c * 64, h, kv0, b);
+        tma_load_4d(base + L::B + c * L::OWN_BOX, &tm_v, own_full, c * 64, h, kv0, b);
+      }
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i % HSTAGES;
+        if (i >= HSTAGES) mbar_wait(empty(s), ((i / HSTAGES) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), 2 * L::STREAM);
+        const int r0 = (t_lo + i) * HS;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(base + L::S0(s) + c * STREAM_BOX, &tm_q, full(s), c * 64, h, r0, b);
+          tma_load_4d(base + L::S1(s) + c * STREAM_BOX, &tm_do, full(s), c * 64, h, r0, b);
+        }
+      }
+    } else if (pw == 1) {
+      const int lane = tid & 31;
+      const float inf = __int_as_float(0x7f800000u);
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i % HSTAGES;
+        if (i >= HSTAGES) mbar_wait(empty(s), ((i / HSTAGES) - 1) & 1);
+        float* lse_s = rows + s * 2 * HS;
+#pragma unroll
+        for (int r = lane; r < HS; r += 32) {
+          const int q = (t_lo + i) * HS + r;
+          const bool ok = q < Sq;
+          lse_s[r] = ok ? lse[(long long)bh * Sq + q] * LOG2E : inf;
+          lse_s[HS + r] = ok ? delta[(long long)bh * Sq + q] : 0.f;
+        }
+        mbar_arrive(full(s));  // releases this lane's rows to the consumers
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns kv rows 64 cw .. 64 cw + 63 of the tile ----
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    if (cw >= n_cw) return;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t k_wg = base + L::A + cw * 64 * 128;
+    const uint32_t v_wg = base + L::B + cw * 64 * 128;
+
+    float acc_k[D / 2], acc_v[D / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    uint32_t pf[4][4], dsf[4][4];
+
+    mbar_wait(own_full, 0);
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i % HSTAGES;
+      mbar_wait(full(s), (i / HSTAGES) & 1);
+      fence_operands(st);
+      fence_operands(dpt);
+      wgmma_fence();
+      issue_abt<D, L::OWN_BOX>(st, k_wg, base + L::S0(s));  // S^T = K Q^T
+      wgmma_commit_group();
+      issue_abt<D, L::OWN_BOX>(dpt, v_wg, base + L::S1(s));  // dP^T = V dO^T
+      wgmma_commit_group();
+      // columns are q rows: this thread's 8j + 2 tig (+1), their lse and delta
+      const float* lse_s = rows + s * 2 * HS;
+      wgmma_wait_group<1>();
+      fence_operands(st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tig);
+        st[4 * j] = fast_exp2(fmaf(st[4 * j], scale_log2, -l.x));
+        st[4 * j + 1] = fast_exp2(fmaf(st[4 * j + 1], scale_log2, -l.y));
+        st[4 * j + 2] = fast_exp2(fmaf(st[4 * j + 2], scale_log2, -l.x));
+        st[4 * j + 3] = fast_exp2(fmaf(st[4 * j + 3], scale_log2, -l.y));
+      }
+      pack_fragments(pf, st);
+      wgmma_wait_group<0>();
+      fence_operands(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(lse_s + HS + 8 * j + 2 * tig);
+        dpt[4 * j] = st[4 * j] * (dpt[4 * j] - dl.x);
+        dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - dl.y);
+        dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - dl.x);
+        dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - dl.y);
+      }
+      pack_fragments(dsf, dpt);
+      fence_fragments(pf);
+      fence_fragments(dsf);
+      fence_operands(acc_v);
+      fence_operands(acc_k);
+      wgmma_fence();
+      issue_fb<D>(acc_v, pf, base + L::S1(s));   // dV += P^T dO
+      issue_fb<D>(acc_k, dsf, base + L::S0(s));  // dK += dS^T Q
+      wgmma_commit_group();
+      wgmma_wait_group<0>();
+      fence_operands(acc_v);
+      fence_operands(acc_k);
+      fence_fragments(pf);
+      fence_fragments(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+    }
+
+    // ---- epilogue: kv rows < Skv ----
+    const int c_lo = kv0 + cw * 64 + warp * 16 + g;
+    const int c_hi = c_lo + 8;
+    if (splits == 1) {
+      const long long o_ss = (long long)H * D;
+      const long long off = (long long)b * Skv * o_ss + (long long)h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * tig;
+        if (c_lo < Skv) {
+          *reinterpret_cast<uint32_t*>(dk + off + (long long)c_lo * o_ss + c) =
+              pack_bf16(acc_k[4 * j] * scale, acc_k[4 * j + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + (long long)c_lo * o_ss + c) =
+              pack_bf16(acc_v[4 * j], acc_v[4 * j + 1]);
+        }
+        if (c_hi < Skv) {
+          *reinterpret_cast<uint32_t*>(dk + off + (long long)c_hi * o_ss + c) =
+              pack_bf16(acc_k[4 * j + 2] * scale, acc_k[4 * j + 3] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + (long long)c_hi * o_ss + c) =
+              pack_bf16(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+        }
+      }
+    } else {
+      const long long per = (long long)gridDim.y * Skv * D;  // elements of one partial dK or dV
+      float* pk = partial + (2 * (long long)blockIdx.z) * per + (long long)bh * Skv * D;
+      float* pv = pk + per;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * tig;
+        if (c_lo < Skv) {
+          *reinterpret_cast<float2*>(pk + (long long)c_lo * D + c) = make_float2(acc_k[4 * j], acc_k[4 * j + 1]);
+          *reinterpret_cast<float2*>(pv + (long long)c_lo * D + c) = make_float2(acc_v[4 * j], acc_v[4 * j + 1]);
+        }
+        if (c_hi < Skv) {
+          *reinterpret_cast<float2*>(pk + (long long)c_hi * D + c) =
+              make_float2(acc_k[4 * j + 2], acc_k[4 * j + 3]);
+          *reinterpret_cast<float2*>(pv + (long long)c_hi * D + c) =
+              make_float2(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// dK = scale * sum_z partial[z][0], dV = sum_z partial[z][1], the chunks added in
+// order z = 0, 1, ... in f32, rounded to bf16 into (B, Skv, H, D); four
+// elements a thread per step.
+__global__ void __launch_bounds__(256) flash_bwd_dkv_reduce_kernel(
+    const float* __restrict__ partial, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int splits, int BH, int H, int Skv, int D, float scale) {
+  const long long per = (long long)BH * Skv * D;
+  const long long n4 = 2 * per / 4;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = 4 * i;
+    const int which = e >= per;  // 0: dK, 1: dV
+    const long long r = e - which * per;
+    const float* p = partial + which * per + r;
+    float4 sum = *reinterpret_cast<const float4*>(p);
+#pragma unroll 8  // loads issued ahead; the adds stay in chunk order
+    for (int z = 1; z < splits; ++z) {
+      const float4 x = *reinterpret_cast<const float4*>(p + 2 * per * z);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const float mul = which == 0 ? scale : 1.f;
+    const int d = (int)(r % D);
+    const long long row = r / D;  // bh * Skv + kv
+    const int kv = (int)(row % Skv);
+    const int bh = (int)(row / Skv);
+    __nv_bfloat16* out = (which == 0 ? dk : dv) + (((long long)(bh / H) * Skv + kv) * H + bh % H) * D + d;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_bf16(sum.x * mul, sum.y * mul), pack_bf16(sum.z * mul, sum.w * mul));
+  }
+}
+
+template <int D, int NCW>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
+                    const long long* st, float scale, cudaStream_t stream) {
+  constexpr int HO = 64 * NCW;
+  using L = BwdSmem<D, HO>;
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_bwd_dq_wgmma_kernel<D, NCW>, L::BYTES);
+  if (code != 0) return code;
+  CUtensorMap tq, tdo, tk, tv;
+  code = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], HO);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, D, st[3], st[4], st[5], HS);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, D, st[6], st[7], st[8], HS);
+  if (code == 0) code = encode_bshd(&tdo, dout, B, Sq, H, D, st[12], st[13], st[14], HO);
+  if (code != 0) return code;
+  dim3 grid((Sq + HO - 1) / HO, B * H);
+  flash_bwd_dq_wgmma_kernel<D, NCW><<<grid, 128 * (NCW + 1), L::BYTES, stream>>>(
+      tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, delta,
+      (__nv_bfloat16*)dq, H, Sq, Skv, Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]},
+      scale);
   return (int)cudaGetLastError();
 }
 
+// Three consumer warpgroups (192-row q tiles) at D = 64 where they take fewer
+// waves of blocks times rows a block than two do on the current device's SMs
+// (q(1,4096,5,64) on an H100's 132: 110 blocks in one wave instead of 160 in two).
+int dq_warpgroups(int B, int H, int Sq, int D) {
+  if (D != 64) return 2;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    return 2;
+  const long long waves2 = ((long long)(Sq + 127) / 128 * B * H + sms - 1) / sms;
+  const long long waves3 = ((long long)(Sq + 191) / 192 * B * H + sms - 1) / sms;
+  return 3 * waves3 < 2 * waves2 ? 3 : 2;
+}
+
 template <int D>
-int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dk, void* dv, int B, int H, int Sq,
-                   int Skv, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes =
-      2 * BT * (D + 8) * (int)sizeof(__nv_bfloat16) + 2 * BT * (int)sizeof(float);
-  dim3 grid((Skv + BT - 1) / BT, B * H);
-  flash_bwd_dkv_mma_kernel<D><<<grid, MMA_NT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Sq, Skv,
-      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, scale);
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dk, void* dv, int B, int H, int Sq,
+                     int Skv, const long long* st, float scale, int splits, float* partial,
+                     cudaStream_t stream) {
+  constexpr int HO = 128;  // ops/flash_attention.DKV_BLOCK_ROWS
+  using L = BwdSmem<D, HO>;
+  if (splits < 1 || splits > (Sq + HS - 1) / HS || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_bwd_dkv_wgmma_kernel<D>, L::BYTES);
+  if (code != 0) return code;
+  CUtensorMap tq, tdo, tk, tv;
+  code = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], HS);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, D, st[3], st[4], st[5], HO);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, D, st[6], st[7], st[8], HO);
+  if (code == 0) code = encode_bshd(&tdo, dout, B, Sq, H, D, st[9], st[10], st[11], HS);
+  if (code != 0) return code;
+  dim3 grid((Skv + HO - 1) / HO, B * H, splits);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 384, L::BYTES, stream>>>(
+      tq, tdo, tk, tv, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, partial, H, Sq, Skv, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long n4 = 2LL * B * H * Skv * D / 4;
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  flash_bwd_dkv_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+                                                          splits, B * H, H, Skv, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1101,8 +1425,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   cudaStream_t s = (cudaStream_t)stream;
 #define OMGSR_DQ(launcher) \
   return launcher(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Skv, strides, scale, s)
-  if (dtype == 0 && D == 64) OMGSR_DQ(launch_dq_mma<64>);
-  if (dtype == 0 && D == 128) OMGSR_DQ(launch_dq_mma<128>);
+  if (dtype == 0 && D == 64 && dq_warpgroups(B, H, Sq, D) == 3) OMGSR_DQ((launch_dq_wgmma<64, 3>));
+  if (dtype == 0 && D == 64) OMGSR_DQ((launch_dq_wgmma<64, 2>));
+  if (dtype == 0 && D == 128) OMGSR_DQ((launch_dq_wgmma<128, 2>));
   if (dtype == 0 && D == 512) OMGSR_DQ(launch_dq_wide<512>);
   if (dtype == 1 && D == 64) OMGSR_DQ((launch_dq<float, 64, 64, 64>));
   if (dtype == 1 && D == 128) OMGSR_DQ((launch_dq<float, 128, 64, 64>));
@@ -1113,20 +1438,39 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
 
 // Same operands, strides in the order q, k, v, dout; reads the delta that
 // flash_attention_bwd_dq wrote. Writes dk and dv, contiguous (B,Skv,H,D).
-extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* dout, const float* lse, const float* delta,
-                                       void* dk, void* dv, int dtype, int B, int H, int Sq,
-                                       int Skv, int D, const long long* strides, float scale,
-                                       void* stream) {
+// `splits` > 1 (bf16 at D = 64 and 128 only, at most ceil(Sq / 64)) splits the
+// q loop into that many chunks, whose f32 partials go to `partial`, a
+// contiguous f32 (splits, 2, B*H, Skv, D) scratch buffer, and are then added
+// in chunk order by a second kernel launched on the same stream.
+extern "C" int flash_attention_bwd_dkv_split(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse, const float* delta,
+                                             void* dk, void* dv, int dtype, int B, int H, int Sq,
+                                             int Skv, int D, const long long* strides, float scale,
+                                             int splits, float* partial, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == 64)
+    return launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, strides, scale, splits,
+                                partial, s);
+  if (dtype == 0 && D == 128)
+    return launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, strides, scale,
+                                 splits, partial, s);
+  if (splits != 1) return -1;
 #define OMGSR_DKV(launcher) \
   return launcher(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, strides, scale, s)
-  if (dtype == 0 && D == 64) OMGSR_DKV(launch_dkv_mma<64>);
-  if (dtype == 0 && D == 128) OMGSR_DKV(launch_dkv_mma<128>);
   if (dtype == 0 && D == 512) OMGSR_DKV(launch_dkv_wide<512>);
   if (dtype == 1 && D == 64) OMGSR_DKV((launch_dkv<float, 64, 64, 64>));
   if (dtype == 1 && D == 128) OMGSR_DKV((launch_dkv<float, 128, 64, 64>));
   if (dtype == 1 && D == 512) OMGSR_DKV((launch_dkv<float, 512, 16, 32>));
 #undef OMGSR_DKV
   return -1;
+}
+
+// The same without a split of the q loop.
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* delta,
+                                       void* dk, void* dv, int dtype, int B, int H, int Sq,
+                                       int Skv, int D, const long long* strides, float scale,
+                                       void* stream) {
+  return flash_attention_bwd_dkv_split(q, k, v, dout, lse, delta, dk, dv, dtype, B, H, Sq, Skv, D, strides,
+                                       scale, 1, nullptr, stream);
 }

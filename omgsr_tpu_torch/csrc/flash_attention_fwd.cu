@@ -41,8 +41,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -412,13 +410,6 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[8][4], const float (&sc)[6
   }
 }
 
-__device__ __forceinline__ void fence_fragments(uint32_t (&pf)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) fence_operand(pf[kk][e]);
-}
-
 template <int D>
 __global__ void __launch_bounds__(HNT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -784,78 +775,17 @@ __global__ void __launch_bounds__(WNT, 1) flash_fwd_wide_kernel(
   if (tid < WQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-// ---- host side of flash_fwd_wgmma_kernel ----
-
-typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                         const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes of the host side (CUDA's own codes stay below 1000).
-constexpr int NO_ENCODE_ENTRY = 1000;     // the driver has no cuTensorMapEncodeTiled
-constexpr int ENCODE_FAILED = 2000;       // + the driver's CUresult
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime once, so
-// that the library needs no -lcuda.
-TensorMapEncodeTiled encode_tiled() {
-  static const TensorMapEncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<TensorMapEncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 (B, S, H, D) operand with element strides (sb, ss, sh) and a
-// contiguous D axis, as a 4-D tensor map over (D, H, S, B), innermost first,
-// whose box is 64 columns x `rows` rows of one (batch, head), 128-byte
-// swizzled. Rows past S read as zeros; stores past S are dropped.
-int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
-                long long ss, long long sh, int rows) {
-  const TensorMapEncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return NO_ENCODE_ENTRY;
-  // the stride of a dimension of extent 1 is never used: give it one the map takes
-  if (H == 1) sh = D;
-  if (S == 1) ss = sh * H;
-  if (B == 1) sb = ss * S;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
+// ---- host side of flash_fwd_wgmma_kernel (tensor maps: sm90.cuh) ----
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                  int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
   using L = HopperFwdSmem<D>;
-  // the shared-memory opt-in, once per device (not on every launch: the host's
-  // launch path is what a UNet stage at batch 1 waits for)
-  constexpr int MAX_DEVICES = 64;
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t opted_in[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  std::call_once(once[dev], [dev] {
-    opted_in[dev] = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  });
-  if (opted_in[dev] != cudaSuccess) return (int)opted_in[dev];
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_fwd_wgmma_kernel<D>, L::BYTES);
+  if (code != 0) return code;
   CUtensorMap tq, tk, tv, to;
-  int code = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], HQ);
+  code = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], HQ);
   if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, D, st[3], st[4], st[5], HK);
   if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, D, st[6], st[7], st[8], HK);
   const long long o_ss = (long long)H * D;

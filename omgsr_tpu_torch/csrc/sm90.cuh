@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks for the flash-attention forward kernel: one
-// PTX instruction each, inline. Included by the .cu files of this directory.
+// Hopper (sm_90a) building blocks for the flash-attention kernels (the
+// forward's flash_fwd_wgmma_kernel and the backward's dQ and dK/dV kernels):
+// one PTX instruction each, inline, plus the host side they share. Included by
+// the .cu files of this directory.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count, and a
 //     wait on a phase parity (try_wait in a loop);
@@ -8,11 +10,15 @@
 //     kernel parameter; fence.proxy.async for shared memory written by
 //     threads and then read by TMA or wgmma;
 //   * wgmma: the shared-memory matrix descriptor, fence / commit_group /
-//     wait_group, and the three products the kernel issues (m64n128k16 with
-//     both operands in shared memory; m64n64k16 and m64n128k16 with A in
-//     registers and a transposed B);
+//     wait_group, and the products the kernels issue (m64n64k16 and
+//     m64n128k16 with both operands in shared memory; m64n64k16 and
+//     m64n128k16 with A in registers and a transposed B);
 //   * setmaxnreg, which moves registers from the producer warpgroup to the
-//     consumer warpgroups.
+//     consumer warpgroups;
+//   * host: the 4-D tensor map of a (B, S, H, D) operand
+//     (cuTensorMapEncodeTiled, fetched from the driver through the runtime,
+//     so that no library needs -lcuda) and the once-per-device opt-in to more
+//     than 48 KiB of dynamic shared memory.
 //
 // Tiles are stored as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: rows of
 // 128 bytes (64 bf16 values), the 16-byte chunks of row r permuted by r % 8, in
@@ -22,7 +28,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace omgsr_sm90 {
 
@@ -168,6 +177,15 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
   for (int i = 0; i < N; ++i) fence_operand(r[i]);
 }
 
+// The same for the A fragments of K k-steps (four registers each).
+template <int K>
+__device__ __forceinline__ void fence_fragments(uint32_t (&f)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(f[kk][e]);
+}
+
 // 2^x by the SFU (ex2.approx, flushing denormals; 2^-inf = 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -195,6 +213,23 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // a1 = (row g + 8, k 2t, 2t+1), a2 / a3 = the same rows at k + 8. So the
 // accumulator of n-tiles 2kk and 2kk+1, rounded to bf16 in pairs, is the A
 // fragment of k-step kk of the next product.
+
+// D (64 x 64, f32) += A (64 x 16) B (16 x 64), both bf16 from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // D (64 x 128, f32) += A (64 x 16) B (16 x 128), both bf16 from shared memory, K-major.
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
@@ -261,6 +296,80 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64], const uin
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// ---- host ------------------------------------------------------------------
+
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                         const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the host side (CUDA's own codes stay below 1000).
+constexpr int NO_ENCODE_ENTRY = 1000;     // the driver has no cuTensorMapEncodeTiled
+constexpr int ENCODE_FAILED = 2000;       // + the driver's CUresult
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime once, so
+// that the library needs no -lcuda.
+inline TensorMapEncodeTiled encode_tiled() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<TensorMapEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, H, D) operand with element strides (sb, ss, sh) and a
+// contiguous D axis, as a 4-D tensor map over (D, H, S, B), innermost first,
+// whose box is 64 columns x `rows` rows of one (batch, head), 128-byte
+// swizzled. Rows past S read as zeros; stores past S are dropped. The driver
+// refuses (ENCODE_FAILED + its code) a base or a stride that is not a multiple
+// of 16 bytes.
+inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
+                       long long ss, long long sh, int rows) {
+  const TensorMapEncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return NO_ENCODE_ENTRY;
+  // the stride of a dimension of extent 1 is never used: give it one the map takes
+  if (H == 1) sh = D;
+  if (S == 1) ss = sh * H;
+  if (B == 1) sb = ss * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// The opt-in of one kernel to `bytes` of dynamic shared memory, once per device
+// (not on every launch: the host's launch path is what a UNet stage at batch 1
+// waits for). Each launcher keeps one SmemOptIn per kernel as a static.
+struct SmemOptIn {
+  static constexpr int MAX_DEVICES = 64;
+  std::once_flag once[MAX_DEVICES];
+  cudaError_t result[MAX_DEVICES];
+};
+
+inline int opt_in_smem(SmemOptIn& opt, const void* kernel, int bytes) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= SmemOptIn::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::call_once(opt.once[dev], [&] {
+    opt.result[dev] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  });
+  return (int)opt.result[dev];
 }
 
 }  // namespace omgsr_sm90

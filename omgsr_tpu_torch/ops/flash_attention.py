@@ -26,18 +26,25 @@ the bound.
 ``_bwd_dkv_kernel`` of the same file (reached through ``_backward``, the
 ``custom_vjp`` of ``flash_attention_bshd``). Both are bound by operations
 (6 and 8 times B*H*Sq*Skv*D flops). ``csrc/flash_attention_bwd.cu`` keeps the
-split that fixes the order of every sum: in the dQ kernel one block owns a
-64-row q tile and loops over kv tiles, in the dK/dV kernel one block owns a
-64-row kv tile and loops over q tiles; no atomics, so the same inputs give the
-same bits on every run. Both read their operands through strides and mask the
-ragged ends themselves. bf16 inputs go to tensor-core kernels (``mma.sync``
-m16n8k16: the owned tile's operand fragments and the accumulators in
-registers, the streamed tiles in shared memory read with ``ldmatrix``, P and
-dS rounded to bf16 only for the second products; at D = 512 the owned tile
-is staged in shared memory too, the warps split the score blocks and the
-output columns and exchange P and dS through shared memory); f32 inputs go
-to kernels that multiply with f32 FMAs from shared memory and are exact. delta =
-rowsum(dO * O), which the JAX package computes with tensor code outside its
+split that fixes the order of every sum: in the dQ kernel one block owns a q
+tile and loops over kv tiles, in the dK/dV kernel one block owns a kv tile and
+loops over q tiles; no atomics, so the same inputs give the same bits on every
+run. Both read their operands through strides and mask the ragged ends
+themselves. bf16 inputs at head dims 64 and 128 go to kernels built for
+Hopper: blocks of 128 owned rows (two consumer warpgroups; 192, three, for
+the dQ kernel at D = 64 where that takes fewer waves) fed by a producer
+warpgroup's TMA loads through tensor maps over the caller's strides into a
+ring of shared-memory stages guarded by mbarriers, the score products and the
+output products by ``wgmma`` (P and dS rounded to bf16 as register fragments
+of the second products; the dK/dV kernel takes its scores transposed, so its
+rows are kv rows). Where ceil(Skv/128)*B*H blocks would leave SMs idle
+(77 text tokens) or a partial last wave, ``dkv_splits`` may cut the dK/dV
+kernel's q loop into chunks whose f32 partials a second kernel of the same
+launch adds in chunk order. At D = 512 the bf16 kernels stage the owned tile in shared memory, the
+warps split the score blocks and the output columns through ``mma.sync`` and
+exchange P and dS through shared memory; f32 inputs go to kernels that
+multiply with f32 FMAs from shared memory and are exact. delta =
+rowsum(dout * O), which the JAX package computes with tensor code outside its
 kernels, is a prologue of the dQ kernel here: it writes the (B*H, Sq) f32 sums
 that the dK/dV kernel, launched after it on the same stream, reads.
 
@@ -50,6 +57,7 @@ directions with the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -63,6 +71,15 @@ from omgsr_tpu_torch.ops.kernel_build import (
 
 SUPPORTED_HEAD_DIMS = (64, 128, 512)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# the bf16 backward kernels built for Hopper (the dK/dV one can split its q loop)
+_SPLIT_HEAD_DIMS = (64, 128)
+# the dK/dV kernel's tile sizes (HO and HS in csrc/flash_attention_bwd.cu)
+DKV_BLOCK_ROWS = 128  # kv rows a block owns
+Q_TILE_ROWS = 64  # q rows of a tile it streams
+# the cost dkv_splits weighs, fitted to the kernel's device time on an H100 SXM
+_Q_TILE_US = {64: 1.2, 128: 2.5}  # one streamed q tile of a dK/dV block
+_SPLIT_US = 2.0  # the reduction kernel's launch
+_SPLIT_US_PER_MB = 0.5  # per MB of f32 partials (written, then read back by the reduction)
 
 launches = LaunchCounter("flash_attention_fwd")
 dq_launches = LaunchCounter("flash_attention_bwd_dq")
@@ -145,6 +162,41 @@ def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, scale: float):
     return dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device: the grid a dK/dV launch should fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_splits(b: int, h: int, sq: int, skv: int, d: int, sms: int) -> int:
+    """Chunks of the q loop of the bf16 dK/dV kernel (head dims 64 and 128) on
+    a card of ``sms`` SMs, each chunk z taking q tiles z*n // G .. (z+1)*n // G - 1
+    of the n = ceil(Sq / 64).
+
+    The G that minimises a cost fitted to the kernel on an H100
+    (``check_flash_bwd``'s sweep of the splits): the waves of G * blocks
+    blocks (one block an SM) times the longest chunk's q tiles at
+    ``_Q_TILE_US[d]`` each, plus for G > 1 the reduction's launch and the f32
+    partials written and read back. G runs up to one wave of blocks, or 2
+    where the ceil(Skv / 128) * B * H blocks unsplit take a wave or more: a
+    partial last wave (160 blocks, q(1,4096,5,64) kv 4096) gains from 2, and
+    the scratch, G * 2 * B * H * Skv * D floats, stays below the larger of
+    2 * sms * 128 * D floats and twice dK and dV in f32. Short kv with a long
+    q loop (77 text tokens) splits; kv of 256 or more within one wave, whose
+    partials weigh as much as the tiles they save, does not."""
+    blocks = -(-skv // DKV_BLOCK_ROWS) * b * h
+    n_tiles = -(-sq // Q_TILE_ROWS)
+    best, best_us = 1, -(-blocks // sms) * n_tiles * _Q_TILE_US[d]
+    for g in range(2, min(n_tiles, max(sms // blocks, 2)) + 1):
+        partial_mb = g * 2 * b * h * skv * d * 4 / 1e6
+        us = (-(-g * blocks // sms) * -(-n_tiles // g) * _Q_TILE_US[d]
+              + _SPLIT_US + _SPLIT_US_PER_MB * partial_mb)
+        if us < best_us:
+            best, best_us = g, us
+    return best
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: float | None = None):
     """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent ``dout``,
     from the saved output and log-sum-exp, in explicit tensor code with the
@@ -214,23 +266,26 @@ def _forward(q, k, v, scale):
 
 
 def _bwd_library():
+    """(flash_attention_bwd_dq, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_split) of the backward library, bound."""
     lib = load_kernel_library("flash_attention_bwd")
-    dq, dkv = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+    dq, dkv, split = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv, lib.flash_attention_bwd_dkv_split
     if not dq.argtypes:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         strides = ctypes.POINTER(ctypes.c_longlong)
         dq.argtypes = [vp] * 8 + [i] * 6 + [strides, f, vp]
-        dq.restype = ctypes.c_int
         dkv.argtypes = [vp] * 8 + [i] * 6 + [strides, f, vp]
-        dkv.restype = ctypes.c_int
-    return dq, dkv
+        split.argtypes = [vp] * 8 + [i] * 6 + [strides, f, i, vp, vp]
+        dq.restype = dkv.restype = split.restype = ctypes.c_int
+    return dq, dkv, split
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float | None = None):
     """(dq, dk, dv) of ``flash_attention`` for the cotangent ``dout``, from
     the forward's output (B, Sq, H, D) and f32 log-sum-exp (B*H, Sq, 1).
 
-    On CUDA tensors this launches the dQ kernel, then the dK/dV kernel, or
+    On CUDA tensors this launches the dQ kernel, then the dK/dV kernel (and,
+    when its q loop is split, the kernel that adds the chunks' partials), or
     raises; the plain version runs only for CPU tensors."""
     _check_shapes(q, k, v)
     b, sq, h, d = q.shape
@@ -272,17 +327,27 @@ def _launch_dq(q, k, v, out, lse, dout, scale):
     return dq, delta
 
 
-def _launch_dkv(q, k, v, lse, delta, dout, scale):
-    """The dK/dV kernel on checked operands and the dQ kernel's delta."""
+def _launch_dkv(q, k, v, lse, delta, dout, scale, splits=None):
+    """The dK/dV kernel on checked operands and the dQ kernel's delta; for the
+    bf16 kernel at head dims 64 and 128 with its q loop split in ``splits``
+    chunks (default ``dkv_splits``') through the split entry, whose f32
+    partials go to scratch allocated here."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     dk = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=q.dtype, device=q.device)
+    if splits is None:
+        splits = (dkv_splits(b, h, sq, skv, d, sm_count(q.device))
+                  if q.dtype == torch.bfloat16 and d in _SPLIT_HEAD_DIMS else 1)
+    split = ()
+    if splits > 1:
+        partial = torch.empty((splits, 2, b * h, skv, d), dtype=torch.float32, device=q.device)
+        split = (splits, partial.data_ptr())
     launch_kernel(
-        _bwd_library()[1], "flash_attention_bwd_dkv", q.device,
+        _bwd_library()[2 if split else 1], "flash_attention_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, h, sq, skv, d, _strides(q, k, v, dout), float(scale),
+        _DTYPE_CODE[q.dtype], b, h, sq, skv, d, _strides(q, k, v, dout), float(scale), *split,
     )
     dkv_launches.add()
     return dk, dv

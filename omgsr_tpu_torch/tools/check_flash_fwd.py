@@ -129,9 +129,9 @@ def _bind(lib):
 
 
 def _build_other(source):
-    """Start nvcc on another checkout's forward source -> (path, process)."""
+    """Start nvcc on another checkout's kernel source (csrc/<name>.cu) -> (path, process)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / "libflash_attention_fwd-against.so"
+    out = BUILD_DIR / f"lib{Path(source).stem}-against.so"
     cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 

@@ -6,6 +6,8 @@ function against autograd through its plain version. fp32 (f64 for
 gradcheck), inputs made with numpy from a seed; each JAX reference runs as one
 jit compiled at optimisation level 0 (``jax_once``)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,14 +56,118 @@ def _plain_grads(q, k, v, g, scale):
     return TFA.flash_attention_bwd_plain(t(q), t(k), t(v), out, lse, t(g), scale)
 
 
-@pytest.mark.parametrize("shape,skv,scale", SHAPES)
-def test_flash_bwd_plain_matches_pallas_interpret(shape, skv, scale):
-    q, k, v, g = _operands(shape, skv, 0)
+@functools.lru_cache(maxsize=None)
+def _pallas_grads(shape, skv, scale, seed):
+    """(dq, dk, dv) of the JAX package's Pallas backward kernels (interpret
+    mode) at _operands(shape, skv, seed), computed once per module run."""
+    q, k, v, g = _operands(shape, skv, seed)
     ref = jax_once(lambda a, b, c, gg: jax.vjp(lambda a, b, c: JFA.flash_attention_bshd(a, b, c, scale),
                                                a, b, c)[1](gg),
                    jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g))
+    return tuple(np.asarray(r) for r in ref)
+
+
+@pytest.mark.parametrize("shape,skv,scale", SHAPES)
+def test_flash_bwd_plain_matches_pallas_interpret(shape, skv, scale):
+    q, k, v, g = _operands(shape, skv, 0)
+    ref = _pallas_grads(shape, skv, scale, 0)
     for name, got, want in zip(("dq", "dk", "dv"), _plain_grads(q, k, v, g, scale), ref):
         assert_close(got, want, FLASH_TOL, name)
+
+
+H100_SMS = 132  # the SMs of an H100 SXM, which dkv_splits' cost was fitted on
+
+
+def _q_chunks(sq, splits):
+    """The [start, stop) q rows of each chunk of the dK/dV kernel's split q
+    loop, cut as the kernel cuts them: chunk z takes q tiles z*n // splits ..
+    (z+1)*n // splits - 1 of the n = ceil(Sq / 64)."""
+    n = -(-sq // TFA.Q_TILE_ROWS)
+    return [(z * n // splits * TFA.Q_TILE_ROWS, min(sq, (z + 1) * n // splits * TFA.Q_TILE_ROWS))
+            for z in range(splits)]
+
+
+def _dkv_chunked_plain(q, k, v, out, lse, dout, scale, splits):
+    """(dk, dv) summed as the split dK/dV kernel sums them, in tensor code:
+    per q chunk the f32 partials dS^T q and P^T dout over the chunk's rows,
+    added in chunk order, dk scaled after the sum."""
+    p, ds, qh, _, gh = TFA._bwd_plain_scores(q, k, v, out, lse, dout, scale)
+    dk = dv = 0.0
+    for lo, hi in _q_chunks(q.shape[1], splits):
+        dk = dk + torch.matmul(ds[:, :, lo:hi].transpose(-1, -2), qh[:, :, lo:hi])
+        dv = dv + torch.matmul(p[:, :, lo:hi].transpose(-1, -2), gh[:, :, lo:hi])
+    return (dk * scale).permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
+
+
+def test_split_tile_sizes_match_the_kernel_source():
+    """dkv_splits counts blocks and q tiles with the dK/dV kernel's own tile
+    sizes: HO of its launcher and the streamed tile HS in the CUDA source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TFA.__file__).parent.parent / "csrc" / "flash_attention_bwd.cu").read_text()
+    assert int(re.search(r"constexpr int HS = (\d+);", src).group(1)) == TFA.Q_TILE_ROWS
+    launcher = src[src.index("int launch_dkv_wgmma("):]
+    assert int(re.search(r"constexpr int HO = (\d+);", launcher).group(1)) == TFA.DKV_BLOCK_ROWS
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,split", [
+    # split: whether the q loop must be split ("yes": the training path's cross-attention with
+    # a long q loop, or 160 blocks whose second wave is mostly empty), must not be ("no": the
+    # grid fills whole waves or its partials cost more than they save, or kv of 256 or more
+    # within one wave), or either (None)
+    (1, 5, 4096, 77, 64, "yes"), (1, 10, 1024, 77, 64, "yes"), (4, 10, 1024, 77, 64, "yes"),
+    (1, 20, 256, 77, 64, None), (1, 20, 64, 77, 64, "no"), (1, 20, 256, 256, 64, "no"),
+    (1, 5, 4096, 4096, 64, "yes"), (1, 24, 4608, 4608, 128, "no"), (1, 10, 1024, 640, 64, None),
+    (1, 10, 1024, 1700, 64, "no"), (2, 3, 300, 300, 64, None), (1, 2, 300, 77, 64, "yes"),
+    (2, 2, 300, 77, 128, "yes"), (1, 1, 128, 128, 128, None),
+])
+def test_dkv_splits_cover_sq_once_and_fill_the_card(b, h, sq, skv, d, split):
+    """The split of the bf16 dK/dV kernel's q loop on an H100: its chunks are
+    whole q tiles (the last may be ragged) that cover Sq exactly once and
+    differ by at most one tile; at most one wave of blocks, or 2 chunks where
+    the grid unsplit takes a wave or more; the f32 scratch of the partials
+    stays within the bound dkv_splits states."""
+    splits = TFA.dkv_splits(b, h, sq, skv, d, H100_SMS)
+    blocks = -(-skv // TFA.DKV_BLOCK_ROWS) * b * h
+    n_tiles = -(-sq // TFA.Q_TILE_ROWS)
+    chunks = _q_chunks(sq, splits)
+    assert len(chunks) == splits and 1 <= splits <= n_tiles
+    covered = np.zeros(sq, dtype=int)
+    for lo, hi in chunks:
+        assert lo < hi and lo % TFA.Q_TILE_ROWS == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    sizes = [-(-(hi - lo) // TFA.Q_TILE_ROWS) for lo, hi in chunks]
+    assert max(sizes) - min(sizes) <= 1 and sum(sizes) == n_tiles
+    if splits > 1:  # the scratch is allocated only for a split
+        assert splits * blocks <= H100_SMS or splits == 2
+        scratch = splits * 2 * b * h * skv * d
+        assert scratch <= max(2 * H100_SMS * TFA.DKV_BLOCK_ROWS * d, 2 * 2 * b * h * skv * d)
+    if split is not None:
+        assert (splits > 1) == (split == "yes"), splits
+
+
+@pytest.mark.parametrize("shape,skv,with_pallas", [((1, 256, 2, 64), 77, True), ((1, 300, 2, 64), 77, False)],
+                         ids=["cross77", "ragged77"])
+def test_dkv_chunked_sum_matches_plain_and_pallas(shape, skv, with_pallas):
+    """The f32 partials of the split dK/dV kernel, added in chunk order,
+    against the unsplit plain backward and, at the cross-attention shape,
+    against the Pallas kernels in interpret mode (the reference
+    test_flash_bwd_plain_matches_pallas_interpret computed), at FLASH_TOL;
+    short kv, so the kernel splits."""
+    b, sq, h, d = shape
+    splits = TFA.dkv_splits(b, h, sq, skv, d, H100_SMS)
+    assert splits > 1
+    q, k, v, g = _operands(shape, skv, 0)
+    out, lse = TFA.flash_attention_plain(t(q), t(k), t(v), return_lse=True)
+    got = _dkv_chunked_plain(t(q), t(k), t(v), out, lse, t(g), d ** -0.5, splits)
+    _, dk, dv = TFA.flash_attention_bwd_plain(t(q), t(k), t(v), out, lse, t(g))
+    for name, a, want in zip(("dk", "dv"), got, (dk, dv)):
+        assert_close(a, want.numpy(), FLASH_TOL, name)
+    if with_pallas:
+        for name, a, want in zip(("dk", "dv"), got, _pallas_grads(shape, skv, None, 0)[1:]):
+            assert_close(a, want, FLASH_TOL, name)
 
 
 @pytest.mark.parametrize("shape,skv,scale", SHAPES)

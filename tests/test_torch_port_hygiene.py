@@ -141,12 +141,19 @@ def test_unported_options_raise_naming_their_slice():
 
 def test_backward_kernels_hold_no_atomics_and_no_library_calls():
     """The dQ and dK/dV kernels fix the order of every sum: their source
-    holds no atomic operation and no library product."""
+    holds no atomic operation and no library product. The bf16 kernels at head
+    dims 64 and 128 are the TMA + wgmma ones (with the fixed-order reduction of
+    the split dK/dV partials), and the mma.sync kernels they replaced are gone."""
     src = (ROOT / "omgsr_tpu_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
     code = "\n".join(l.split("//")[0] for l in src.splitlines())
     assert "flash_bwd_dq_kernel" in code and "flash_bwd_dkv_kernel" in code
-    for banned in ("atomic", "cublas", "cudnn", "cutlass"):
+    for banned in ("atomic", "cublas", "cudnn", "cutlass", "scaled_dot_product", "sdpa"):
         assert banned not in code.lower(), banned
+    for kernel in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel"):
+        assert kernel in code, kernel
+    for gone in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel", "launch_dq_mma", "launch_dkv_mma"):
+        assert gone not in code, gone
+    assert '#include "sm90.cuh"' in code and "__grid_constant__ CUtensorMap" in code
 
 
 def test_forward_kernels_hold_no_atomics_and_no_library_calls():
@@ -162,7 +169,7 @@ def test_forward_kernels_hold_no_atomics_and_no_library_calls():
             assert banned not in code.lower(), banned
     assert "flash_fwd_wgmma_kernel" in fwd and '#include "sm90.cuh"' in fwd
     assert "flash_fwd_mma_kernel" not in fwd and "launch_mma" not in fwd
-    assert "cuTensorMapEncodeTiled" in fwd and "__grid_constant__ CUtensorMap" in fwd
+    assert "cuTensorMapEncodeTiled" in sm90 and "encode_bshd(" in fwd and "__grid_constant__ CUtensorMap" in fwd
     for instruction in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert instruction in sm90, instruction
 
