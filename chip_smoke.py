@@ -88,6 +88,7 @@ from omgsr_tpu_torch.ops import conv3x3 as C3
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
@@ -121,13 +122,10 @@ MAX_STAGE_REL_L2 = 0.05
 TOL_LSE = K1.TOL_LSE
 TOL_SUMS_REL = 1e-4
 # conv3x3: max |kernel - plain| over the largest |plain| value of the shape (as
-# for flash attention), TOL per dtype. Its channel sums come from f32
-# accumulators on both sides; a sum of signed values can cancel to nothing, so
-# the sum is held against the channel's sum of |y| and the sum of squares
-# against itself. What differs is the order of the f32 sums and, in bf16, the
-# few activations of the prologue that round to the neighbouring bf16 value
-# (__expf against torch.sigmoid).
-TOL_CONV_SUMS_REL = 1e-3
+# for flash attention), TOL per dtype; its channel sums and the fold of them as
+# tools/check_conv3x3.py says (TOL_CONV_SUMS_REL, TOL_FOLD)
+TOL_CONV_SUMS_REL = K45.TOL_CONV_SUMS_REL
+TOL_FOLD = K45.TOL_FOLD
 # training, kernels against plain versions, one micro-step in bf16 at full
 # depth with random weights: relative difference of each loss (means over
 # an image or a logit map, which average the per-element bf16 differences
@@ -183,8 +181,8 @@ def mid_head_on_matmul_path():
         FA.SUPPORTED_HEAD_DIMS = saved
 
 
-ALL_COUNTERS = (FA.launches, FA.dq_launches, FA.dkv_launches, GN.stats_launches, GN.apply_launches,
-                C3.conv3x3_launches, C3.gn_fused_launches)
+ALL_COUNTERS = (FA.launches, FA.merge_launches, FA.dq_launches, FA.dkv_launches, GN.stats_launches,
+                GN.apply_launches, C3.conv3x3_launches, C3.gn_fused_launches, C3.fold_launches)
 
 
 def reset_counts():
@@ -225,18 +223,16 @@ def phase_device():
 
 FLASH_SHAPES = [
     # (B, Sq, H, D), Skv, dtype, on the serving path?, q/k/v as views of one packed tensor?
-    # bf16 at D = 64 and 128: the shapes of tools/check_flash_fwd.py
+    # bf16: the shapes of tools/check_flash_fwd.py, at D = 64 and 128 (K1_SHAPES) and at
+    # 512 (K1_WIDE_SHAPES: the VAE mid block's single head at 512, 1024 and 2048 px, the
+    # fast tiled decode's window, ragged packed); f32 ragged
     *((shape, skv, torch.bfloat16, on_path, packed) for shape, skv, on_path, packed in K1.K1_SHAPES),
     ((2, 300, 1, 64), 300, torch.float32, False, False),
-    # the VAE mid block's single 512-wide head: the whole latent at 512, 1024 and
-    # 2048 px (the full-image and exact routes), the fast tiled decode's 86x86-latent
-    # window (7396 tokens end inside a 64-row q tile and a 32-row kv tile), ragged f32
-    ((1, 4096, 1, 512), 4096, torch.bfloat16, True, False),
-    ((1, 16384, 1, 512), 16384, torch.bfloat16, True, False),
-    ((1, 65536, 1, 512), 65536, torch.bfloat16, True, False),
-    ((1, 7396, 1, 512), 7396, torch.bfloat16, True, False),
+    *((shape, skv, torch.bfloat16, on_path, packed) for shape, skv, on_path, packed in K1.K1_WIDE_SHAPES),
     ((1, 300, 1, 512), 177, torch.float32, False, False),
 ]
+# the merge of a split kv loop (head dim 512): (B, Sq, H, D), Skv, chunks, on the paths?
+MERGE_SHAPES = [((1, 4096, 1, 512), 4096, 2, True), ((1, 300, 2, 512), 1000, 3, False)]
 
 GN_SHAPES = [
     # (B, H, W, C), groups, dtype, on the serving path?
@@ -249,16 +245,7 @@ GN_SHAPES = [
 ]
 
 
-def flash_plain_in_chunks(q, k, v):
-    """flash_attention_plain over blocks of query rows, each with at most 2^28
-    scores (1 GiB in f32): rows are independent, so this is the same function,
-    and at 65,536 tokens it needs no 16 GiB score matrix."""
-    b, sq, h, _ = q.shape
-    rows = max(1, 2 ** 28 // (b * h * k.shape[1]))
-    if rows >= sq:
-        return FA.flash_attention_plain(q, k, v, return_lse=True)
-    parts = [FA.flash_attention_plain(q[:, i : i + rows], k, v, return_lse=True) for i in range(0, sq, rows)]
-    return torch.cat([o for o, _ in parts], dim=1), torch.cat([lse for _, lse in parts], dim=1)
+flash_plain_in_chunks = K1.flash_plain_in_chunks
 
 
 def check_flash(shape, skv, dtype, seed, packed=False):
@@ -303,10 +290,73 @@ def check_flash(shape, skv, dtype, seed, packed=False):
     }
     row["tflops"] = flops / row["ms"] / 1e9
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    if dtype == torch.bfloat16 and d == 512:
+        row["kv_loop_splits"] = FA.fwd_kv_splits(b, h, sq, skv, d, FA.sm_count(q.device))
     if d == 512 and b * h * sq * skv <= 2 ** 28:  # what ran at the VAE mid block before: explicit
         # matmul attention (its (S x S) f32 scores: 16 GiB at 65,536 tokens, not timed)
         row["matmul_attention_ms"] = time_ms(lambda: ATT.matmul_attention(q, k, v), iters)
     return row
+
+
+def check_merge(shape, skv, splits, seed):
+    """The merge of a split kv loop against its plain version, on the chunks
+    the plain split makes of these inputs, twice for bit-identity, and timed."""
+    b, sq, h, d = shape
+    q = randn(shape, torch.bfloat16, seed)
+    k = randn((b, skv, h, d), torch.bfloat16, seed + 1)
+    v = randn((b, skv, h, d), torch.bfloat16, seed + 2)
+    o_part, lse_part = FA.flash_attention_split_plain(q, k, v, d ** -0.5, splits)
+    out, lse = FA.flash_attention_merge(o_part, lse_part, b, h)
+    torch.cuda.synchronize()
+    again = FA.flash_attention_merge(o_part, lse_part, b, h)
+    ref, ref_lse = FA.flash_attention_merge_plain(o_part, lse_part, b, h)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1]), f"merge {shape}: two runs differ"
+    assert out.shape == shape and torch.isfinite(out.float()).all() and lse.shape == (b * h, sq, 1)
+    err = errors(out, ref)[0]
+    scaled = err / ref.float().abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    assert scaled <= TOL[torch.bfloat16] and err_lse <= TOL_LSE, f"merge {shape}: {scaled}, {err_lse}"
+    nbytes = (o_part.numel() + lse_part.numel()) * 4 + out.numel() * 2 + lse.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 3.0 * o_part.numel() / PEAK_FLOPS[torch.float32]  # weight, multiply-add per chunk element
+    return {
+        "shape": f"q{list(shape)} kv{skv} in {splits} chunks", "max_abs_err": err,
+        "max_err_over_max_ref": scaled, "max_abs_err_lse": err_lse, "bit_identical_twice": True,
+        "ms": time_ms(lambda: FA.flash_attention_merge(o_part, lse_part, b, h)),
+        "plain_ms": time_ms(lambda: FA.flash_attention_merge_plain(o_part, lse_part, b, h)),
+        "library_ms": None, "library_covers": "no one PyTorch call merges the chunks",
+        "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def check_fold(shape, seed):
+    """The fold of conv3x3_gn_fused's streamed sums into the next GroupNorm's
+    (scale, shift) against its plain version, on the sums the kernel writes at
+    a conv shape (bf16), twice for bit-identity, and timed."""
+    h, w_, cin, cout = shape
+    x, w, b, a, c, _ = K45.conv_inputs(shape, torch.bfloat16, seed)
+    _, sums = C3._gn_fused(x, w, b, a, c, None, True)
+    gamma = randn((cout,), torch.bfloat16, seed + 7) * 0.2 + 1
+    beta = randn((cout,), torch.bfloat16, seed + 8) * 0.1
+    got = C3.fold_gn_sums(sums, h * w_, 32, gamma, beta)
+    torch.cuda.synchronize()
+    again = C3.fold_gn_sums(sums, h * w_, 32, gamma, beta)
+    ref = C3._affine_from_stacked_sums(sums, h * w_, 32, gamma, beta, 1e-6)
+    assert all(torch.equal(g, r) for g, r in zip(got, again)), f"fold {shape}: two runs differ"
+    err = max(errors(g, r)[1] for g, r in zip(got, ref))
+    assert err <= TOL_FOLD, f"fold {shape}: {err}"
+    nbytes = sums.numel() * 4 + 2 * cout * 2 + 2 * cout * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2.0 * sums.numel() / PEAK_FLOPS[torch.float32]
+    return {
+        "shape": f"sums[2, {sums.shape[1]}, {cout}] of x[1, {h}, {w_}, {cin}]->{cout}, 32 groups",
+        "max_abs_err": max(errors(g, r)[0] for g, r in zip(got, ref)), "max_err_scaled": err,
+        "bit_identical_twice": True,
+        "ms": time_ms(lambda: C3.fold_gn_sums(sums, h * w_, 32, gamma, beta)),
+        "plain_ms": time_ms(lambda: C3._affine_from_stacked_sums(sums, h * w_, 32, gamma, beta, 1e-6)),
+        "library_ms": None, "library_covers": "no one PyTorch call folds the sums",
+        "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
 
 
 def check_group_norm(shape, groups, dtype, seed):
@@ -497,31 +547,20 @@ def check_group_norm_bwd(shape, groups, dtype, seed):
           f"(bound {TOL[dtype]:.3g}); {ms:.4f} ms, autograd through plain {plain_ms:.4f} ms", flush=True)
 
 
-CONV_SHAPES = [
-    # (H, W, C_in, C_out), dtype, on the fused serving path?
-    ((512, 512, 128, 128), torch.bfloat16, True),  # the VAE's widest stage at 512 px
-    ((512, 512, 256, 128), torch.bfloat16, True),  # decoder up3, first resnet (conv_shortcut)
-    ((256, 256, 512, 256), torch.bfloat16, True),  # decoder up2, first resnet
-    ((64, 64, 512, 512), torch.bfloat16, True),  # the mid blocks
-    ((1024, 1024, 128, 128), torch.bfloat16, True),  # the widest stage of the 1024x1024 request
-    ((30, 50, 128, 256), torch.float32, False),  # the FMA kernels, ragged tiles
-    ((61, 45, 256, 128), torch.bfloat16, False),  # H and W no multiples of the 8 x 16 tile
-]
+CONV_SHAPES = K45.CONV_SHAPES  # (H, W, C_in, C_out), dtype, on the fused serving path?
 
 
 def check_conv(shape, dtype, seed):
     """K4 (with and without SiLU) and K5 (with skip and sums; without either)
     against their plain versions, each twice for bit-identity, and timed."""
     h, w_, cin, cout = shape
-    x = randn((1, h, w_, cin), dtype, seed)
-    w = (randn((cout, cin, 3, 3), dtype, seed + 1) * 0.05).contiguous(memory_format=torch.channels_last)
+    x, w, b, a, c, skip = K45.conv_inputs(shape, dtype, seed)  # silu(c) is far from 0: a wrong ring shows
     assert C3.kernel_weight(w, dtype) is w  # the parameter trees' layout is the kernels' own
-    b = randn((cout,), dtype, seed + 2) * 0.1
-    a = randn((cin,), torch.float32, seed + 3) * 0.2 + 1.0
-    c = randn((cin,), torch.float32, seed + 4) * 0.5 + 0.5  # silu(c) is far from 0: a wrong ring shows
-    skip = randn((1, h, w_, cout), dtype, seed + 5)
     label = f"x[1, {h}, {w_}, {cin}]->{cout} {str(dtype)[6:]}"
     iters = 5 if h * w_ * cin * cout > 2 ** 32 else 20
+    # the library's own count of sum rows: one per pixel tile of the kernel that runs
+    rows = C3.gn_fused_tile_rows(h, w_, cout, FA.sm_count(x.device)) if dtype == torch.bfloat16 else 0
+    n_partials = C3._library().conv3x3_partials(C3._DTYPE_CODE[dtype], h, w_, rows)
 
     def held(name, got, ref):
         assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got.float()).all(), name
@@ -548,10 +587,8 @@ def check_conv(shape, dtype, seed):
         assert none1 is None and none2 is None
         ref, rsum, rsq = C3.conv3x3_gn_fused_plain(x, w, b, a, c, skip=sk)
         err, scaled = held(f"conv3x3_gn_fused skip={use_skip}", y, ref)
-        abs_sum = ref.float().abs().sum(dim=(0, 1, 2))
-        err_sum = ((ssum.sum(0) - rsum[0]).abs() / abs_sum).max().item()
-        err_sq = ((ssq.sum(0) - rsq[0]).abs() / rsq[0]).max().item()
-        assert ssum.shape == ssq.shape == (-(-h // 8) * -(-w_ // 16), cout) and ssum.dtype == torch.float32
+        err_sum, err_sq = K45.sums_errors(ssum, ssq, ref, rsum, rsq)
+        assert ssum.shape == ssq.shape == (n_partials, cout) and ssum.dtype == torch.float32
         assert max(err_sum, err_sq) <= TOL_CONV_SUMS_REL, f"conv3x3_gn_fused sums {label}: {err_sum}, {err_sq}"
         k5[use_skip] = (err, scaled, err_sum, err_sq)
 
@@ -586,7 +623,7 @@ def check_conv(shape, dtype, seed):
         "shape": label + " skip+sums", "max_abs_err": max(k5[True][0], k5[False][0]),
         "max_err_over_max_ref": max(k5[True][1], k5[False][1]),
         "max_rel_err_sum": max(k5[True][2], k5[False][2]), "max_rel_err_sumsq": max(k5[True][3], k5[False][3]),
-        "partials": n_part, "bit_identical_twice": True,
+        "partials": n_part, "tile_rows": rows or None, "bit_identical_twice": True,
         "ms": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c, skip=skip), iters),
         "ms_sums_no_skip": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c), iters),
         "ms_skip_no_sums": time_ms(lambda: C3.conv3x3_gn_fused(x, w, b, a, c, skip=skip, emit_stats=False), iters),
@@ -648,6 +685,15 @@ def phase_kernels():
               f"{r['bound_ms']:.5f} ({r['bound_by']})"
               + (f", matmul_attention {r['matmul_attention_ms']:.4f}" if "matmul_attention_ms" in r else ""),
               flush=True)
+    merge = []
+    for i, (shape, skv, splits, on_path) in enumerate(MERGE_SHAPES):
+        r = check_merge(shape, skv, splits, 150 + 10 * i)
+        r["on_serving_path"] = on_path
+        merge.append(r)
+        print(f"kernels: flash_attention_fwd_merge {r['shape']}: err {r['max_abs_err']:.3g} "
+              f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[torch.bfloat16]:.3g}) lse err "
+              f"{r['max_abs_err_lse']:.3g}, two runs bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
     for i, (shape, groups, dtype, on_path) in enumerate(GN_SHAPES):
         s, a = check_group_norm(shape, groups, dtype, 200 + 10 * i)
         for name, r, lst in (("group_norm_stats", s, gn_stats), ("group_norm_apply", a, gn_apply)):
@@ -677,15 +723,25 @@ def phase_kernels():
             r["on_serving_path"] = on_path and name == "conv3x3_gn_fused"
             conv[name].append(r)
             extra = (f", sums rel err {r['max_rel_err_sum']:.3g} / {r['max_rel_err_sumsq']:.3g} over "
-                     f"{r['partials']} partials (bound {TOL_CONV_SUMS_REL}); sums without skip "
+                     f"{r['partials']} partials (tile rows {r['tile_rows']}; bound {TOL_CONV_SUMS_REL}); sums without skip "
                      f"{r['ms_sums_no_skip']:.4f} ms, skip without sums {r['ms_skip_no_sums']:.4f} ms"
                      if "partials" in r else f"; with SiLU {r['ms_silu']:.4f} ms")
             print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g} "
                   f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[dtype]:.3g}), two runs "
                   f"bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
                   f"bound {r['bound_ms']:.5f} ({r['bound_by']}){extra}", flush=True)
-    return {"flash_attention_fwd": flash, "group_norm_stats": gn_stats, "group_norm_apply": gn_apply,
-            **bwd, **conv}
+    fold = []
+    for i, (shape, dtype, on_path) in enumerate(CONV_SHAPES):
+        if dtype != torch.bfloat16:
+            continue
+        r = check_fold(shape, 800 + 10 * i)
+        r["on_serving_path"] = on_path
+        fold.append(r)
+        print(f"kernels: conv3x3_fold_sums {r['shape']}: err {r['max_abs_err']:.3g} ({r['max_err_scaled']:.3g} scaled, "
+              f"bound {TOL_FOLD}), two runs bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    return {"flash_attention_fwd": flash, "flash_attention_fwd_merge": merge, "group_norm_stats": gn_stats,
+            "group_norm_apply": gn_apply, **bwd, **conv, "conv3x3_fold_sums": fold}
 
 
 # ----------------------------------------------------------------------------
@@ -727,19 +783,26 @@ def structure_counts(vae_cfg, unet_cfg):
         m = C3.CHANNEL_MULTIPLE
         fused = sum(ci % m == 0 and co % m == 0 for ci, co in channels) if vae_cfg.fused_resblocks else 0
         plain = len(channels) - fused
-        return {"flash_attention_fwd": int(vae_cfg.mid_block_attention),
+        return {"flash_attention_fwd": int(vae_cfg.mid_block_attention), "flash_attention_fwd_merge": 0,
                 "group_norm_stats": 2 * plain + fused + 1,
-                "group_norm_apply": 2 * plain + 1, "conv3x3_gn_fused": 2 * fused}
+                "group_norm_apply": 2 * plain + 1, "conv3x3_gn_fused": 2 * fused, "conv3x3_fold_sums": fused}
 
     enc, dec = vae_resnet_channels(vae_cfg)
     assert len(enc) == len(vae_cfg.block_out_channels) * vae_cfg.layers_per_block + 2
     return {
         # self + cross attention per block; 2 GroupNorm+SiLU per resnet + the output norm
-        "unet": {"flash_attention_fwd": 2 * blocks, "group_norm_stats": 2 * resnets + 1,
-                 "group_norm_apply": 2 * resnets + 1, "conv3x3_gn_fused": 0},
+        "unet": {"flash_attention_fwd": 2 * blocks, "flash_attention_fwd_merge": 0,
+                 "group_norm_stats": 2 * resnets + 1, "group_norm_apply": 2 * resnets + 1,
+                 "conv3x3_gn_fused": 0, "conv3x3_fold_sums": 0},
         "encode": vae_stage(enc),
         "decode": vae_stage(dec),
     }
+
+
+def mid_head_merges(tokens):
+    """Merge launches of one flash forward of the VAE mid head over `tokens`
+    latent pixels: 1 where its kv loop is split (fwd_kv_splits)."""
+    return int(FA.fwd_kv_splits(1, 1, tokens, tokens, 512, FA.sm_count(torch.device("cuda"))) > 1)
 
 
 def expected_launches(sizes, per, tile, overlap, downscale):
@@ -749,6 +812,8 @@ def expected_launches(sizes, per, tile, overlap, downscale):
         calls = unet_calls(h, w, tile, overlap, downscale)
         for name in total:
             total[name] += per["encode"][name] + calls * per["unet"][name] + per["decode"][name]
+        heads = per["encode"]["flash_attention_fwd"] + per["decode"]["flash_attention_fwd"]
+        total["flash_attention_fwd_merge"] += heads * mid_head_merges((h // downscale) * (w // downscale))
     return total
 
 
@@ -1159,9 +1224,10 @@ def micro_step_counts(vae_cfg, unet_cfg):
     flash, gn = (2 * per["encode"][k] + per["unet"][k] + per["decode"][k]
                  for k in ("flash_attention_fwd", "group_norm_stats"))
     bwd = flash - per["encode"]["flash_attention_fwd"]
-    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": bwd,
-            "flash_attention_bwd_dkv": bwd, "group_norm_stats": gn, "group_norm_apply": gn,
-            "conv3x3": 0, "conv3x3_gn_fused": 0}
+    heads = 2 * per["encode"]["flash_attention_fwd"] + per["decode"]["flash_attention_fwd"]
+    return {"flash_attention_fwd": flash, "flash_attention_fwd_merge": heads * mid_head_merges(64 * 64),
+            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd, "group_norm_stats": gn,
+            "group_norm_apply": gn, "conv3x3": 0, "conv3x3_gn_fused": 0, "conv3x3_fold_sums": 0}
 
 
 def evaluate_micro_step(trainer, batch, noise):
@@ -1476,6 +1542,8 @@ def phase_serve_tiled(card, vae_params, unet_params):
                     outs[stats].append(server.process_array(img, "adain"))
                     lat[stats].append((time.perf_counter() - t0) * 1e3)
             peak = torch.cuda.max_memory_allocated()
+            # a mid head whose kv loop is split adds one merge: read off the heads' token counts
+            expect["flash_attention_fwd_merge"] = sum(n * mid_head_merges(t) for t, n in tokens.items())
             counts[stats] = {k: v for k, v in read_counts().items() if k in expect}
             print(f"serve-tiled: {len(jobs)} 2048x2048 request(s), --vae_stats {stats}: latency "
                   f"{', '.join(f'{v:.1f}' for v in lat[stats])} ms; peak memory allocated {peak / 2**30:.2f} GiB; "
@@ -1618,7 +1686,10 @@ KERNELS = [
     # wrapper launches (bf16 at D = 64/128 first)
     ("flash_attention_fwd", "omgsr_tpu_torch/csrc/flash_attention_fwd.cu",
      "omgsr_tpu/ops/flash_attention.py:40",
-     ["flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "flash_fwd_kernel"]),
+     ["flash_fwd_wgmma_kernel", "flash_fwd_wide_wgmma_kernel", "flash_fwd_kernel"]),
+    # the merge of K1's split kv loop at head dim 512 (the TPU kernel ran its kv axis in order)
+    ("flash_attention_fwd_merge", "omgsr_tpu_torch/csrc/flash_attention_fwd.cu",
+     "omgsr_tpu/ops/flash_attention.py:40", ["flash_fwd_merge_kernel"]),
     ("flash_attention_bwd_dq", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
      "omgsr_tpu/ops/flash_attention.py:88",
      ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wide_kernel", "flash_bwd_dq_kernel"]),
@@ -1631,9 +1702,13 @@ KERNELS = [
     ("group_norm_apply", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
      "omgsr_tpu/ops/fused_groupnorm.py:58", ["gn_apply_kernel"]),
     ("conv3x3", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:30",
-     ["conv3x3_mma_kernel<false>", "conv3x3_fma_kernel<false>"]),
+     ["conv3x3_mma_kernel", "conv3x3_fma_kernel<false>"]),
     ("conv3x3_gn_fused", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:90",
-     ["conv3x3_mma_kernel<true>", "conv3x3_fma_kernel<true>"]),
+     ["conv3x3_gn_wgmma_kernel<2>", "conv3x3_gn_wgmma_kernel<1>", "conv3x3_fma_kernel<true>"]),
+    # the fold of K5's streamed sums into the next GroupNorm's affine (the JAX package's
+    # gn_affine_from_channel_sums, tensor code that XLA fuses beside the Pallas call)
+    ("conv3x3_fold_sums", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:310",
+     ["gn_fold_kernel"]),
 ]
 # conv3x3 has no caller in the JAX package outside its tests (the fused resblock is two
 # launches of conv3x3_gn_fused), so no path of the port runs it: the kernels phase holds it
@@ -1676,6 +1751,8 @@ def main():
             assert launches_serve + launches_fused + launches_train + launches_tiled == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == 0, name
+        elif name == "flash_attention_fwd_merge":  # the 512-px mid heads split their kv loop
+            assert launches_serve > 0 and launches_fused > 0 and launches_train > 0, name
         else:
             assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0)), name
         kernels.append({

@@ -17,7 +17,7 @@
 //     Sq and Skv itself, so no copy is made before or after the launch.
 //
 // Bound on this card: operations (4*B*H*Sq*Skv*D flops against ~1 byte per
-// 2*Skv flops of input). Three kernels:
+// 2*Skv flops of input). Four kernels:
 //   * flash_fwd_kernel (f32 inputs): plain f32 FMAs from
 //     shared memory (both tiles staged as f32, register micro-tiles of
 //     TQ/16 x TK/16 scores, conflict-free float4 reads). Exact for f32
@@ -31,10 +31,10 @@
 //     guarded by mbarriers, wgmma products, a producer warpgroup and two
 //     consumer warpgroups on a 128-row q tile; described where it is
 //     defined.
-//   * flash_fwd_wide_kernel (bf16 inputs, D = 512, the VAE mid block's one
-//     head): tensor cores through mma.sync with the scores and the output
-//     split over eight warps, described where it is defined; it stages its
-//     tiles through registers, without TMA or wgmma.
+//   * flash_fwd_wide_wgmma_kernel (bf16 inputs, D = 512, the VAE mid block's
+//     one head): the same Hopper path on a 64-row q tile whose two consumer
+//     warpgroups each own half of O's columns, described where it is defined;
+//     its kv loop may be split in chunks that flash_fwd_merge_kernel merges.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -592,187 +592,347 @@ __global__ void __launch_bounds__(HNT, 1) flash_fwd_wgmma_kernel(
 }
 
 // ----------------------------------------------------------------------------
-// bf16 path at D = 512 (the VAE mid block's single head): the same
-// recurrence, tiles cut for the width. At D = 512 one warp cannot hold 16 q
-// rows of mma.sync fragments (Q fragments 128 and the accumulator 256
-// registers a thread), so the block's eight warps split the work and share
-// what they must through shared memory:
-//   * a block owns WQ = 64 q rows, staged once in shared memory with the
-//     streamed K and V tiles of WK = 32 kv rows, all bf16 with rows padded by
-//     16 bytes;
-//   * scores: warp (rw, cw) = (warp % 4, warp / 4) computes the 16 x 16 block
-//     of q rows rw*16.. and kv columns cw*16.. over the 32 k-steps of D, A
-//     and B fragments by ldmatrix, and writes it scaled and masked as f32;
-//   * the online softmax runs from shared memory, four lanes per row: the
-//     row maxima, P = exp(S - m) rounded to bf16 into its own tile (row sums
-//     taken in f32 before the rounding), and the running m, l and the
-//     rescale factor of every row;
-//   * output: warp (rw, cw) owns q rows rw*16.. and the D/2 = 256 columns
-//     cw*256.., a 16 x 256 f32 accumulator (128 registers a thread); it reads
-//     P by ldmatrix and V by ldmatrix.trans.
-// Shared memory: Q 64 x 520, K and V 32 x 520 bf16, P 64 x 40 bf16, scores
-// 64 x 36 f32, m / l / alpha 64 f32 each: 148,224 bytes at D = 512 (opt-in),
-// so one block per SM; 4096 q rows give 64 blocks for 132 SMs.
+// bf16 path at D = 512 (the VAE mid block's single head):
+// flash_fwd_wide_wgmma_kernel, built for Hopper.
+//
+// What bounds it: operations (4 * Sq * Skv * 512 flops a head), and with a
+// 64-row q tile the L2 traffic of K and V, which every q tile reads in full
+// (64 flops a byte). A 64 x 512 f32 output accumulator is 256 registers a
+// thread in one warpgroup, too many, so:
+//   * Block = three warpgroups on a 64-row q tile of one (batch, head).
+//     Warpgroup 0 is the producer (setmaxnreg 24): one thread loads Q and the
+//     K tiles, another the V tiles, all by TMA through 4-D tensor maps over
+//     the caller's strides (a 1024-byte row is eight boxes of 64 columns,
+//     128-byte swizzled). Warpgroups 1 and 2 are consumers (setmaxnreg 240):
+//     each owns all 64 q rows and one half of O's columns, a 64 x 256 f32
+//     accumulator (128 registers a thread). The tiles' shared-memory
+//     addresses pass through an empty asm statement in each kv step, so the
+//     compiler computes the 64 score descriptors of a step from them there
+//     and does not keep them all in registers over the loop.
+//   * Both consumers need the same P. Each computes the scores S = Q K^T of
+//     the tile itself (wgmma m64n64k16 over 32 k-steps, both operands from
+//     shared memory) and runs the online softmax in registers (base 2,
+//     ex2.approx), so P never leaves the registers and the warpgroups never
+//     wait for each other inside the loop; the price is the score product
+//     twice (6 units of work for 4).
+//   * Shared memory: Q (64 KiB), one K tile and one V tile of 64 kv rows (64
+//     KiB each): 192 KiB. K and V have their own `full` and `empty` mbarriers,
+//     so K of tile t + 1 lands while the consumers run P V of tile t and V of
+//     tile t + 1 while they run the scores of tile t + 1.
+//   * O += P V by wgmma m64n256k16: A = P rounded to bf16 in registers (the
+//     accumulator layout of S is the A fragment layout), B = the warpgroup's
+//     256 columns of the V tile with the transpose bit. Inside a warpgroup S
+//     of tile t and P V of tile t - 1 are issued together and only S is waited
+//     for, so the softmax of tile t runs under P V of tile t - 1.
+//   * Few q tiles (4096 tokens: 64 tiles for 132 SMs) leave SMs idle, so the
+//     kv loop may be split in G chunks (grid z; chunk z takes kv tiles z * n /
+//     G .. (z + 1) * n / G - 1 of n, ops/flash_attention.fwd_kv_splits
+//     decides): each chunk writes its O normalised by its own row sums, in
+//     f32, and its lse, and flash_fwd_merge_kernel adds the chunks in chunk
+//     order, weighted by exp(lse_z - lse).
+//   * Epilogue unsplit: O / l rounded to bf16, staged in the Q tile's place
+//     (both warpgroups done with it) in the swizzled layout and written by
+//     TMA stores, which drop rows >= Sq; lse = m + log(l) into the f32 (B*H,
+//     Sq) buffer the backward reads.
+// No atomics: every output element is summed by one thread (and merged by
+// one thread) in one order, so a run gives the same bits every time.
 // ----------------------------------------------------------------------------
 
-constexpr int WQ = 64;    // q rows of a block
-constexpr int WK = 32;    // kv rows of a streamed tile
-constexpr int WNT = 256;  // eight warps
+constexpr int WQ = 64;                 // q rows of a block
+constexpr int WKV = 64;                // kv rows of a tile
+constexpr int WD = 512;                // head dim
+constexpr int WBOX = WKV * 128;        // one 64-column box of a 64-row tile
+constexpr int WTILE = WD / 64 * WBOX;  // a 64-row tile: 64 KiB
+constexpr int WNT = 384;               // three warpgroups
+constexpr int WIDE_SMEM = 3 * WTILE + 8 * 5 + 1024;  // Q, K, V, five barriers, alignment slack
 
-template <int D>
-constexpr int wide_fwd_smem_bytes() {
-  return (WQ + 2 * WK) * (D + 8) * 2 + WQ * (WK + 8) * 2 + WQ * (WK + 4) * 4 + 3 * WQ * 4;
+// One online-softmax step on the 64 x 64 scores of one kv tile (this thread's
+// rows g and g + 8, columns 8j + 2 tig (+1)), as online_softmax does for 128
+// columns.
+__device__ __forceinline__ void online_softmax64(float (&sc)[32], int kvalid, int tig, float scale_log2,
+                                                 float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+                                                 float& al_lo, float& al_hi) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+  if (kvalid < WKV) {
+    const float neg_inf = __int_as_float(0xff800000u);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + tig * 2 + (i & 1);
+      if (col >= kvalid) sc[i] = neg_inf;
+    }
+  }
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  al_lo = fast_exp2(m_lo - mx_lo);
+  al_hi = fast_exp2(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[4 * j] = fast_exp2(sc[4 * j] - mx_lo);
+    sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] - mx_lo);
+    sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] - mx_hi);
+    sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] - mx_hi);
+    sum_lo += sc[4 * j] + sc[4 * j + 1];
+    sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 1);
+  sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, 2);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 1);
+  sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, 2);
+  l_lo = l_lo * al_lo + sum_lo;
+  l_hi = l_hi * al_hi + sum_hi;
 }
 
-template <int D>
-__global__ void __launch_bounds__(WNT, 1) flash_fwd_wide_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-    int H, int Sq, int Skv, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
-  constexpr int LD = D + 8;     // bf16 row of a staged tile
-  constexpr int LP = WK + 8;    // bf16 row of P
-  constexpr int LSF = WK + 4;   // f32 row of the scores
-  constexpr int KS = D / 16;    // k-steps of the score product
-  constexpr int NW = D / 16;    // n-tiles of a warp's half of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + WQ * LD;
-  __nv_bfloat16* Vs = Ks + WK * LD;
-  __nv_bfloat16* Ps = Vs + WK * LD;
-  float* Ss = reinterpret_cast<float*>(Ps + WQ * LP);
-  float* m_s = Ss + WQ * LSF;
-  float* l_s = m_s + WQ;
-  float* a_s = l_s + WQ;
+__device__ __forceinline__ void pack_p64(uint32_t (&pf)[4][4], const float (&sc)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// S (64 x 64) = Q K^T over D = 512: 32 k-steps of 32 bytes inside each 64-column box.
+__device__ __forceinline__ void issue_qk_wide(float (&sc)[32], uint32_t q_tile, uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < WD / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * WBOX + (ks & 3) * 32;
+    wgmma_ss_m64n64k16(sc, wgmma_desc(q_tile + off, 16, 1024), wgmma_desc(k_tile + off, 16, 1024), ks > 0);
+  }
+}
+
+// O (64 x 256) += P V for the warpgroup's 256 columns (boxes 4 cw .. 4 cw + 3):
+// 4 k-steps of 16 kv rows (2048 bytes of a box each).
+__device__ __forceinline__ void issue_pv_wide(float (&acc)[128], const uint32_t (&pf)[4][4], uint32_t v_half) {
+#pragma unroll
+  for (int kk = 0; kk < WKV / 16; ++kk)
+    wgmma_rs_m64n256k16_tb(acc, pf[kk], wgmma_desc(v_half + kk * 2048, WBOX, 1024), 1);
+}
+
+__global__ void __launch_bounds__(WNT, 1) flash_fwd_wide_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+    float* __restrict__ lse, float* __restrict__ o_part, int H, int Sq, int Skv, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base, k_tile = base + WTILE, v_tile = base + 2 * WTILE;
+  const uint32_t q_full = base + 3 * WTILE;
+  const uint32_t k_full = q_full + 8, v_full = q_full + 16, k_empty = q_full + 24, v_empty = q_full + 32;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int rw = warp & 3;   // this warp's 16 rows
-  const int cw = warp >> 2;  // this warp's kv columns (scores) and half of D (output)
+  const int wg = tid >> 7;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = blockIdx.x * WQ;
+  const int n_kv = (Skv + WKV - 1) / WKV;
+  const int t0 = (int)((long long)blockIdx.z * n_kv / gridDim.z);
+  const int t1 = (int)((long long)(blockIdx.z + 1) * n_kv / gridDim.z);
 
-  const __nv_bfloat16* k_base = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* v_base = v + b * v_sb + h * v_sh;
-
-  stage_rows_bf16<D, WQ, WNT>(Qs, q + b * q_sb + h * q_sh + (int64_t)q0 * q_ss, q_ss,
-                              min(WQ, Sq - q0));
-  if (tid < WQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, 8);  // one arrival per consumer warp
+    mbar_init(v_empty, 8);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[NW][4];
+  if (wg == 0) {
+    // ---- producer: thread 0 loads Q and the K tiles, thread 32 the V tiles ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      mbar_arrive_expect_tx(q_full, WTILE);
 #pragma unroll
-  for (int j = 0; j < NW; ++j)
+      for (int c = 0; c < WD / 64; ++c) tma_load_4d(q_tile + c * WBOX, &tm_q, q_full, c * 64, h, q0, b);
+      for (int t = t0; t < t1; ++t) {
+        if (t > t0) mbar_wait(k_empty, (t - t0 - 1) & 1);
+        mbar_arrive_expect_tx(k_full, WTILE);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += WK) {
-    const int kvalid = min(WK, Skv - kv0);
-    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps, a_s are done
-    stage_rows_bf16<D, WK, WNT>(Ks, k_base + (int64_t)kv0 * k_ss, k_ss, kvalid);
-    stage_rows_bf16<D, WK, WNT>(Vs, v_base + (int64_t)kv0 * v_ss, v_ss, kvalid);
-    __syncthreads();
-
-    // S = Q K^T for rows rw*16.. and kv columns cw*16.. (two n-tiles)
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t af[4], bf[4];
-      ldmatrix_a(af, Qs, LD, rw * 16, ks * 16, lane);
-      ldmatrix_b2(bf, Ks, LD, cw * 16, ks * 16, lane);
-      mma_bf16(s[0], af, bf[0], bf[1]);
-      mma_bf16(s[1], af, bf[2], bf[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = cw * 16 + j * 8 + tig * 2;
-      const int r = rw * 16 + g;
-      *reinterpret_cast<float2*>(Ss + r * LSF + col) =
-          make_float2(col < kvalid ? s[j][0] * scale : NEG_INF,
-                      col + 1 < kvalid ? s[j][1] * scale : NEG_INF);
-      *reinterpret_cast<float2*>(Ss + (r + 8) * LSF + col) =
-          make_float2(col < kvalid ? s[j][2] * scale : NEG_INF,
-                      col + 1 < kvalid ? s[j][3] * scale : NEG_INF);
-    }
-    __syncthreads();
-
-    // online softmax: four neighbouring lanes share one row, WK / 4 columns each
-    {
-      const int row = tid >> 2;
-      const int part = tid & 3;
-      const float* srow = Ss + row * LSF;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < WK / 4; ++jj) mx = fmaxf(mx, srow[part + 4 * jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < WK / 4; ++jj) {
-        const float p = __expf(srow[part + 4 * jj] - m_new);
-        Ps[row * LP + part + 4 * jj] = __float2bfloat16(p);
-        sum += p;
+        for (int c = 0; c < WD / 64; ++c) tma_load_4d(k_tile + c * WBOX, &tm_k, k_full, c * 64, h, t * WKV, b);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();  // every lane of the row has read m_old
-      if (part == 0) {
-        const float alpha = __expf(m_old - m_new);
-        a_s[row] = alpha;
-        l_s[row] = l_s[row] * alpha + sum;
-        m_s[row] = m_new;
+    } else if (tid == 32) {
+      prefetch_tensormap(&tm_v);
+      for (int t = t0; t < t1; ++t) {
+        if (t > t0) mbar_wait(v_empty, (t - t0 - 1) & 1);
+        mbar_arrive_expect_tx(v_full, WTILE);
+#pragma unroll
+        for (int c = 0; c < WD / 64; ++c) tma_load_4d(v_tile + c * WBOX, &tm_v, v_full, c * 64, h, t * WKV, b);
       }
     }
-    __syncthreads();
+  } else {
+    // ---- consumers: warpgroup cw owns columns 256 cw .. 256 cw + 255 of O ----
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const uint32_t v_half = v_tile + 4 * cw * WBOX;
 
-    // acc = acc * alpha + P V over rows rw*16.. and columns cw*D/2..
-    const float al_lo = a_s[rw * 16 + g], al_hi = a_s[rw * 16 + g + 8];
+    float acc[128];
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      acc[j][0] *= al_lo;
-      acc[j][1] *= al_lo;
-      acc[j][2] *= al_hi;
-      acc[j][3] *= al_hi;
-    }
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    const float neg_inf = __int_as_float(0xff800000u);
+    float m_lo = neg_inf, m_hi = neg_inf, l_lo = 0.f, l_hi = 0.f;
+    float sc[32];
+    uint32_t pf[4][4];
+    float al_lo, al_hi;
+
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full, 0);
+    wgmma_fence();
+    issue_qk_wide(sc, q_tile, k_tile);
+    wgmma_commit_group();
+    wgmma_wait_group<0>();
+    fence_operands(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty);
+    online_softmax64(sc, Skv - t0 * WKV, tig, scale_log2, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi);
+    pack_p64(pf, sc);
+    for (int t = t0 + 1; t < t1; ++t) {
+      const int i = t - t0;
+      mbar_wait(k_full, i & 1);
+      mbar_wait(v_full, (i - 1) & 1);
+      fence_operands(acc);
+      fence_fragments(pf);
+      uint32_t qt = q_tile, kt = k_tile, vt = v_half;
+      asm volatile("" : "+r"(qt), "+r"(kt), "+r"(vt));
+      wgmma_fence();
+      issue_qk_wide(sc, qt, kt);
+      wgmma_commit_group();
+      issue_pv_wide(acc, pf, vt);
+      wgmma_commit_group();
+      wgmma_wait_group<1>();  // S(t) has landed; P V of tile t - 1 may still run
+      fence_operands(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty);
+      online_softmax64(sc, Skv - t * WKV, tig, scale_log2, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi);
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+      fence_fragments(pf);  // the A fragments stay untouched until P V of tile t - 1 has read them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty);
 #pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      uint32_t pf[4];
-      ldmatrix_a(pf, Ps, LP, rw * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        uint32_t vf[4];
-        ldmatrix_b2_trans(vf, Vs, LD, kk * 16, cw * (D / 2) + j * 8, lane);
-        mma_bf16(acc[j], pf, vf[0], vf[1]);
-        mma_bf16(acc[j + 1], pf, vf[2], vf[3]);
+      for (int j = 0; j < 32; ++j) {
+        acc[4 * j] *= al_lo;
+        acc[4 * j + 1] *= al_lo;
+        acc[4 * j + 2] *= al_hi;
+        acc[4 * j + 3] *= al_hi;
       }
+      pack_p64(pf, sc);
+    }
+    mbar_wait(v_full, (t1 - t0 - 1) & 1);
+    fence_operands(acc);
+    fence_fragments(pf);
+    wgmma_fence();
+    issue_pv_wide(acc, pf, v_half);
+    wgmma_commit_group();
+    wgmma_wait_group<0>();
+    fence_operands(acc);
+
+    // ---- epilogue ----
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    const int rl = warp * 16 + g;  // rows rl and rl + 8 of the tile
+    const int r_lo = q0 + rl, r_hi = r_lo + 8;
+    const float lse_lo = (m_lo + log2f(l_lo)) * 0.69314718055994531f;
+    const float lse_hi = (m_hi + log2f(l_hi)) * 0.69314718055994531f;
+    if (o_part != nullptr) {
+      // chunk z of a split kv loop: O / l of this chunk in f32, and its lse
+      const long long row = ((long long)blockIdx.z * gridDim.y + bh) * Sq;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = 256 * cw + 8 * j + 2 * tig;
+        if (r_lo < Sq)
+          *reinterpret_cast<float2*>(o_part + (row + r_lo) * WD + col) =
+              make_float2(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+        if (r_hi < Sq)
+          *reinterpret_cast<float2*>(o_part + (row + r_hi) * WD + col) =
+              make_float2(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
+      }
+      if (cw == 0 && tig == 0) {
+        if (r_lo < Sq) lse[row + r_lo] = lse_lo;
+        if (r_hi < Sq) lse[row + r_hi] = lse_hi;
+      }
+      return;
+    }
+    // both warpgroups are done with the Q tile: stage O there, swizzled, and store it by TMA
+    named_barrier_sync(1, 256);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t box = q_tile + (4 * cw + (j >> 3)) * WBOX;
+      const int chunk = j & 7;
+      st_shared_u32(box + rl * 128 + ((chunk ^ (rl & 7)) << 4) + tig * 4,
+                    pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo));
+      st_shared_u32(box + (rl + 8) * 128 + ((chunk ^ ((rl + 8) & 7)) << 4) + tig * 4,
+                    pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi));
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + cw, 128);
+    if ((tid & 127) == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        tma_store_4d(&tm_o, q_tile + (4 * cw + c) * WBOX, (4 * cw + c) * 64, h, q0, b);
+      bulk_commit_group();
+      bulk_wait_group_read0();
+    }
+    if (cw == 0 && tig == 0) {
+      if (r_lo < Sq) lse[(int64_t)bh * Sq + r_lo] = lse_lo;
+      if (r_hi < Sq) lse[(int64_t)bh * Sq + r_hi] = lse_hi;
     }
   }
+}
 
-  // l_s / m_s were last written before the barrier that precedes the final PV
-  const int64_t o_ss = (int64_t)H * D;
-  __nv_bfloat16* o_base = o + (int64_t)b * Sq * o_ss + (int64_t)h * D;
-  const int r_lo = q0 + rw * 16 + g, r_hi = r_lo + 8;
-  const float inv_lo = 1.f / l_s[rw * 16 + g], inv_hi = 1.f / l_s[rw * 16 + g + 8];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const int c = cw * (D / 2) + j * 8 + tig * 2;
-    if (r_lo < Sq)
-      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_lo * o_ss + c) =
-          pack_bf16(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
-    if (r_hi < Sq)
-      *reinterpret_cast<uint32_t*>(o_base + (int64_t)r_hi * o_ss + c) =
-          pack_bf16(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
+// The chunks of a split kv loop -> O (B, Sq, H, 512) in bf16 and lse (B*H, Sq):
+// lse = log sum_z exp(lse_z), O = sum_z exp(lse_z - lse) O_z, in chunk order. A
+// block of 256 threads takes 4 rows, a thread 8 columns of one row.
+__global__ void __launch_bounds__(256) flash_fwd_merge_kernel(const float* __restrict__ o_part,
+                                                              const float* __restrict__ lse_part,
+                                                              __nv_bfloat16* __restrict__ o,
+                                                              float* __restrict__ lse, int G, int BH, int H,
+                                                              int Sq) {
+  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 6);  // bh * Sq + s
+  if (row >= (long long)BH * Sq) return;
+  const int col = (threadIdx.x & 63) * 8;
+  const long long stride = (long long)BH * Sq;  // between chunks
+  float m = lse_part[row];
+  for (int z = 1; z < G; ++z) m = fmaxf(m, lse_part[z * stride + row]);
+  float den = 0.f;
+  for (int z = 0; z < G; ++z) den += expf(lse_part[z * stride + row] - m);
+  float out[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int z = 0; z < G; ++z) {
+    const float wz = expf(lse_part[z * stride + row] - m) / den;
+    const float4* p = reinterpret_cast<const float4*>(o_part + (z * stride + row) * WD + col);
+    const float4 a = p[0], c = p[1];
+    out[0] += wz * a.x;
+    out[1] += wz * a.y;
+    out[2] += wz * a.z;
+    out[3] += wz * a.w;
+    out[4] += wz * c.x;
+    out[5] += wz * c.y;
+    out[6] += wz * c.z;
+    out[7] += wz * c.w;
   }
-  if (tid < WQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+  const int bh = (int)(row / Sq);
+  const int s = (int)(row - (long long)bh * Sq);
+  const int b = bh / H, h = bh - b * H;
+  uint4 packed = make_uint4(pack_bf16(out[0], out[1]), pack_bf16(out[2], out[3]), pack_bf16(out[4], out[5]),
+                            pack_bf16(out[6], out[7]));
+  *reinterpret_cast<uint4*>(o + (((long long)b * Sq + s) * H + h) * WD + col) = packed;
+  if (col == 0) lse[row] = m + logf(den);
 }
 
 // ---- host side of flash_fwd_wgmma_kernel (tensor maps: sm90.cuh) ----
@@ -797,18 +957,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes = wide_fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + WQ - 1) / WQ, B * H);
-  flash_fwd_wide_kernel<D><<<grid, WNT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, lse, H, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale);
+// The D = 512 bf16 kernel: unsplit (o_part null: O in bf16 and lse into o, lse)
+// or chunk z of `splits` (O_z in f32 into o_part (splits, B*H, Sq, 512) and lse_z
+// into lse, then (splits, B*H, Sq)).
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, float* o_part, int splits,
+                int B, int H, int Sq, int Skv, const long long* st, float scale, cudaStream_t stream) {
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_fwd_wide_wgmma_kernel, WIDE_SMEM);
+  if (code != 0) return code;
+  if (splits < 1 || splits > (Skv + WKV - 1) / WKV || splits > 65535) return -1;
+  CUtensorMap tq, tk, tv, to;
+  code = encode_bshd(&tq, q, B, Sq, H, WD, st[0], st[1], st[2], WQ);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, WD, st[3], st[4], st[5], WKV);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, WD, st[6], st[7], st[8], WKV);
+  const long long o_ss = (long long)H * WD;
+  // with o_part the output map is not used: any valid map will do
+  if (code == 0) code = encode_bshd(&to, o_part != nullptr ? q : o, B, Sq, H, WD,
+                                    o_part != nullptr ? st[0] : (long long)Sq * o_ss,
+                                    o_part != nullptr ? st[1] : o_ss, o_part != nullptr ? st[2] : WD, WQ);
+  if (code != 0) return code;
+  dim3 grid((Sq + WQ - 1) / WQ, B * H, splits);
+  flash_fwd_wide_wgmma_kernel<<<grid, WNT, WIDE_SMEM, stream>>>(tq, tk, tv, to, lse, o_part, H, Sq, Skv,
+                                                                scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -848,7 +1018,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return launch_wgmma<64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 0 && D == 128)
     return launch_wgmma<128>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
-  if (dtype == 0 && D == 512) return launch_wide<512>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
+  if (dtype == 0 && D == 512) return launch_wide(q, k, v, o, lse, nullptr, 1, B, H, Sq, Skv, st, scale, s);
   if (dtype == 1 && D == 64)
     return launch<float, 64, 64, 64>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   if (dtype == 1 && D == 128)
@@ -856,4 +1026,33 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (dtype == 1 && D == 512)
     return launch<float, 512, 32, 32>(q, k, v, o, lse, B, H, Sq, Skv, st, scale, s);
   return -1;
+}
+
+// The bf16 kernel at D = 512 with its kv loop split in `splits` chunks (at most
+// ceil(Skv / 64)): chunk z writes its O, normalised by its own row sums, into
+// o_part (splits, B*H, Sq, 512) f32 and its log-sum-exp into lse_part (splits,
+// B*H, Sq) f32; flash_attention_fwd_merge then combines them. Arguments as
+// flash_attention_fwd's (q, k, v bf16; D 512). Returns 0, a CUDA error code, or -1.
+extern "C" int flash_attention_fwd_split(const void* q, const void* k, const void* v, float* o_part,
+                                         float* lse_part, int splits, int B, int H, int Sq, int Skv,
+                                         long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                                         long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                                         long long v_sh, float scale, void* stream) {
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  if (o_part == nullptr || lse_part == nullptr) return -1;
+  return launch_wide(q, k, v, nullptr, lse_part, o_part, splits, B, H, Sq, Skv, st, scale,
+                     (cudaStream_t)stream);
+}
+
+// The chunks of flash_attention_fwd_split -> o, a contiguous (B, Sq, H, 512)
+// bf16, and lse, a contiguous (B*H, Sq) f32: lse = log sum_z exp(lse_z), o =
+// sum_z exp(lse_z - lse) o_z, added in chunk order.
+extern "C" int flash_attention_fwd_merge(const float* o_part, const float* lse_part, void* o, float* lse,
+                                         int splits, int B, int H, int Sq, void* stream) {
+  if (splits < 1) return -1;
+  const long long rows = (long long)B * H * Sq;
+  if ((rows + 3) / 4 > 2147483647LL) return -1;
+  flash_fwd_merge_kernel<<<(unsigned)((rows + 3) / 4), 256, 0, (cudaStream_t)stream>>>(
+      o_part, lse_part, (__nv_bfloat16*)o, lse, splits, B * H, H, Sq);
+  return (int)cudaGetLastError();
 }

@@ -1,29 +1,35 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels (the
-// forward's flash_fwd_wgmma_kernel and the backward's dQ and dK/dV kernels):
-// one PTX instruction each, inline, plus the host side they share. Included by
-// the .cu files of this directory.
+// forward's flash_fwd_wgmma_kernel and flash_fwd_wide_wgmma_kernel, the
+// backward's dQ and dK/dV kernels) and the fused 3x3 conv
+// (conv3x3_gn_wgmma_kernel): one PTX instruction each, inline, plus the host
+// side they share. Included by the .cu files of this directory.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count, and a
 //     wait on a phase parity (try_wait in a loop);
 //   * TMA: cp.async.bulk.tensor loads (completing on an mbarrier) and stores
-//     (bulk groups) through a CUtensorMap passed as a __grid_constant__
-//     kernel parameter; fence.proxy.async for shared memory written by
+//     (bulk groups), 3-D and 4-D, through a CUtensorMap passed as a
+//     __grid_constant__ kernel parameter; fence.proxy.async for shared memory written by
 //     threads and then read by TMA or wgmma;
 //   * wgmma: the shared-memory matrix descriptor, fence / commit_group /
 //     wait_group, and the products the kernels issue (m64n64k16 and
-//     m64n128k16 with both operands in shared memory; m64n64k16 and
-//     m64n128k16 with A in registers and a transposed B);
+//     m64n128k16 with both operands in shared memory; m64n64k16,
+//     m64n128k16 and m64n256k16 with A in registers and a transposed B);
 //   * setmaxnreg, which moves registers from the producer warpgroup to the
 //     consumer warpgroups;
-//   * host: the 4-D tensor map of a (B, S, H, D) operand
-//     (cuTensorMapEncodeTiled, fetched from the driver through the runtime,
-//     so that no library needs -lcuda) and the once-per-device opt-in to more
-//     than 48 KiB of dynamic shared memory.
+//   * host: the 4-D tensor map of a (B, S, H, D) operand and the 3-D map of
+//     any bf16 array with a contiguous innermost axis (cuTensorMapEncodeTiled,
+//     fetched from the driver through the runtime, so that no library needs
+//     -lcuda) and the once-per-device opt-in to more than 48 KiB of dynamic
+//     shared memory.
 //
 // Tiles are stored as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: rows of
 // 128 bytes (64 bf16 values), the 16-byte chunks of row r permuted by r % 8, in
-// 8-row atoms of 1024 bytes; every tile base is 1024-byte aligned, so the
-// descriptor's base-offset field stays 0.
+// 8-row atoms of 1024 bytes; every tile base is 1024-byte aligned. The
+// hardware takes the swizzle phase of a row from its shared-memory address, so
+// an operand may also start any whole number of 128-byte rows into a tile (the
+// conv's tap shifts) with the descriptor's base-offset field left at 0:
+// tools/probe_wgmma_offset.cu holds this on the card (setting the field to
+// (address >> 7) & 7 instead gives wrong products).
 
 #pragma once
 
@@ -96,6 +102,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 3-D map; coordinates may be negative (elements outside the
+// tensor read as zeros).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The box at (c0, c1, c2, c3) from shared memory at `src` to global memory; elements
 // outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
@@ -104,6 +121,15 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -124,6 +150,27 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // A barrier over `count` threads (a multiple of 32) with id `id` (1..15; 0 is __syncthreads).
@@ -298,6 +345,42 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64], const uin
         "r"(scale_d));
 }
 
+// D (64 x 256, f32) += A (64 x 16, bf16 fragments in registers) B (16 x 256, bf16 from
+// shared memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_m64n256k16_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // ---- host ------------------------------------------------------------------
 
 typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -347,6 +430,25 @@ inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, i
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// A bf16 array of extents (d0, d1, d2), innermost first, with element strides
+// (s1, s2) for the two outer axes and a contiguous innermost axis, as a 3-D
+// tensor map whose box is (b0, b1, b2) elements, 128-byte swizzled (b0 * 2 must
+// be 128). Elements outside the array read as zeros; stores outside it are
+// dropped.
+inline int encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1, long long d2,
+                     long long s1, long long s2, int b0, int b1, int b2) {
+  const TensorMapEncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return NO_ENCODE_ENTRY;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;

@@ -1,4 +1,4 @@
-"""3x3 SAME convolutions with fused epilogues and the fused VAE resblock: two
+"""3x3 SAME convolutions with fused epilogues and the fused VAE resblock:
 hand-written CUDA kernels, their wrappers and the plain PyTorch versions.
 
 Source note. ``conv3x3`` replaces the Pallas TPU kernel
@@ -6,15 +6,22 @@ Source note. ``conv3x3`` replaces the Pallas TPU kernel
 ``conv3x3_gn_fused`` replaces ``:_kernel_rb`` (reached through
 ``conv3x3_gn_fused``); ``fused_resblock`` chains two of the latter as the JAX
 package does. On an H100 both are bound by operations (2 * 9 * C_in * C_out
-flops per pixel against C_in + C_out elements moved). The kernels
-(``csrc/conv3x3.cu``) give one block an 8 x 16 pixel tile of the output by a
-slice of the output channels, stage the tile's halo of x and the nine taps of
-the weights in shared memory per chunk of input channels, and run the taps as
-``mma.sync`` products in bf16 (f32 accumulators) or as FMAs in f32. Nothing is
-padded in device memory: the ring is masked where the halo is staged, after
-the GroupNorm+SiLU prologue. The per-channel sums of the output are written
-as one row per tile and added by the caller in a fixed order: no atomics, the
-same bits on every run.
+flops per pixel against C_in + C_out elements moved). Nothing is padded in
+device memory: the ring is masked where the halo is staged, after the
+GroupNorm+SiLU prologue. The per-channel sums of the output are written as
+one row per pixel tile and folded in a fixed order: no atomics, the same bits
+on every run.
+
+``csrc/conv3x3.cu`` holds the kernels. The bf16 resblock half (K5) is an
+implicit GEMM on Hopper's ``wgmma``: a block owns ``gn_fused_tile_rows`` (4 or
+2) output rows x 64 columns x 128 output channels; TMA brings each chunk of 64
+input channels of the tile's halo and the weights of each (chunk, tap)
+through a ring of shared-memory stages; a warp group applies the prologue
+once per staged element while two others run the nine shifted products. The
+bf16 plain conv (K4) gives a block an 8 x 16 pixel tile and runs the taps as
+``mma.sync`` products; in f32 both functions run as FMAs. ``fold_gn_sums``
+turns the streamed sums into the next GroupNorm's (scale, shift) in one
+launch.
 
 Activations are NHWC at batch 1. Weights are the port's conv leaves, OIHW in
 channels_last memory, which is the layout the kernels read (for each tap the
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from omgsr_tpu_torch.models.layers import conv2d
+from omgsr_tpu_torch.ops.flash_attention import sm_count
 from omgsr_tpu_torch.ops.fused_groupnorm import group_norm_stats
 from omgsr_tpu_torch.ops.kernel_build import (
     LaunchCounter,
@@ -45,8 +53,15 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _ACTS = {"none": 0, "silu": 1}
 CHANNEL_MULTIPLE = 128
 
+# the bf16 resblock kernel's pixel tile: rows x 64 columns; a 2-row tile costs this
+# much more per row than a 4-row one (its weight tiles serve half the pixels;
+# check_conv3x3's sweep on an H100 SXM: 1.28-1.32 where both fill whole waves)
+GN_TILE_COLS = 64
+_TWO_ROW_COST = 1.3
+
 conv3x3_launches = LaunchCounter("conv3x3")
 gn_fused_launches = LaunchCounter("conv3x3_gn_fused")
+fold_launches = LaunchCounter("conv3x3_fold_sums")
 
 
 def _wide(t):
@@ -113,11 +128,28 @@ def _library():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3.argtypes = [vp] * 4 + [i] * 6 + [vp]
         lib.conv3x3.restype = i
-        lib.conv3x3_gn_fused.argtypes = [vp] * 8 + [i] * 6 + [vp]
+        lib.conv3x3_gn_fused.argtypes = [vp] * 8 + [i] * 7 + [vp]
         lib.conv3x3_gn_fused.restype = i
-        lib.conv3x3_partials.argtypes = [i, i]
+        lib.conv3x3_partials.argtypes = [i] * 4
         lib.conv3x3_partials.restype = i
+        lib.conv3x3_fold_sums.argtypes = [vp] * 5 + [i] * 4 + [ctypes.c_double, ctypes.c_float, vp]
+        lib.conv3x3_fold_sums.restype = i
     return lib
+
+
+def gn_fused_tile_rows(h: int, w: int, cout: int, sms: int) -> int:
+    """Output rows of a block of the bf16 resblock kernel on a card of ``sms``
+    SMs: 4 (two 64-pixel rows for each consumer warp group, so each staged
+    weight tile serves 256 pixels) or 2 (one row each, twice the blocks). The
+    one whose waves of blocks (one block an SM) times the rows a block owns,
+    a 2-row block weighted ``_TWO_ROW_COST`` per row, is least: 2 where 4-row
+    tiles would leave SMs idle (the 64 x 64 mid blocks at 512 px), else 4."""
+    n = -(-cout // 128) * -(-w // GN_TILE_COLS)
+
+    def cost(rows, per_row):
+        return -(-n * -(-h // rows) // sms) * rows * per_row
+
+    return 4 if cost(4, 1.0) <= cost(2, _TWO_ROW_COST) else 2
 
 
 class _KernelWeights:
@@ -249,13 +281,14 @@ def _gn_fused(x, w, b, gn_scale, gn_shift, skip, emit_stats):
     skip = None if skip is None else _kernel_input(skip)
     lib = _library()
     y = torch.empty((1, h, width, cout), dtype=x.dtype, device=x.device)
-    n_partials = lib.conv3x3_partials(h, width)
+    rows = gn_fused_tile_rows(h, width, cout, sm_count(x.device)) if x.dtype == torch.bfloat16 else 0
+    n_partials = lib.conv3x3_partials(_DTYPE_CODE[x.dtype], h, width, rows)
     sums = torch.empty((2, n_partials, cout), dtype=torch.float32, device=x.device) if emit_stats else None
     launch_kernel(lib.conv3x3_gn_fused, "conv3x3_gn_fused", x.device,
                   x.data_ptr(), wk.data_ptr(), bk.data_ptr(), a.data_ptr(), c.data_ptr(),
                   None if skip is None else skip.data_ptr(), y.data_ptr(),
                   None if sums is None else sums.data_ptr(),
-                  _DTYPE_CODE[x.dtype], h, width, cin, cout, n_partials)
+                  _DTYPE_CODE[x.dtype], h, width, cin, cout, n_partials, rows)
     gn_fused_launches.add()
     return y, sums
 
@@ -280,10 +313,39 @@ def _affine_from_group_sums(sums, count: int, per: int, gamma, beta, eps):
 
 
 def _affine_from_stacked_sums(sums, hw: int, groups: int, gamma, beta, eps):
-    """sums (2, n_partials, C) as ``_gn_fused`` returns them."""
+    """sums (2, n_partials, C) as ``_gn_fused`` returns them. The plain version
+    of ``fold_gn_sums``."""
     per = sums.shape[-1] // groups
     group_sums = sums.view(2, sums.shape[1], groups, per).sum(dim=(1, 3))
     return _affine_from_group_sums(group_sums, hw * per, per, gamma, beta, eps)
+
+
+def fold_gn_sums(sums, hw: int, groups: int, gamma, beta, eps: float = 1e-6):
+    """The next GroupNorm's per-channel (scale, shift) from the streamed sums
+    (2, n_partials, C) of ``_gn_fused``: group mean and var = E[x^2] - mean^2
+    (clamped at 0) over ``hw`` pixels x C / groups channels, scale = gamma *
+    rsqrt(var + eps), shift = beta - mean * scale, f32. On a CUDA tensor this
+    launches the fold kernel (one launch) or raises; the plain version
+    (``_affine_from_stacked_sums``, a dozen tensor ops) runs for CPU tensors."""
+    c = sums.shape[-1]
+    if sums.dim() != 3 or sums.shape[0] != 2 or c % groups or gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"sums {tuple(sums.shape)}, gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)} "
+                         f"and {groups} groups do not fit")
+    if not sums.is_cuda or plain_route_active():
+        return _affine_from_stacked_sums(sums, hw, groups, gamma, beta, eps)
+    if sums.dtype != torch.float32 or gamma.dtype != beta.dtype or gamma.dtype not in _DTYPE_CODE:
+        raise NotImplementedError(f"the fold kernel takes f32 sums and bf16/f32 gamma and beta, got "
+                                  f"{sums.dtype}, {gamma.dtype}, {beta.dtype}")
+    if gamma.device != sums.device or beta.device != sums.device:
+        raise ValueError("sums, gamma and beta must lie on one CUDA device")
+    sums, gamma, beta = sums.contiguous(), gamma.contiguous(), beta.contiguous()
+    scale = torch.empty(c, dtype=torch.float32, device=sums.device)
+    shift = torch.empty(c, dtype=torch.float32, device=sums.device)
+    launch_kernel(_library().conv3x3_fold_sums, "conv3x3_fold_sums", sums.device,
+                  sums.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                  _DTYPE_CODE[gamma.dtype], sums.shape[1], c, groups, float(hw * (c // groups)), float(eps))
+    fold_launches.add()
+    return scale, shift
 
 
 def gn_affine_from_channel_sums(ssum, ssq, hw: int, groups: int, gamma, beta, eps: float = 1e-6):
@@ -298,9 +360,10 @@ def fused_resblock(p, x, groups: int, eps: float = 1e-6):
     """A whole VAE resblock through the fused conv: GroupNorm 1's group sums
     by the GroupNorm stats kernel over the input (its plain version on the
     CPU; no f32 copy of x is made), conv1 with the folded GN+SiLU prologue
-    streaming GroupNorm 2's channel sums out, conv2 with the folded GN2
-    prologue and the skip add (``conv_shortcut`` is a 1x1 ``conv2d`` when
-    present). Inference only (the kernels have no backward).
+    streaming GroupNorm 2's channel sums out, folded into GN2's affine in one
+    launch (``fold_gn_sums``), conv2 with the folded GN2 prologue and the skip
+    add (``conv_shortcut`` is a 1x1 ``conv2d`` when present). Inference only
+    (the kernels have no backward).
 
     GroupNorm 2's statistics are E[x^2] - mean^2 over conv1's f32 accumulator,
     before the stored tensor is rounded."""
@@ -310,8 +373,7 @@ def fused_resblock(p, x, groups: int, eps: float = 1e-6):
     scale1, shift1 = _affine_from_group_sums(
         sums0, h * width * per, per, p["norm1"]["weight"], p["norm1"]["bias"], eps)
     h1, sums1 = _gn_fused(x, p["conv1"]["weight"], p["conv1"]["bias"], scale1, shift1, None, True)
-    scale2, shift2 = _affine_from_stacked_sums(
-        sums1, h * width, groups, p["norm2"]["weight"], p["norm2"]["bias"], eps)
+    scale2, shift2 = fold_gn_sums(sums1, h * width, groups, p["norm2"]["weight"], p["norm2"]["bias"], eps)
     skip = conv2d(p["conv_shortcut"], x, padding=0) if "conv_shortcut" in p else x
     return _gn_fused(h1, p["conv2"]["weight"], p["conv2"]["bias"], scale2, shift2, skip, False)[0]
 

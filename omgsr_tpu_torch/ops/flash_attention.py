@@ -16,11 +16,14 @@ a kernel built for Hopper: TMA loads through tensor maps over the caller's
 strides into a ring of shared-memory stages guarded by mbarriers, ``wgmma``
 for both products, a producer warpgroup and two consumer warpgroups of 64 q
 rows that take turns on the tensor cores. At D = 512 (the VAE mid block's
-single head) the bf16 kernel stages the q tile in shared memory and its
-eight warps split the score block and the output columns through
-``mma.sync``, exchanging P through shared memory. f32 inputs go to a kernel
-that multiplies with f32 FMAs and is exact. PERF.md holds their times beside
-the bound.
+single head) the bf16 kernel is built the same way on a 64-row q tile whose
+two consumer warpgroups each own half of O's 512 columns and compute the
+scores themselves (so P stays in registers), with one K and one V tile of 64
+kv rows in flight; where its q tiles leave SMs idle (``fwd_kv_splits``) the kv
+loop is split in chunks whose f32 partial O and lse a second kernel merges in
+chunk order (``flash_attention_merge``). f32 inputs go to a kernel that
+multiplies with f32 FMAs and is exact. PERF.md holds their times beside the
+bound.
 
 ``flash_attention_bwd`` replaces the Pallas TPU kernels ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` of the same file (reached through ``_backward``, the
@@ -81,18 +84,29 @@ _Q_TILE_US = {64: 1.2, 128: 2.5}  # one streamed q tile of a dK/dV block
 _SPLIT_US = 2.0  # the reduction kernel's launch
 _SPLIT_US_PER_MB = 0.5  # per MB of f32 partials (written, then read back by the reduction)
 
+# the bf16 forward at head dim 512: q and kv rows of a tile, and the cost
+# fwd_kv_splits weighs, read off the kernels' device time on an H100 SXM
+# (check_flash_fwd: about 2.8 us a kv tile at 16,384 and 65,536 tokens, the
+# merge about 22 us for 2 x 33.6 MB of partials at 4096)
+WIDE_Q_ROWS = 64
+WIDE_KV_ROWS = 64
+_WIDE_TILE_US = 2.8  # one kv tile of a block
+_MERGE_US = 3.0  # the merge kernel's launch
+_MERGE_US_PER_MB = 0.6  # per MB of f32 partials (written, then read back by the merge)
+
 launches = LaunchCounter("flash_attention_fwd")
+merge_launches = LaunchCounter("flash_attention_fwd_merge")
 dq_launches = LaunchCounter("flash_attention_bwd_dq")
 dkv_launches = LaunchCounter("flash_attention_bwd_dkv")
 
 
-def flash_attention_plain(q, k, v, scale: float | None = None, return_lse: bool = False):
+def flash_attention_plain(q, k, v, scale: float | None = None, return_lse: bool = False, out_dtype=None):
     """softmax(q k^T * scale) v by explicit matmul -> softmax(f32) -> matmul.
 
-    q (B, Sq, H, D), k/v (B, Skv, H, D) -> (B, Sq, H, D) in q's dtype, and
-    with ``return_lse`` the f32 log-sum-exp (B*H, Sq, 1). The same function
-    as the kernel, used for CPU tensors, by the tests, and as the comparison
-    on the card."""
+    q (B, Sq, H, D), k/v (B, Skv, H, D) -> (B, Sq, H, D) in q's dtype (or
+    ``out_dtype``), and with ``return_lse`` the f32 log-sum-exp (B*H, Sq, 1).
+    The same function as the kernel, used for CPU tensors, by the tests, and
+    as the comparison on the card."""
     b, sq, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -101,10 +115,61 @@ def flash_attention_plain(q, k, v, scale: float | None = None, return_lse: bool 
     vh = v.permute(0, 2, 1, 3).float()
     s = torch.matmul(qh * scale, kh.transpose(-1, -2))
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    out = torch.matmul(torch.exp(s - lse), vh).permute(0, 2, 1, 3).to(q.dtype)
+    out = torch.matmul(torch.exp(s - lse), vh).permute(0, 2, 1, 3).to(out_dtype or q.dtype)
     if return_lse:
         return out, lse.reshape(b * h, sq, 1)
     return out
+
+
+def flash_attention_split_plain(q, k, v, scale: float, splits: int):
+    """The bf16 D = 512 kernel's function with its kv loop split in ``splits``
+    chunks, in explicit tensor code: chunk z takes kv tiles z*n // G ..
+    (z+1)*n // G - 1 of the n = ceil(Skv / 64) and gives its own softmax
+    average of v, O_z (f32), and log-sum-exp lse_z. Returns (o_part (G, B*H,
+    Sq, D), lse_part (G, B*H, Sq)), both f32."""
+    b, sq, h, d = q.shape
+    n = -(-k.shape[1] // WIDE_KV_ROWS)
+    outs, lses = [], []
+    for z in range(splits):
+        lo, hi = z * n // splits * WIDE_KV_ROWS, (z + 1) * n // splits * WIDE_KV_ROWS
+        o, lse = flash_attention_plain(q, k[:, lo:hi], v[:, lo:hi], scale, return_lse=True, out_dtype=torch.float32)
+        outs.append(o.permute(0, 2, 1, 3).reshape(b * h, sq, d))
+        lses.append(lse.reshape(b * h, sq))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def flash_attention_merge_plain(o_part, lse_part, b: int, h: int, dtype=torch.bfloat16):
+    """The chunks of a split kv loop (``flash_attention_split_plain``'s) ->
+    (out (B, Sq, H, D) in ``dtype``, lse (B*H, Sq, 1) f32): lse = log sum_z
+    exp(lse_z), out = sum_z exp(lse_z - lse) O_z. The merge kernel's function
+    in tensor code."""
+    g, bh, sq, d = o_part.shape
+    lse = torch.logsumexp(lse_part, dim=0)
+    out = (torch.exp(lse_part - lse)[..., None] * o_part).sum(dim=0)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(dtype), lse.reshape(bh, sq, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_kv_splits(b: int, h: int, sq: int, skv: int, d: int, sms: int) -> int:
+    """Chunks of the kv loop of the bf16 forward at head dim 512 on a card of
+    ``sms`` SMs (1 at the other head dims: their kernel does not split).
+
+    The G that minimises the waves of G * ceil(Sq / 64) * B * H blocks (one
+    block an SM) times the longest chunk's kv tiles at ``_WIDE_TILE_US`` each,
+    plus for G > 1 the merge's launch and the f32 partials written and read
+    back. G runs up to one wave of blocks: 4096 tokens (64 q tiles) split in
+    2; 7396 (116 tiles) and more, which fill a wave or more unsplit, do not."""
+    if d != 512:
+        return 1
+    blocks = -(-sq // WIDE_Q_ROWS) * b * h
+    n = -(-skv // WIDE_KV_ROWS)
+    best, best_us = 1, -(-blocks // sms) * n * _WIDE_TILE_US
+    for g in range(2, min(n, sms // blocks) + 1):
+        partial_mb = 2 * g * b * h * sq * (d + 1) * 4 / 1e6
+        us = -(-g * blocks // sms) * -(-n // g) * _WIDE_TILE_US + _MERGE_US + _MERGE_US_PER_MB * partial_mb
+        if us < best_us:
+            best, best_us = g, us
+    return best
 
 
 def supports(head_dim: int, dtype: torch.dtype) -> bool:
@@ -112,13 +177,22 @@ def supports(head_dim: int, dtype: torch.dtype) -> bool:
     return head_dim in SUPPORTED_HEAD_DIMS and dtype in _DTYPE_CODE
 
 
-def _library():
-    fn = load_kernel_library("flash_attention_fwd").flash_attention_fwd
+def _fwd_library():
+    """(flash_attention_fwd, flash_attention_fwd_split, flash_attention_fwd_merge)
+    of the forward library, bound."""
+    lib = load_kernel_library("flash_attention_fwd")
+    fn, split, merge = lib.flash_attention_fwd, lib.flash_attention_fwd_split, lib.flash_attention_fwd_merge
     if not fn.argtypes:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i] + [ll] * 9 + [ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    return fn
+        vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i] + [ll] * 9 + [f, vp]
+        split.argtypes = [vp] * 5 + [i] * 5 + [ll] * 9 + [f, vp]
+        merge.argtypes = [vp] * 4 + [i] * 4 + [vp]
+        fn.restype = split.restype = merge.restype = ctypes.c_int
+    return fn, split, merge
+
+
+def _library():
+    return _fwd_library()[0]
 
 
 def _kernel_operand(x):
@@ -250,6 +324,10 @@ def _forward(q, k, v, scale):
     _check_kernel_operands(q, k, v)
     b, sq, h, d = q.shape
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
+    if q.dtype == torch.bfloat16:
+        splits = fwd_kv_splits(b, h, sq, k.shape[1], d, sm_count(q.device))
+        if splits > 1:
+            return _forward_split(q, k, v, scale, splits)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
     launch_kernel(
@@ -262,6 +340,48 @@ def _forward(q, k, v, scale):
         float(scale),
     )
     launches.add()
+    return out, lse
+
+
+def _forward_split(q, k, v, scale, splits):
+    """The bf16 D = 512 kernel with its kv loop in ``splits`` chunks on checked
+    operands, then the merge of the chunks -> (out, lse)."""
+    b, sq, h, d = q.shape
+    o_part = torch.empty((splits, b * h, sq, d), dtype=torch.float32, device=q.device)
+    lse_part = torch.empty((splits, b * h, sq), dtype=torch.float32, device=q.device)
+    launch_kernel(
+        _fwd_library()[1], "flash_attention_fwd", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
+        splits, b, h, sq, k.shape[1],
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        float(scale),
+    )
+    launches.add()
+    return flash_attention_merge(o_part, lse_part, b, h)
+
+
+def flash_attention_merge(o_part, lse_part, b: int, h: int):
+    """The chunks of a split kv loop, o_part (G, B*H, Sq, D) and lse_part (G,
+    B*H, Sq) f32 -> (out (B, Sq, H, D) bf16, lse (B*H, Sq, 1) f32), added in
+    chunk order. On CUDA tensors this launches the merge kernel (head dim 512)
+    or raises; the plain version runs only for CPU tensors."""
+    g, bh, sq, d = o_part.shape
+    if lse_part.shape != (g, bh, sq) or bh != b * h:
+        raise ValueError(f"o_part {tuple(o_part.shape)} and lse_part {tuple(lse_part.shape)} do not fit "
+                         f"batch {b} x heads {h}")
+    if not o_part.is_cuda or plain_route_active():
+        return flash_attention_merge_plain(o_part, lse_part, b, h)
+    if d != 512 or o_part.dtype != torch.float32 or lse_part.dtype != torch.float32:
+        raise NotImplementedError(f"the merge kernel takes f32 chunks at head dim 512, got {o_part.dtype} "
+                                  f"at {d}")
+    o_part, lse_part = o_part.contiguous(), lse_part.contiguous()
+    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=o_part.device)
+    lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=o_part.device)
+    launch_kernel(_fwd_library()[2], "flash_attention_fwd_merge", o_part.device,
+                  o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), g, b, h, sq)
+    merge_launches.add()
     return out, lse
 
 

@@ -10,7 +10,8 @@ spill report and fails if the kernels at head dims 64 and 128
 backward wrapper's dq, dk and dv against ``flash_attention_bwd_plain``: the
 error over the largest |plain| value within ``TOL`` (the forward tool's), the
 same bits from two runs, finite values, and the delta prologue against
-rowsum(dO * O). ``--quick`` runs the small shapes only (one head with one tile
+rowsum(dO * O), and the forward that made the saved output and log-sum-exp
+against ``flash_attention_plain``. ``--quick`` runs the small shapes only (one head with one tile
 each way, ragged ends, packed q/k/v with a permuted dO, a split dK/dV loop),
 untimed: the first run after a change to a kernel, kept short because a wrong
 barrier phase hangs (run it under ``timeout``). Without it the bf16 rows of
@@ -39,7 +40,6 @@ import argparse
 import contextlib
 import ctypes
 import io
-import re
 import subprocess
 import sys
 import time
@@ -54,8 +54,11 @@ from omgsr_tpu_torch.tools.check_flash_fwd import (
     PEAK_BF16_FLOPS,
     PEAK_BYTES_PER_S,
     TOL,
+    TOL_LSE,
     _build_other,
     _graph_ms,
+    flash_plain_in_chunks,
+    ptxas_report,
 )
 
 K2_SHAPES = [
@@ -118,25 +121,6 @@ def _inputs(shape, skv, packed, seed, dtype=torch.bfloat16):
                    _randn((b, skv, h, d), seed + 2, dtype))
         dout = _randn(shape, seed + 3, dtype)
     return q, k, v, dout
-
-
-def ptxas_report(text):
-    """{kernel: (registers, spill stores, spill loads)} from nvcc's -Xptxas -v
-    output, one entry per instance (mangled name)."""
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            out[name] = [None, None, None]
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name in out:
-            out[name][1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name in out:
-            out[name][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
 
 
 def _other_launchers(lib):
@@ -266,6 +250,13 @@ def main(argv=None):
         scale = d ** -0.5
         q, k, v, dout = _inputs(shape, skv, packed, 2000 + 10 * i, dtype)
         out, lse = FA.flash_attention(q, k, v, return_lse=True)
+        # the forward that made the saved output and lse, against its plain version
+        ref_out, ref_lse = flash_plain_in_chunks(q, k, v)
+        fwd_err = ((out.float() - ref_out.float()).abs().max() / ref_out.float().abs().max()).item()
+        fwd_lse = (lse - ref_lse).abs().max().item()
+        fwd_ok = fwd_err <= (TOL if dtype == bf16 else TOL_F32) and fwd_lse <= TOL_LSE
+        if not fwd_ok:
+            failed.append(f"forward q{list(shape)} kv{skv}")
         ref = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
         delta_ref = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, sq)
         ops = [FA._kernel_operand(t) for t in (q, k, v, out, dout)]
@@ -282,7 +273,8 @@ def main(argv=None):
             if not ok:
                 failed.append(f"{label} {tag}")
             print(f"{label} {tag}: err {scaled:.3g} of max |plain| (bound {tol:.3g}), delta err {err_delta:.3g}, "
-                  f"bit-identical twice and finite {same}: {'ok' if ok else 'FAILED'}", flush=True)
+                  f"bit-identical twice and finite {same}: {'ok' if ok else 'FAILED'}; this build's forward: err "
+                  f"{fwd_err:.3g}, lse err {fwd_lse:.3g}: {'ok' if fwd_ok else 'FAILED'}", flush=True)
         if not timed:
             continue
         work = b * h * sq * skv * d

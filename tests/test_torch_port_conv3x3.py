@@ -145,7 +145,8 @@ def jax_side():
 
 @pytest.fixture(autouse=True)
 def _no_launch_on_the_cpu():
-    counters = (TC.conv3x3_launches, TC.gn_fused_launches, TGN.stats_launches, TGN.apply_launches)
+    counters = (TC.conv3x3_launches, TC.gn_fused_launches, TC.fold_launches, TGN.stats_launches,
+                TGN.apply_launches)
     before = [c.count for c in counters]
     yield
     assert [c.count for c in counters] == before
@@ -219,6 +220,58 @@ def test_gn_affine_from_channel_sums_matches_jax(n, c, groups):
     out = TC.gn_affine_from_channel_sums(t(ssum), t(ssq), hw, groups, t(gamma), t(beta), 1e-6)
     assert_close(out[0], ref[0], AFFINE_TOL, "scale")
     assert_close(out[1], ref[1], AFFINE_TOL, "shift")
+
+
+@pytest.mark.parametrize("n,c,groups", [(1, 128, 32), (3, 256, 32), (5, 512, 32)])
+def test_fold_gn_sums_matches_jax(n, c, groups):
+    """The fold kernel's wrapper on the CPU (its plain version) takes the sums
+    as the fused conv streams them, (2, n_partials, C), and gives the JAX
+    package's affine; it counts no launch."""
+    rng = np.random.default_rng(6)
+    hw = 960
+    y = rng.standard_normal((n, hw // n, c)).astype(np.float32) * 2 + 0.5
+    ssum, ssq = y.sum(1), (y * y).sum(1)
+    gamma = (rng.standard_normal(c) * 0.2 + 1).astype(np.float32)
+    beta = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    ref = JC.gn_affine_from_channel_sums(jnp.asarray(ssum), jnp.asarray(ssq), hw, groups,
+                                         jnp.asarray(gamma), jnp.asarray(beta), 1e-6)
+    before = TC.fold_launches.count
+    out = TC.fold_gn_sums(torch.stack([t(ssum), t(ssq)]), hw, groups, t(gamma), t(beta), 1e-6)
+    assert TC.fold_launches.count == before
+    assert_close(out[0], ref[0], AFFINE_TOL, "scale")
+    assert_close(out[1], ref[1], AFFINE_TOL, "shift")
+
+
+H100_SMS = 132  # the SMs of an H100 SXM, which gn_fused_tile_rows' cost was fitted on
+
+
+@pytest.mark.parametrize("h,w,cout,rows", [
+    # the fused serving path's shapes: 4-row tiles where they fill the card, 2-row ones at the
+    # 64 x 64 mid blocks (16 tiles by 4 channel tiles unsplit) and at small ragged images
+    (512, 512, 128, 4), (512, 512, 256, 4), (256, 256, 256, 4), (128, 128, 512, 4),
+    (64, 64, 512, 2), (1024, 1024, 128, 4), (61, 45, 128, 2), (16, 16, 128, 2),
+])
+def test_gn_fused_tile_rows(h, w, cout, rows):
+    """The bf16 resblock kernel's tile height on an H100, and the blocks it
+    gives: no more waves than the other height would, weighted as the choice
+    weighs them."""
+    got = TC.gn_fused_tile_rows(h, w, cout, H100_SMS)
+    assert got == rows
+    other = 6 - got
+    blocks = lambda r: -(-h // r) * -(-w // TC.GN_TILE_COLS) * cout // 128  # noqa: E731
+    waves = lambda r: -(-blocks(r) // H100_SMS)  # noqa: E731
+    assert waves(got) * got * (1.0 if got == 4 else TC._TWO_ROW_COST) <= \
+        waves(other) * other * (1.0 if other == 4 else TC._TWO_ROW_COST)
+
+
+def test_gn_tile_width_matches_the_kernel_source():
+    """gn_fused_tile_rows counts pixel tiles with the kernel's own tile width
+    (GW in the CUDA source)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TC.__file__).parent.parent / "csrc" / "conv3x3.cu").read_text()
+    assert int(re.search(r"constexpr int GW = (\d+);", src).group(1)) == TC.GN_TILE_COLS
 
 
 @pytest.mark.parametrize("cin,cout", RESBLOCK_CASES)

@@ -159,8 +159,9 @@ def test_backward_kernels_hold_no_atomics_and_no_library_calls():
 def test_forward_kernels_hold_no_atomics_and_no_library_calls():
     """The forward kernels fix the order of every sum and compute their own
     products: no atomic operation and no library call in the forward source or
-    the Hopper header it includes; the bf16 kernel at head dims 64 and 128 is the
-    TMA + wgmma one, and the mma.sync kernel it replaced is gone."""
+    the Hopper header it includes; the bf16 kernels at head dims 64/128 and 512
+    are the TMA + wgmma ones (with the fixed-order merge of a split kv loop),
+    and the mma.sync kernels they replaced are gone."""
     csrc = ROOT / "omgsr_tpu_torch" / "csrc"
     fwd = "\n".join(l.split("//")[0] for l in (csrc / "flash_attention_fwd.cu").read_text().splitlines())
     sm90 = "\n".join(l.split("//")[0] for l in (csrc / "sm90.cuh").read_text().splitlines())
@@ -169,6 +170,12 @@ def test_forward_kernels_hold_no_atomics_and_no_library_calls():
             assert banned not in code.lower(), banned
     assert "flash_fwd_wgmma_kernel" in fwd and '#include "sm90.cuh"' in fwd
     assert "flash_fwd_mma_kernel" not in fwd and "launch_mma" not in fwd
+    for kernel in ("flash_fwd_wide_wgmma_kernel", "flash_fwd_merge_kernel"):
+        assert kernel in fwd, kernel
+    # the D = 512 kernel's mma.sync body (ldmatrix fragments, products from registers) is gone
+    for gone in ("flash_fwd_wide_kernel", "mma_bf16(", "ldmatrix", "stage_rows_bf16"):
+        assert gone not in fwd, gone
+    assert "wgmma_rs_m64n256k16_tb(" in fwd and "tma_load_4d(" in fwd
     assert "cuTensorMapEncodeTiled" in sm90 and "encode_bshd(" in fwd and "__grid_constant__ CUtensorMap" in fwd
     for instruction in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg"):
         assert instruction in sm90, instruction
@@ -176,13 +183,21 @@ def test_forward_kernels_hold_no_atomics_and_no_library_calls():
 
 def test_conv_kernels_hold_no_atomics_and_no_library_calls():
     """The 3x3-conv kernels write one row of channel sums per block and the
-    caller adds the rows: their source holds no atomic operation, and the
-    nine products are its own, not a library's."""
+    fold kernel adds the rows in a fixed order: their source holds no atomic
+    operation, and the nine products are its own, not a library's. The bf16
+    resblock half is the TMA + wgmma kernel; the mma.sync kernel serves the
+    plain conv only."""
     src = (ROOT / "omgsr_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
     code = "\n".join(l.split("//")[0] for l in src.splitlines())
     assert "conv3x3_mma_kernel" in code and "conv3x3_fma_kernel" in code and "mma_bf16(" in code
     for banned in ("atomic", "cublas", "cudnn", "cutlass"):
         assert banned not in code.lower(), banned
+    for kernel in ("conv3x3_gn_wgmma_kernel", "gn_fold_kernel"):
+        assert kernel in code, kernel
+    assert '#include "sm90.cuh"' in code and "__grid_constant__ CUtensorMap" in code
+    assert "wgmma_ss_m64n128k16(" in code and "tma_load_3d(" in code and "tma_store_3d(" in code
+    # the resblock half left the mma.sync kernel: it is no longer templated on FUSED
+    assert not re.search(r"conv3x3_mma_kernel<\w", code)
 
 
 @pytest.mark.parametrize("module", ["flash_attention", "fused_groupnorm", "conv3x3"])
@@ -223,6 +238,39 @@ def test_conv_wrappers_refuse_on_a_cuda_tensor_what_the_kernels_do_not_take(monk
             C3.conv3x3(x, w, meta(cout))
         with pytest.raises(err):
             C3.conv3x3_gn_fused(x, w, meta(cout), meta(cin, dtype=torch.float32), meta(cin, dtype=torch.float32))
+
+
+def test_fold_and_merge_wrappers_refuse_on_a_cuda_tensor_what_the_kernels_do_not_take(monkeypatch):
+    """The fold of the streamed sums and the merge of a split kv loop, driven
+    on meta tensors made to look like CUDA ones: a type or head dim their
+    kernels do not take raises; nothing is computed by the plain versions."""
+    from omgsr_tpu_torch.ops import conv3x3 as C3
+    from omgsr_tpu_torch.ops import flash_attention as FA
+
+    def called(*a, **k):
+        raise AssertionError("the plain version was taken")
+
+    monkeypatch.setattr(C3, "_affine_from_stacked_sums", called)
+    monkeypatch.setattr(FA, "flash_attention_merge_plain", called)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta").as_subclass(OnCard)
+
+    with pytest.raises(NotImplementedError):  # f16 gamma and beta
+        C3.fold_gn_sums(meta(2, 8, 128), 64, 32, meta(128, dtype=torch.float16), meta(128, dtype=torch.float16))
+    with pytest.raises(NotImplementedError):  # f64 sums
+        C3.fold_gn_sums(meta(2, 8, 128, dtype=torch.float64), 64, 32, meta(128), meta(128))
+    with pytest.raises(ValueError):  # a channel count no multiple of the groups
+        C3.fold_gn_sums(meta(2, 8, 120), 64, 32, meta(120), meta(120))
+    with pytest.raises(NotImplementedError):  # head dim 64: the kernel merges head dim 512 only
+        FA.flash_attention_merge(meta(2, 1, 100, 64), meta(2, 1, 100), 1, 1)
+    with pytest.raises(NotImplementedError):  # bf16 chunks
+        FA.flash_attention_merge(meta(2, 1, 100, 512, dtype=torch.bfloat16), meta(2, 1, 100), 1, 1)
+    with pytest.raises(ValueError):  # lse chunks of another shape
+        FA.flash_attention_merge(meta(2, 1, 100, 512), meta(3, 1, 100), 1, 1)
 
 
 def test_kernel_sources_ship_with_the_package():

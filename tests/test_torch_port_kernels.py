@@ -245,3 +245,88 @@ def test_plain_route_context_restores_itself():
     with route_kernels_to_plain():
         assert plain_route_active()
     assert not plain_route_active()
+
+
+H100_SMS = 132  # the SMs of an H100 SXM, which fwd_kv_splits' cost was fitted on
+
+
+def _kv_chunks(skv, splits):
+    """The [start, stop) kv rows of each chunk of the bf16 D = 512 forward's
+    split kv loop, cut as the kernel cuts them: chunk z takes kv tiles
+    z*n // splits .. (z+1)*n // splits - 1 of the n = ceil(Skv / 64)."""
+    n = -(-skv // TFA.WIDE_KV_ROWS)
+    return [(z * n // splits * TFA.WIDE_KV_ROWS, min(skv, (z + 1) * n // splits * TFA.WIDE_KV_ROWS))
+            for z in range(splits)]
+
+
+def test_wide_tile_sizes_match_the_kernel_source():
+    """fwd_kv_splits counts blocks and kv tiles with the D = 512 kernel's own
+    tile sizes (WQ and WKV in the CUDA source)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TFA.__file__).parent.parent / "csrc" / "flash_attention_fwd.cu").read_text()
+    assert int(re.search(r"constexpr int WQ = (\d+);", src).group(1)) == TFA.WIDE_Q_ROWS
+    assert int(re.search(r"constexpr int WKV = (\d+);", src).group(1)) == TFA.WIDE_KV_ROWS
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,split", [
+    # split: whether the kv loop must be split ("yes": q tiles that leave SMs idle, the VAE mid
+    # head at 512 px), must not be ("no": a wave or more of q tiles, the 1024- and 2048-px heads
+    # and the fast tiled decode's window; head dims 64 and 128, whose kernel does not split), or
+    # either (None)
+    (1, 1, 4096, 4096, 512, "yes"), (1, 1, 16384, 16384, 512, "no"), (1, 1, 65536, 65536, 512, "no"),
+    (1, 1, 7396, 7396, 512, "no"), (2, 2, 300, 300, 512, None), (1, 1, 200, 1000, 512, "yes"),
+    (1, 1, 64, 64, 512, "no"), (1, 1, 100, 77, 512, None), (1, 5, 4096, 77, 64, "no"),
+    (1, 24, 4608, 4608, 128, "no"),
+])
+def test_fwd_kv_splits_cover_kv_once_and_fill_the_card(b, h, sq, skv, d, split):
+    """The split of the bf16 D = 512 forward's kv loop on an H100: its chunks
+    are whole kv tiles (the last may be ragged) that cover Skv exactly once and
+    differ by at most one tile, and a split grid stays within one wave."""
+    splits = TFA.fwd_kv_splits(b, h, sq, skv, d, H100_SMS)
+    n_tiles = -(-skv // TFA.WIDE_KV_ROWS)
+    chunks = _kv_chunks(skv, splits)
+    assert 1 <= splits <= n_tiles
+    covered = np.zeros(skv, dtype=int)
+    for lo, hi in chunks:
+        assert lo < hi and lo % TFA.WIDE_KV_ROWS == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    sizes = [-(-(hi - lo) // TFA.WIDE_KV_ROWS) for lo, hi in chunks]
+    assert max(sizes) - min(sizes) <= 1
+    if splits > 1:
+        assert d == 512 and splits * -(-sq // TFA.WIDE_Q_ROWS) * b * h <= H100_SMS
+    if split is not None:
+        assert (splits > 1) == (split == "yes"), splits
+
+
+# the split kv loop and its merge against the unsplit function, f32: the same
+# products, the softmax normalised per chunk and the chunks weighted by
+# exp(lse_z - lse); only the order of the f32 sums differs
+SPLIT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("shape,skv,splits", [((1, 100, 1, 512), 300, 3), ((2, 70, 1, 512), 130, 2)],
+                         ids=["ragged3", "batch2"])
+def test_split_and_merge_matches_plain_and_pallas(shape, skv, splits):
+    """The plain model of the D = 512 forward with its kv loop split in chunks
+    (partial O and lse per chunk) and merged in chunk order, in f32, against
+    flash_attention_plain and against the Pallas kernel in interpret mode; the
+    merge wrapper on the CPU gives the same merge rounded to bf16."""
+    b, sq, h, d = shape
+    q, k, v = _qkv(shape, skv, 7)
+    o_part, lse_part = TFA.flash_attention_split_plain(t(q), t(k), t(v), d ** -0.5, splits)
+    assert o_part.shape == (splits, b * h, sq, d) and lse_part.shape == (splits, b * h, sq)
+    out, lse = TFA.flash_attention_merge_plain(o_part, lse_part, b, h, torch.float32)
+    # the merge wrapper on the CPU: its plain version (bf16 out, as the kernel's), no launch
+    before = TFA.merge_launches.count
+    wrapped, wrapped_lse = TFA.flash_attention_merge(o_part, lse_part, b, h)
+    assert TFA.merge_launches.count == before and wrapped.dtype == torch.bfloat16
+    assert torch.equal(wrapped, out.to(torch.bfloat16)) and torch.equal(wrapped_lse, lse)
+    ref, ref_lse = TFA.flash_attention_plain(t(q), t(k), t(v), return_lse=True)
+    assert_close(out, ref.numpy(), SPLIT_TOL, "merged vs unsplit plain")
+    assert_close(lse, ref_lse.numpy(), SPLIT_TOL, "merged lse vs unsplit plain")
+    pallas, pallas_lse = jax_once(lambda a, b_, c: JFA._forward(a, b_, c, None), *(jnp.asarray(a) for a in (q, k, v)))
+    assert_close(out, np.asarray(pallas), SPLIT_TOL, "merged vs pallas interpret")
+    assert_close(lse, np.asarray(pallas_lse).reshape(lse.shape), SPLIT_TOL, "merged lse vs pallas interpret")
