@@ -91,6 +91,7 @@ from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, rout
 from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
+from omgsr_tpu_torch.tools import check_group_norm as K3
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
 from omgsr_tpu_torch.training.trainer import draw_step_noise, grads_of
@@ -120,7 +121,7 @@ MAX_MEAN_STEPS = 6.0
 # per stage on identical inputs, ||kernel - plain|| / ||plain|| in bf16
 MAX_STAGE_REL_L2 = 0.05
 TOL_LSE = K1.TOL_LSE
-TOL_SUMS_REL = 1e-4
+TOL_SUMS_REL = K3.TOL_SUMS_REL
 # conv3x3: max |kernel - plain| over the largest |plain| value of the shape (as
 # for flash attention), TOL per dtype; its channel sums and the fold of them as
 # tools/check_conv3x3.py says (TOL_CONV_SUMS_REL, TOL_FOLD)
@@ -234,15 +235,7 @@ FLASH_SHAPES = [
 # the merge of a split kv loop (head dim 512): (B, Sq, H, D), Skv, chunks, on the paths?
 MERGE_SHAPES = [((1, 4096, 1, 512), 4096, 2, True), ((1, 300, 2, 512), 1000, 3, False)]
 
-GN_SHAPES = [
-    # (B, H, W, C), groups, dtype, on the serving path?
-    ((1, 512, 512, 128), 32, torch.bfloat16, True),
-    ((1, 64, 64, 320), 32, torch.bfloat16, True),
-    ((1, 8, 8, 2560), 32, torch.bfloat16, True),
-    ((1, 30, 10, 32), 32, torch.float32, False),
-    ((4, 64, 64, 320), 32, torch.bfloat16, True),  # tile batch of the 768x768 request
-    ((4, 8, 8, 2560), 32, torch.bfloat16, True),
-]
+GN_SHAPES = K3.GN_SHAPES  # (B, H, W, C), groups, dtype, on the serving path?
 
 
 flash_plain_in_chunks = K1.flash_plain_in_chunks
@@ -368,6 +361,7 @@ def check_group_norm(shape, groups, dtype, seed):
     ref_sums = GN.group_norm_stats_plain(x, groups)[:, 0]
     partial = GN.group_norm_stats(x, groups)
     torch.cuda.synchronize()
+    assert torch.equal(partial, GN.group_norm_stats(x, groups)), f"group_norm_stats {shape}: two runs differ"
     sums = partial.sum(dim=1)
     err_sums = ((sums - ref_sums).abs() / ref_sums.abs().clamp(min=1.0)).max().item()
     assert err_sums <= TOL_SUMS_REL, f"group_norm_stats {shape}: max rel err {err_sums}"
@@ -375,6 +369,8 @@ def check_group_norm(shape, groups, dtype, seed):
     for silu in (True, False):
         y = GN.group_norm_apply(x, partial, weight, bias, groups, eps, silu)
         torch.cuda.synchronize()
+        assert torch.equal(y, GN.group_norm_apply(x, partial, weight, bias, groups, eps, silu)), \
+            f"group_norm_apply {shape} silu={silu}: two runs differ"
         ref = GN.group_norm_silu_plain(x, weight, bias, groups, eps, silu)
         fused = GN.fused_group_norm_silu(x, weight, bias, groups, eps, silu)
         assert y.shape == shape and y.dtype == dtype and torch.isfinite(y.float()).all()
@@ -392,13 +388,16 @@ def check_group_norm(shape, groups, dtype, seed):
     t_apply = ((2 * nbytes + small + 2 * c * weight.element_size()) / PEAK_BYTES_PER_S,
                6 * x.numel() / f32_rate)
     label = f"x{list(shape)} G{groups} {str(dtype)[6:]}"
+    iters = 5 if x.numel() > 2 ** 28 else 20  # the 2K row's plain versions take tens of ms a call
     stats = {
         "shape": label,
         "max_abs_err": err_sums,
-        "ms": time_ms(lambda: GN.group_norm_stats(x, groups)),
-        "plain_ms": time_ms(lambda: GN.group_norm_stats_plain(x, groups)),
+        "bit_identical_twice": True,
+        "nchunks": partial.shape[1],
+        "ms": time_ms(lambda: GN.group_norm_stats(x, groups), iters),
+        "plain_ms": time_ms(lambda: GN.group_norm_stats_plain(x, groups), iters),
         "library_ms": time_ms(lambda: torch.var_mean(
-            x.reshape(b, hh * ww, groups, c // groups), dim=(1, 3), correction=0)),
+            x.reshape(b, hh * ww, groups, c // groups), dim=(1, 3), correction=0), iters),
         "bound_ms": max(t_stats) * 1e3,
         "bound_by": "bytes" if t_stats[0] >= t_stats[1] else "operations",
     }
@@ -407,10 +406,11 @@ def check_group_norm(shape, groups, dtype, seed):
         "max_abs_err": max(errs.values()),
         "max_abs_err_silu": errs[True],
         "max_abs_err_no_silu": errs[False],
-        "ms": time_ms(lambda: GN.group_norm_apply(x, partial, weight, bias, groups, eps, True)),
-        "plain_ms": time_ms(lambda: GN.group_norm_silu_plain(x, weight, bias, groups, eps, True)),
+        "bit_identical_twice": True,
+        "ms": time_ms(lambda: GN.group_norm_apply(x, partial, weight, bias, groups, eps, True), iters),
+        "plain_ms": time_ms(lambda: GN.group_norm_silu_plain(x, weight, bias, groups, eps, True), iters),
         # the library call computes statistics and apply together
-        "library_ms": time_ms(lambda: F.silu(F.group_norm(xc, groups, weight, bias, eps))),
+        "library_ms": time_ms(lambda: F.silu(F.group_norm(xc, groups, weight, bias, eps)), iters),
         "library_covers": "stats+apply",
         "bound_ms": max(t_apply) * 1e3,
         "bound_by": "bytes" if t_apply[0] >= t_apply[1] else "operations",
@@ -612,6 +612,7 @@ def check_conv(shape, dtype, seed):
     row4 = {
         "shape": label, "max_abs_err": max(k4["none"][0], k4["silu"][0]),
         "max_err_over_max_ref": max(k4["none"][1], k4["silu"][1]), "bit_identical_twice": True,
+        "tile_rows": C3.CONV_TILE_ROWS if dtype == torch.bfloat16 else None,
         "ms": time_ms(lambda: C3.conv3x3(x, w, b), iters),
         "ms_silu": time_ms(lambda: C3.conv3x3(x, w, b, "silu"), iters),
         "plain_ms": time_ms(lambda: C3.conv3x3_plain(x, w, b), iters),
@@ -699,7 +700,8 @@ def phase_kernels():
         for name, r, lst in (("group_norm_stats", s, gn_stats), ("group_norm_apply", a, gn_apply)):
             r["on_serving_path"] = on_path
             lst.append(r)
-            print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms, "
+            print(f"kernels: {name} {r['shape']}: err {r['max_abs_err']:.3g}, two runs bit-identical; "
+                  f"{r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
                   f"bound {r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
     bwd = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
@@ -1702,9 +1704,9 @@ KERNELS = [
     ("group_norm_apply", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
      "omgsr_tpu/ops/fused_groupnorm.py:58", ["gn_apply_kernel"]),
     ("conv3x3", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:30",
-     ["conv3x3_mma_kernel", "conv3x3_fma_kernel<false>"]),
+     ["conv3x3_wgmma_kernel<1, false>", "conv3x3_fma_kernel<false>"]),
     ("conv3x3_gn_fused", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:90",
-     ["conv3x3_gn_wgmma_kernel<2>", "conv3x3_gn_wgmma_kernel<1>", "conv3x3_fma_kernel<true>"]),
+     ["conv3x3_wgmma_kernel<2, true>", "conv3x3_wgmma_kernel<1, true>", "conv3x3_fma_kernel<true>"]),
     # the fold of K5's streamed sums into the next GroupNorm's affine (the JAX package's
     # gn_affine_from_channel_sums, tensor code that XLA fuses beside the Pallas call)
     ("conv3x3_fold_sums", "omgsr_tpu_torch/csrc/conv3x3.cu", "omgsr_tpu/ops/conv3x3.py:310",

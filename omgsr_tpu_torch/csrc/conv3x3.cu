@@ -32,12 +32,12 @@
 //
 // Bound on this card: operations (2 * 9 * C_in * C_out * H * W flops against
 // (C_in + C_out [+ C_out]) * H * W elements moved). The kernels:
-//   * conv3x3_gn_wgmma_kernel (bf16 resblock half): an implicit GEMM (M =
-//     output pixels, N = output channels, K = 9 * C_in) on wgmma, fed by TMA
-//     through a ring of shared-memory stages, described where it is defined.
-//   * conv3x3_mma_kernel (bf16 plain conv): tensor cores through
-//     mma.sync.m16n8k16 with f32 accumulators, both operands through ldmatrix
-//     from tiles staged through registers, described where it is defined.
+//   * conv3x3_wgmma_kernel<MT, FUSED> (bf16, both functions): an implicit
+//     GEMM (M = output pixels, N = output channels, K = 9 * C_in) on wgmma,
+//     fed by TMA through a ring of shared-memory stages, described where it
+//     is defined. FUSED = true is the resblock half (GroupNorm+SiLU prologue,
+//     bias, optional skip, optional sums), false the plain conv (bias,
+//     optional SiLU): the same body without the prologue, skip and sums.
 //   * conv3x3_fma_kernel (f32, both functions): plain f32 FMAs from shared
 //     memory. Exact for f32 inputs, far from the tensor-core rate. Templated
 //     on FUSED: false is the plain conv (bias, optional SiLU), true the
@@ -56,8 +56,8 @@ namespace {
 using namespace omgsr_mma;
 using namespace omgsr_sm90;
 
-constexpr int TH = 8;                    // output rows of a block
-constexpr int TW = 16;                   // output columns of a block: one m16 tile is one row
+constexpr int TH = 8;                    // output rows of an f32 block
+constexpr int TW = 16;                   // output columns of an f32 block
 constexpr int HALO_W = TW + 2;
 constexpr int HALO_PIX = (TH + 2) * HALO_W;  // 180
 constexpr int NT = 256;
@@ -75,128 +75,6 @@ __device__ __forceinline__ float silu_half(float hh) {
   float t;
   asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(hh));
   return fmaf(hh, t, hh);
-}
-
-// ----------------------------------------------------------------------------
-// bf16 plain conv: tensor cores through mma.sync.
-//
-// One block owns an output tile of 8 rows x 16 columns x BN = 128 output
-// channels. 8 warps: warp_m = warp / 2 owns two output rows (two m16 tiles of
-// 16 pixels), warp_n = warp % 2 owns 64 of the block's output channels (eight
-// n8 tiles), so a thread keeps 2 x 8 x 4 f32 accumulators. Per chunk of KC =
-// 32 input channels the block stages Xs[180 halo pixels][KC] and Ws[9
-// taps][BN][KC], both with rows padded to 40 elements (80 bytes), which makes
-// every ldmatrix phase hit 8 different 16-byte bank groups. For a tap (dy, dx)
-// the A fragment of an output row is ldmatrix over 16 neighbouring halo pixels
-// of row + dy starting at column dx; the B fragment is ldmatrix over 8 output
-// channels of that tap, one call for both k-steps of the chunk. Shared memory:
-// 14,400 + 92,160 = 106,560 bytes, two blocks per SM.
-// ----------------------------------------------------------------------------
-
-constexpr int BN = 128;
-constexpr int KC = 32;
-constexpr int LD = KC + 8;
-constexpr int MMA_SMEM = (HALO_PIX * LD + 9 * BN * LD) * 2;
-
-__global__ void __launch_bounds__(NT, 2) conv3x3_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
-    int Cout, int act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ws = Xs + HALO_PIX * LD;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int lrow = lane & 7;
-  const int lmat = lane >> 3;
-  const int warp_m = warp >> 1;
-  const int warp_n = warp & 1;
-  const int n0 = blockIdx.x * BN;
-  const int w0 = blockIdx.y * TW;
-  const int h0 = blockIdx.z * TH;
-  const int v = tid & 3;  // this thread's 8-channel vector of a staged row (KC / 8 = 4 per row)
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += KC) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int pix = tid >> 2; pix < HALO_PIX; pix += NT / 4) {
-      const int hr = pix / HALO_W;
-      const int gh = h0 + hr - 1;
-      const int gw = w0 + (pix - hr * HALO_W) - 1;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W)
-        raw = *reinterpret_cast<const uint4*>(x + ((long long)gh * W + gw) * Cin + c0 + v * 8);
-      *reinterpret_cast<uint4*>(Xs + pix * LD + v * 8) = raw;
-    }
-    for (int row = tid >> 2; row < 9 * BN; row += NT / 4) {
-      const int n = row / 9;
-      const int tap = row - n * 9;
-      *reinterpret_cast<uint4*>(Ws + (tap * BN + n) * LD + v * 8) = *reinterpret_cast<const uint4*>(
-          w + ((long long)(n0 + n) * 9 + tap) * Cin + c0 + v * 8);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-      // A: matrices (pixels 0..7, 8..15) x (k 0..7), then the same pixels x (k 8..15)
-      uint32_t af[2][2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int pix = (warp_m * 2 + mt + dy) * HALO_W + dx + (lmat & 1) * 8 + lrow;
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-          ldmatrix_x4(af[mt][ks], Xs + pix * LD + ks * 16 + (lmat >> 1) * 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // B: matrices (k 0..7, 8..15) of k-step 0, then of k-step 1
-        uint32_t bf[4];
-        ldmatrix_x4(bf, Ws + (tap * BN + warp_n * 64 + j * 8 + lrow) * LD + lmat * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][j], af[mt][0], bf[0], bf[1]);
-          mma_bf16(acc[mt][j], af[mt][1], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-
-  // epilogue: bias [SiLU] in f32, y rounded once
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int nl = warp_n * 64 + j * 8 + 2 * tig;
-    const float2 b2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + n0 + nl));
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gh = h0 + warp_m * 2 + mt;
-        const int gw = w0 + g + half * 8;
-        if (gh < H && gw < W) {
-          float v0 = acc[mt][j][half * 2] + b2.x;
-          float v1 = acc[mt][j][half * 2 + 1] + b2.y;
-          if (act) {
-            v0 = silu(v0);
-            v1 = silu(v1);
-          }
-          *reinterpret_cast<uint32_t*>(y + ((long long)gh * W + gw) * Cout + n0 + nl) = pack_bf16(v0, v1);
-        }
-      }
-    }
-  }
 }
 
 // ----------------------------------------------------------------------------
@@ -348,7 +226,8 @@ __global__ void __launch_bounds__(NT) conv3x3_fma_kernel(
 }
 
 // ----------------------------------------------------------------------------
-// bf16 resblock half on Hopper: conv3x3_gn_wgmma_kernel<MT>.
+// bf16 convs on Hopper: conv3x3_wgmma_kernel<MT, FUSED>, the resblock half
+// (FUSED = true) and the plain conv (FUSED = false) from one body.
 //
 // The conv is a GEMM with M = output pixels, N = output channels and K = 9 *
 // C_in, run as nine shifted products per chunk of GKC = 64 input channels.
@@ -379,6 +258,13 @@ __global__ void __launch_bounds__(NT) conv3x3_fma_kernel(
 //     soon as chunk k is handed on and chunk k - 1's slot is free (issued
 //     behind the weights they came late, and the products waited for the
 //     prologue).
+//   * The plain conv (FUSED = false) has no prologue: the consumers take each
+//     chunk of x as TMA wrote it (the full barrier), whose zero fill outside
+//     the image is the SAME padding; of the three prologue warps only the
+//     first thread works, issuing x's loads two chunks ahead as the slots
+//     come free. Its epilogue adds the bias and applies SiLU when asked
+//     (f32, y rounded once), without skip or sums, and the shared memory of
+//     the sums goes to the weight ring (5 slots at MT = 2, 8 at MT = 1).
 //   * The prologue warps wait for a chunk's x, apply silu(x * a + c) in f32 to
 //     every staged element of a pixel inside the image (once per element, not
 //     once per tap; three instructions an element, silu_half), round it to
@@ -418,15 +304,16 @@ constexpr int GNT = 384;         // three warpgroups
 constexpr int PRO_THREADS = 96;  // warps 1-3: the prologue
 constexpr int GBOX = GW * 128;   // a 64-pixel x 64-channel box of y or skip, one row
 
-template <int MT>
-struct GnSmem {
+template <int MT, bool FUSED>
+struct ConvSmem {
   static constexpr int TH = 2 * MT;
   static constexpr int HALO_PIX = (TH + 2) * GHW;
   static constexpr int X_BYTES = HALO_PIX * 128;
   static constexpr int X_SLOT = (X_BYTES + 1023) / 1024 * 1024;
   static constexpr int W_SLOT = GBN * 128;
   static constexpr int STAGE = MT * GBOX;  // a warpgroup's y / skip staging: MT rows x one 64-channel box
-  static constexpr int RED = GW_RED_WARPS * GBN * 2 * 4;  // the sums' reduction [8 warps][GBN][2] f32
+  // the sums' reduction [8 warps][GBN][2] f32; the plain conv has none
+  static constexpr int RED = FUSED ? GW_RED_WARPS * GBN * 2 * 4 : 0;
   static constexpr int W_STAGES = (232448 - 1024 - 2 * X_SLOT - 2 * STAGE - 2 * RED - 256) / W_SLOT;
   __host__ __device__ static constexpr int X(int s) { return s * X_SLOT; }
   __host__ __device__ static constexpr int W(int s) { return 2 * X_SLOT + s * W_SLOT; }
@@ -439,14 +326,14 @@ struct GnSmem {
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-template <int MT>
-__global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
+template <int MT, bool FUSED>
+__global__ void __launch_bounds__(GNT, 1) conv3x3_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
     const __grid_constant__ CUtensorMap tm_skip, const __grid_constant__ CUtensorMap tm_y,
     const __nv_bfloat16* __restrict__ bias, const float* __restrict__ gn_a,
     const float* __restrict__ gn_c, float* __restrict__ sums, int H, int W, int Cin, int Cout,
-    int has_skip) {
-  using L = GnSmem<MT>;
+    int has_skip, int act) {
+  using L = ConvSmem<MT, FUSED>;
   constexpr int WS = L::W_STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -508,10 +395,10 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
         }
       }
     } else if (tid >= 32) {
-      // ---- prologue: thread pt applies silu(x * a + c) to the 16-byte chunk lc
-      // (channels 8 lc .. 8 lc + 7 of the chunk) of staged pixels p = pt / 8 + 12 i.
-      // Its first thread also loads x: chunk k + 1 as soon as chunk k is handed on
-      // and the consumers are done with chunk k - 1, so a chunk's load and
+      // ---- prologue (resblock half): thread pt applies silu(x * a + c) to the 16-byte
+      // chunk lc (channels 8 lc .. 8 lc + 7 of the chunk) of staged pixels p = pt / 8 +
+      // 12 i. Its first thread also loads x: chunk k + 1 as soon as chunk k is handed
+      // on and the consumers are done with chunk k - 1, so a chunk's load and
       // prologue run under the products of the one before ----
       const int pt = tid - 32;
       const int lc = pt & 7;
@@ -524,49 +411,57 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
         mbar_arrive_expect_tx(x_full(xs), L::X_BYTES);
         tma_load_3d(base + L::X(xs), &tm_x, x_full(xs), (k % n_chunks) * GKC, w0 - 1, h0 - 1);
       };
-      if (pt == 0) {
-        prefetch_tensormap(&tm_x);
-        if (total > 0) load_x(0);
-      }
-      int gc = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        int w0, h0, n0;
-        tile_origin(tile, w0, h0, n0);
-        for (int c = 0; c < n_chunks; ++c, ++gc) {
-          const int xs = gc & 1;
-          float a8[8], c8[8];
-          {
-            const float4* pa = reinterpret_cast<const float4*>(gn_a + c * GKC + lc * 8);
-            const float4* pc = reinterpret_cast<const float4*>(gn_c + c * GKC + lc * 8);
-            const float4 a0 = __ldg(pa), a1 = __ldg(pa + 1), c0 = __ldg(pc), c1 = __ldg(pc + 1);
-            // halved: the prologue computes silu from h / 2 = x * a / 2 + c / 2
-            a8[0] = 0.5f * a0.x; a8[1] = 0.5f * a0.y; a8[2] = 0.5f * a0.z; a8[3] = 0.5f * a0.w;
-            a8[4] = 0.5f * a1.x; a8[5] = 0.5f * a1.y; a8[6] = 0.5f * a1.z; a8[7] = 0.5f * a1.w;
-            c8[0] = 0.5f * c0.x; c8[1] = 0.5f * c0.y; c8[2] = 0.5f * c0.z; c8[3] = 0.5f * c0.w;
-            c8[4] = 0.5f * c1.x; c8[5] = 0.5f * c1.y; c8[6] = 0.5f * c1.z; c8[7] = 0.5f * c1.w;
-          }
-          mbar_wait(x_full(xs), (gc >> 1) & 1);
-          const uint32_t xt = base + L::X(xs);
-#pragma unroll 2
-          for (int p = pt >> 3; p < L::HALO_PIX; p += PRO_THREADS / 8) {
-            const int hr = p / GHW;
-            const int gh = h0 - 1 + hr;
-            const int gw = w0 - 1 + (p - hr * GHW);
-            if (gh < 0 || gh >= H || gw < 0 || gw >= W) continue;  // the ring keeps TMA's zeros
-            const uint32_t addr = xt + p * 128 + ((lc ^ (p & 7)) << 4);
-            uint4 v = ld_shared_v4(addr);
-            uint32_t* r = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float2 f = unpack_bf16(r[i]);
-              r[i] = pack_bf16(silu_half(fmaf(f.x, a8[2 * i], c8[2 * i])),
-                               silu_half(fmaf(f.y, a8[2 * i + 1], c8[2 * i + 1])));
+      if constexpr (!FUSED) {
+        // the plain conv: no arithmetic, and one thread keeps x's loads two chunks ahead
+        if (pt == 0) {
+          prefetch_tensormap(&tm_x);
+          for (int k = 0; k < total; ++k) load_x(k);
+        }
+      } else {
+        if (pt == 0) {
+          prefetch_tensormap(&tm_x);
+          if (total > 0) load_x(0);
+        }
+        int gc = 0;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+          int w0, h0, n0;
+          tile_origin(tile, w0, h0, n0);
+          for (int c = 0; c < n_chunks; ++c, ++gc) {
+            const int xs = gc & 1;
+            float a8[8], c8[8];
+            {
+              const float4* pa = reinterpret_cast<const float4*>(gn_a + c * GKC + lc * 8);
+              const float4* pc = reinterpret_cast<const float4*>(gn_c + c * GKC + lc * 8);
+              const float4 a0 = __ldg(pa), a1 = __ldg(pa + 1), c0 = __ldg(pc), c1 = __ldg(pc + 1);
+              // halved: the prologue computes silu from h / 2 = x * a / 2 + c / 2
+              a8[0] = 0.5f * a0.x; a8[1] = 0.5f * a0.y; a8[2] = 0.5f * a0.z; a8[3] = 0.5f * a0.w;
+              a8[4] = 0.5f * a1.x; a8[5] = 0.5f * a1.y; a8[6] = 0.5f * a1.z; a8[7] = 0.5f * a1.w;
+              c8[0] = 0.5f * c0.x; c8[1] = 0.5f * c0.y; c8[2] = 0.5f * c0.z; c8[3] = 0.5f * c0.w;
+              c8[4] = 0.5f * c1.x; c8[5] = 0.5f * c1.y; c8[6] = 0.5f * c1.z; c8[7] = 0.5f * c1.w;
             }
-            st_shared_v4(addr, v);
+            mbar_wait(x_full(xs), (gc >> 1) & 1);
+            const uint32_t xt = base + L::X(xs);
+#pragma unroll 2
+            for (int p = pt >> 3; p < L::HALO_PIX; p += PRO_THREADS / 8) {
+              const int hr = p / GHW;
+              const int gh = h0 - 1 + hr;
+              const int gw = w0 - 1 + (p - hr * GHW);
+              if (gh < 0 || gh >= H || gw < 0 || gw >= W) continue;  // the ring keeps TMA's zeros
+              const uint32_t addr = xt + p * 128 + ((lc ^ (p & 7)) << 4);
+              uint4 v = ld_shared_v4(addr);
+              uint32_t* r = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float2 f = unpack_bf16(r[i]);
+                r[i] = pack_bf16(silu_half(fmaf(f.x, a8[2 * i], c8[2 * i])),
+                                 silu_half(fmaf(f.y, a8[2 * i + 1], c8[2 * i + 1])));
+              }
+              st_shared_v4(addr, v);
+            }
+            fence_proxy_async();  // the tensor cores read what these threads wrote
+            mbar_arrive(x_ready(xs));
+            if (pt == 0 && gc + 1 < total) load_x(gc + 1);
           }
-          fence_proxy_async();  // the tensor cores read what these threads wrote
-          mbar_arrive(x_ready(xs));
-          if (pt == 0 && gc + 1 < total) load_x(gc + 1);
         }
       }
     }
@@ -579,7 +474,7 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
     const int g = lane >> 2;
     const int tig = lane & 3;
     const uint32_t stage = base + L::ST(cw);  // [MT rows][64 px][128 B], one 64-channel box
-    const bool emit = sums != nullptr;
+    const bool emit = FUSED && sums != nullptr;
     int gc = 0, gs = 0, local = 0;  // chunks, steps and tiles of this block so far
 
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++local) {
@@ -596,7 +491,8 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
         const int tap = t - 9 * c;
         const int xs = (gc + c) & 1;
         const int s = gs % WS;
-        if (tap == 0) mbar_wait(x_ready(xs), ((gc + c) >> 1) & 1);
+        // the resblock half waits for the prologue's writes, the plain conv for TMA's
+        if (tap == 0) mbar_wait(FUSED ? x_ready(xs) : x_full(xs), ((gc + c) >> 1) & 1);
         mbar_wait(w_full(s), (gs / WS) & 1);
         const int dy = tap / 3;
         const int dx = tap - 3 * dy;
@@ -641,7 +537,7 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
       for (int cb = 0; cb < 2; ++cb) {
         if ((tid & 127) == 0) bulk_wait_group_read0();  // the staging's last store has read it
         named_barrier_sync(2 + cw, 128);
-        if (has_skip) {
+        if (FUSED && has_skip) {
           if ((tid & 127) == 0) {
             mbar_arrive_expect_tx(skip_full(cw), L::STAGE);
             tma_load_3d(stage, &tm_skip, skip_full(cw), n0 + 64 * cb, w0, row0);
@@ -662,12 +558,16 @@ __global__ void __launch_bounds__(GNT, 1) conv3x3_gn_wgmma_kernel(
               const uint32_t addr = stage + (mt * GW + px) * 128 + ((jj ^ (px & 7)) << 4) + tig * 4;
               float v0 = acc[mt][4 * j + 2 * half] + b2.x;
               float v1 = acc[mt][4 * j + 2 * half + 1] + b2.y;
-              if (has_skip) {
+              if (FUSED && has_skip) {
                 const float2 sk = unpack_bf16(ld_shared_u32(addr));
                 v0 += sk.x;
                 v1 += sk.y;
               }
-              if (row0 + mt < H && w0 + px < W) {
+              if (!FUSED && act) {
+                v0 = silu(v0);
+                v1 = silu(v1);
+              }
+              if (FUSED && row0 + mt < H && w0 + px < W) {
                 s0 += v0;
                 s1 += v1;
                 q0 += v0 * v0;
@@ -773,13 +673,13 @@ __global__ void __launch_bounds__(FOLD_NT) gn_fold_kernel(
 
 // ---- host side ----
 
-template <int MT>
-int launch_gn_wgmma(const void* x, const void* w, const void* bias, const float* gn_a,
-                    const float* gn_c, const void* skip, void* y, float* sums, int H, int W,
-                    int Cin, int Cout, cudaStream_t stream) {
-  using L = GnSmem<MT>;
+template <int MT, bool FUSED>
+int launch_wgmma(const void* x, const void* w, const void* bias, const float* gn_a, const float* gn_c,
+                 const void* skip, void* y, float* sums, int act, int H, int W, int Cin, int Cout,
+                 cudaStream_t stream) {
+  using L = ConvSmem<MT, FUSED>;
   static SmemOptIn opt;
-  int code = opt_in_smem(opt, (const void*)conv3x3_gn_wgmma_kernel<MT>, L::BYTES);
+  int code = opt_in_smem(opt, (const void*)conv3x3_wgmma_kernel<MT, FUSED>, L::BYTES);
   if (code != 0) return code;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -796,38 +696,37 @@ int launch_gn_wgmma(const void* x, const void* w, const void* bias, const float*
   if (tiles > 2147483647LL) return -1;
   // persistent: one block an SM, each walking its tiles blockIdx.x, + gridDim.x, ...
   const int grid = (int)(tiles < sms ? tiles : sms);
-  conv3x3_gn_wgmma_kernel<MT><<<grid, GNT, L::BYTES, stream>>>(
-      tx, tw, ts, ty, (const __nv_bfloat16*)bias, gn_a, gn_c, sums, H, W, Cin, Cout, skip != nullptr);
+  conv3x3_wgmma_kernel<MT, FUSED><<<grid, GNT, L::BYTES, stream>>>(
+      tx, tw, ts, ty, (const __nv_bfloat16*)bias, gn_a, gn_c, sums, H, W, Cin, Cout, skip != nullptr, act);
   return (int)cudaGetLastError();
 }
 
-// The FMA kernels (f32) and the mma.sync plain conv (bf16): 8 x 16 pixel tiles.
+// The bf16 kernels at a tile height of `tile_rows` (4 or 2) output rows.
 template <bool FUSED>
-int launch(const void* x, const void* w, const void* bias, const float* gn_a, const float* gn_c,
-           const void* skip, void* y, float* sums, int dtype, int act, int H, int W, int Cin,
-           int Cout, cudaStream_t stream) {
+int launch_wgmma_rows(int tile_rows, const void* x, const void* w, const void* bias, const float* gn_a,
+                      const float* gn_c, const void* skip, void* y, float* sums, int act, int H, int W,
+                      int Cin, int Cout, cudaStream_t stream) {
+  if (tile_rows == 4)
+    return launch_wgmma<2, FUSED>(x, w, bias, gn_a, gn_c, skip, y, sums, act, H, W, Cin, Cout, stream);
+  if (tile_rows == 2)
+    return launch_wgmma<1, FUSED>(x, w, bias, gn_a, gn_c, skip, y, sums, act, H, W, Cin, Cout, stream);
+  return -1;
+}
+
+// The FMA kernels (f32): 8 x 16 pixel tiles.
+template <bool FUSED>
+int launch_fma(const float* x, const float* w, const float* bias, const float* gn_a, const float* gn_c,
+               const float* skip, float* y, float* sums, int act, int H, int W, int Cin, int Cout,
+               cudaStream_t stream) {
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles_h = (H + TH - 1) / TH;
   if (tiles_w > 65535 || tiles_h > 65535) return -1;
-  if (dtype == 0 && !FUSED) {
-    cudaError_t err = cudaFuncSetAttribute(conv3x3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           MMA_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(Cout / BN, tiles_w, tiles_h);
-    conv3x3_mma_kernel<<<grid, NT, MMA_SMEM, stream>>>((const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-                                                       (const __nv_bfloat16*)bias, (__nv_bfloat16*)y, H,
-                                                       W, Cin, Cout, act);
-  } else if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(conv3x3_fma_kernel<FUSED>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, FMA_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(Cout / FBN, tiles_w, tiles_h);
-    conv3x3_fma_kernel<FUSED><<<grid, NT, FMA_SMEM, stream>>>(
-        (const float*)x, (const float*)w, (const float*)bias, gn_a, gn_c, (const float*)skip,
-        (float*)y, sums, H, W, Cin, Cout, act);
-  } else {
-    return -1;
-  }
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_fma_kernel<FUSED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, FMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Cout / FBN, tiles_w, tiles_h);
+  conv3x3_fma_kernel<FUSED><<<grid, NT, FMA_SMEM, stream>>>(x, w, bias, gn_a, gn_c, skip, y, sums, H, W,
+                                                            Cin, Cout, act);
   return (int)cudaGetLastError();
 }
 
@@ -840,14 +739,16 @@ bool shape_ok(int H, int W, int Cin, int Cout) {
 // Common to the conv entries. x (H, W, Cin) and y (H, W, Cout) contiguous NHWC
 // at batch 1; w (Cout, 3, 3, Cin) contiguous (OIHW in channels_last memory);
 // bias (Cout,); x, w, bias, skip and y share one type: dtype 0 = bf16
-// (tensor-core kernels), 1 = f32 (FMA kernels). Cin and Cout are multiples of
-// 128 and every pointer is 16-byte aligned. Returns 0, a CUDA error code, -1
-// for an unsupported dtype or shape, -2 for a sums buffer of the wrong size.
+// (conv3x3_wgmma_kernel), 1 = f32 (conv3x3_fma_kernel). Cin and Cout are
+// multiples of 128 and every pointer is 16-byte aligned. tile_rows: the bf16
+// kernel's tile height, 4 or 2 (the wrapper's choice by the card's SM count,
+// ops/conv3x3.gn_fused_tile_rows); the f32 kernel's tiles are 8 x 16
+// (tile_rows unused). Returns 0, a CUDA error code, -1 for an unsupported
+// dtype, shape or tile height, -2 for a sums buffer of the wrong size.
 
 // The number of rows of the sums buffer of conv3x3_gn_fused for an (H, W)
-// image: one per pixel tile. The bf16 kernel's tiles are `tile_rows` (2 or 4)
-// rows x 64 columns, the f32 kernel's 8 x 16 (`tile_rows` unused); -1 for a
-// dtype or tile height the kernels do not take.
+// image: one per pixel tile (the bf16 kernel's tiles are `tile_rows` rows x
+// 64 columns); -1 for a dtype or tile height the kernels do not take.
 extern "C" int conv3x3_partials(int dtype, int H, int W, int tile_rows) {
   if (dtype == 0 && (tile_rows == 2 || tile_rows == 4)) return ((W + GW - 1) / GW) * ((H + tile_rows - 1) / tile_rows);
   if (dtype == 1) return ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
@@ -856,18 +757,23 @@ extern "C" int conv3x3_partials(int dtype, int H, int W, int tile_rows) {
 
 // y = conv3x3(x) + bias, then SiLU when act == 1.
 extern "C" int conv3x3(const void* x, const void* w, const void* bias, void* y, int dtype, int act,
-                       int H, int W, int Cin, int Cout, void* stream) {
+                       int H, int W, int Cin, int Cout, int tile_rows, void* stream) {
   if (!shape_ok(H, W, Cin, Cout)) return -1;
-  return launch<false>(x, w, bias, nullptr, nullptr, nullptr, y, nullptr, dtype, act, H, W, Cin,
-                       Cout, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_wgmma_rows<false>(tile_rows, x, w, bias, nullptr, nullptr, nullptr, y, nullptr, act, H, W,
+                                    Cin, Cout, s);
+  if (dtype == 1)
+    return launch_fma<false>((const float*)x, (const float*)w, (const float*)bias, nullptr, nullptr, nullptr,
+                             (float*)y, nullptr, act, H, W, Cin, Cout, s);
+  return -1;
 }
 
 // y = conv3x3(silu(x * gn_a + gn_c)) + bias [+ skip]; gn_a, gn_c (Cin,) f32;
 // skip (H, W, Cout) or null; sums null or (2, n_partials, Cout) f32 with
 // n_partials = conv3x3_partials(dtype, H, W, tile_rows): row p of sums[0] /
 // sums[1] receives the per-channel sum / sum of squares of tile p's f32
-// outputs. tile_rows: the bf16 kernel's tile height, 2 or 4 (the wrapper's
-// choice by the card's SM count, ops/conv3x3.gn_fused_tile_rows).
+// outputs.
 extern "C" int conv3x3_gn_fused(const void* x, const void* w, const void* bias, const float* gn_a,
                                 const float* gn_c, const void* skip, void* y, float* sums,
                                 int dtype, int H, int W, int Cin, int Cout, int n_partials,
@@ -877,11 +783,10 @@ extern "C" int conv3x3_gn_fused(const void* x, const void* w, const void* bias, 
   if (parts < 0) return -1;
   if (sums != nullptr && n_partials != parts) return -2;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    return tile_rows == 4 ? launch_gn_wgmma<2>(x, w, bias, gn_a, gn_c, skip, y, sums, H, W, Cin, Cout, s)
-                          : launch_gn_wgmma<1>(x, w, bias, gn_a, gn_c, skip, y, sums, H, W, Cin, Cout, s);
-  }
-  return launch<true>(x, w, bias, gn_a, gn_c, skip, y, sums, dtype, 0, H, W, Cin, Cout, s);
+  if (dtype == 0)
+    return launch_wgmma_rows<true>(tile_rows, x, w, bias, gn_a, gn_c, skip, y, sums, 0, H, W, Cin, Cout, s);
+  return launch_fma<true>((const float*)x, (const float*)w, (const float*)bias, gn_a, gn_c, (const float*)skip,
+                          (float*)y, sums, 0, H, W, Cin, Cout, s);
 }
 
 // The next GroupNorm's (scale, shift), (C,) f32 each, from sums (2, n_partials,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels (the
 // forward's flash_fwd_wgmma_kernel and flash_fwd_wide_wgmma_kernel, the
-// backward's dQ and dK/dV kernels) and the fused 3x3 conv
-// (conv3x3_gn_wgmma_kernel): one PTX instruction each, inline, plus the host
+// backward's dQ and dK/dV kernels) and the 3x3 convs
+// (conv3x3_wgmma_kernel): one PTX instruction each, inline, plus the host
 // side they share. Included by the .cu files of this directory.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count, and a

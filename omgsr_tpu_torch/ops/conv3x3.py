@@ -12,16 +12,18 @@ GroupNorm+SiLU prologue. The per-channel sums of the output are written as
 one row per pixel tile and folded in a fixed order: no atomics, the same bits
 on every run.
 
-``csrc/conv3x3.cu`` holds the kernels. The bf16 resblock half (K5) is an
-implicit GEMM on Hopper's ``wgmma``: a block owns ``gn_fused_tile_rows`` (4 or
-2) output rows x 64 columns x 128 output channels; TMA brings each chunk of 64
-input channels of the tile's halo and the weights of each (chunk, tap)
-through a ring of shared-memory stages; a warp group applies the prologue
-once per staged element while two others run the nine shifted products. The
-bf16 plain conv (K4) gives a block an 8 x 16 pixel tile and runs the taps as
-``mma.sync`` products; in f32 both functions run as FMAs. ``fold_gn_sums``
-turns the streamed sums into the next GroupNorm's (scale, shift) in one
-launch.
+``csrc/conv3x3.cu`` holds the kernels. In bf16 both functions (the plain
+conv K4 and the resblock half K5) are one implicit GEMM on Hopper's
+``wgmma``: a persistent block owns 4 or 2 output rows (K5:
+``gn_fused_tile_rows``; K4: ``CONV_TILE_ROWS``) x 64 columns x 128 output
+channels at a time; TMA brings each chunk of 64 input channels of the
+tile's halo (its zero fill outside the image is the padding) and the
+weights of each (chunk, tap) through a ring of shared-memory stages, and two
+warp groups run the nine shifted products. In K5 a third warp group applies
+the prologue once per staged element; K4 has none and adds the bias and the
+optional SiLU in its epilogue. In f32 both functions run as FMAs.
+``fold_gn_sums`` turns the streamed sums into the next GroupNorm's (scale,
+shift) in one launch.
 
 Activations are NHWC at batch 1. Weights are the port's conv leaves, OIHW in
 channels_last memory, which is the layout the kernels read (for each tap the
@@ -53,11 +55,17 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _ACTS = {"none": 0, "silu": 1}
 CHANNEL_MULTIPLE = 128
 
-# the bf16 resblock kernel's pixel tile: rows x 64 columns; a 2-row tile costs this
+# the bf16 conv kernel's pixel tile: rows x 64 columns; a 2-row tile costs this
 # much more per row than a 4-row one (its weight tiles serve half the pixels;
-# check_conv3x3's sweep on an H100 SXM: 1.28-1.32 where both fill whole waves)
+# check_conv3x3's sweep of the resblock half on an H100 SXM: 1.28-1.32 where
+# both fill whole waves)
 GN_TILE_COLS = 64
 _TWO_ROW_COST = 1.3
+# the bf16 plain conv's tile height at every shape: without a prologue, the 2-row
+# tile's finer waves and deeper weight ring (8 slots against 5) beat the 4-row tile's
+# reuse of each weight tile (check_conv3x3's sweep on an H100 SXM: 0.95-1.01 of the
+# 4-row time at every bf16 row of CONV_SHAPES)
+CONV_TILE_ROWS = 2
 
 conv3x3_launches = LaunchCounter("conv3x3")
 gn_fused_launches = LaunchCounter("conv3x3_gn_fused")
@@ -126,7 +134,7 @@ def _library():
     lib = load_kernel_library("conv3x3")
     if not lib.conv3x3.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3.argtypes = [vp] * 4 + [i] * 6 + [vp]
+        lib.conv3x3.argtypes = [vp] * 4 + [i] * 7 + [vp]
         lib.conv3x3.restype = i
         lib.conv3x3_gn_fused.argtypes = [vp] * 8 + [i] * 7 + [vp]
         lib.conv3x3_gn_fused.restype = i
@@ -138,7 +146,7 @@ def _library():
 
 
 def gn_fused_tile_rows(h: int, w: int, cout: int, sms: int) -> int:
-    """Output rows of a block of the bf16 resblock kernel on a card of ``sms``
+    """Output rows of a tile of the bf16 resblock kernel on a card of ``sms``
     SMs: 4 (two 64-pixel rows for each consumer warp group, so each staged
     weight tile serves 256 pixels) or 2 (one row each, twice the blocks). The
     one whose waves of blocks (one block an SM) times the rows a block owns,
@@ -236,9 +244,10 @@ def conv3x3(x, w, b, act: str = "none"):
     cout = w.shape[0]
     wk, bk = kernel_weight(w, x.dtype), _kernel_input(b.to(x.dtype))
     y = torch.empty((1, h, width, cout), dtype=x.dtype, device=x.device)
+    rows = CONV_TILE_ROWS if x.dtype == torch.bfloat16 else 0
     launch_kernel(_library().conv3x3, "conv3x3", x.device,
                   x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-                  _DTYPE_CODE[x.dtype], _ACTS[act], h, width, cin, cout)
+                  _DTYPE_CODE[x.dtype], _ACTS[act], h, width, cin, cout, rows)
     conv3x3_launches.add()
     return y
 

@@ -6,12 +6,15 @@ Source note. ``fused_group_norm_silu`` replaces the Pallas TPU kernels
 (reached through ``fused_group_norm_silu``). On an H100 the function is
 bound by device-memory bytes: x is read twice and y written once, with no
 matrix product. The kernels (``csrc/group_norm_silu.cu``) move 16-byte
-vectors, give every thread one vector of neighbouring channels for the whole
-kernel (its group, and in the apply kernel its folded scale and shift, stay
-in registers), cut the rows into enough chunks to fill the card, and replace
-the TPU's sequential accumulating grid axis by per-chunk partial sums that
-the apply kernel adds in a fixed order. There are no atomics: the same input
-gives the same bits on every run.
+vectors and give every thread one vector of neighbouring channels for the
+whole kernel (its group, and in the apply kernel its folded scale and shift,
+stay in registers). The stats kernel cuts the rows into enough chunks to fill
+the card and replaces the TPU's sequential accumulating grid axis by
+per-chunk partial sums. The apply kernel is a persistent grid of one wave
+(``apply_row_blocks``): each block folds the partials with coalesced reads in
+a fixed order while its first rows of x are already in flight, then streams
+its rows with eight 16-byte loads a thread in flight. There are no atomics:
+the same input gives the same bits on every run.
 
 Under autograd ``fused_group_norm_silu`` is a ``torch.autograd.Function``: the
 forward launches the two kernels as above and saves x, the partial sums and
@@ -28,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from omgsr_tpu_torch.ops.flash_attention import sm_count
 from omgsr_tpu_torch.ops.kernel_build import (
     LaunchCounter,
     launch_kernel,
@@ -72,14 +76,16 @@ def group_norm_stats_plain(x, groups: int = 32):
 
 def _library():
     lib = load_kernel_library("group_norm_silu")
-    stats, apply = lib.group_norm_stats, lib.group_norm_apply
+    stats, apply, per_sm = lib.group_norm_stats, lib.group_norm_apply, lib.group_norm_apply_blocks_per_sm
     if not stats.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
         stats.argtypes = [vp, vp] + [i] * 10 + [vp]
         stats.restype = ctypes.c_int
         apply.argtypes = [vp, vp, vp, vp, i, vp] + [i] * 10 + [ctypes.c_float, i, vp]
         apply.restype = ctypes.c_int
-    return stats, apply
+        per_sm.argtypes = [i] * 5
+        per_sm.restype = ctypes.c_int
+    return stats, apply, per_sm
 
 
 def _widest_vec(n: int, elem_size: int) -> int:
@@ -94,6 +100,10 @@ def _cut_rows(rows: int, batch: int, max_blocks: int, min_rows: int):
     return chunk_rows, -(-rows // chunk_rows)
 
 
+# the apply kernel's block: at most this many threads (csrc: APPLY_MAX_THREADS)
+APPLY_THREADS = 512
+
+
 class Geometry(NamedTuple):
     chunk_rows: int
     nchunks: int
@@ -103,7 +113,6 @@ class Geometry(NamedTuple):
     apply_vec: int
     cvb: int
     apply_k: int
-    apply_chunk_rows: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -118,8 +127,9 @@ def launch_geometry(rows: int, channels: int, groups: int, elem_size: int, batch
     about 256 over the batch: every apply block adds up all partials of its
     batch element, so their number is kept small.
     apply: ``apply_vec`` is the widest vector dividing the channel count, a
-    block covers ``cvb`` of them by ``apply_k`` rows (about 256 threads) over
-    ``apply_chunk_rows`` rows, at most about 512 blocks over the batch."""
+    block covers ``cvb`` of them (all, or 256 at a time beyond 512) by
+    ``apply_k`` rows, about ``APPLY_THREADS`` threads; how many blocks walk the
+    rows is ``apply_row_blocks``'s choice on the card."""
     cg = channels // groups
     min_rows = -(-16384 // (channels * elem_size))
     chunk_rows, nchunks = _cut_rows(rows, batch, 256, min_rows)
@@ -129,12 +139,37 @@ def launch_geometry(rows: int, channels: int, groups: int, elem_size: int, batch
         raise NotImplementedError(f"group width {cg} is beyond the stats kernel's block")
     gpb = min(groups, max(1, 1024 // w)) if groups * w > 1024 else groups
     k = max(1, min(1024 // (gpb * w), chunk_rows))
+    if 2 * groups > APPLY_THREADS:
+        raise NotImplementedError(f"{groups} groups are beyond the apply kernel's fold ({APPLY_THREADS // 2})")
     apply_vec = _widest_vec(channels, elem_size)
     cv = channels // apply_vec
-    cvb = cv if cv <= 512 else 256
-    apply_chunk_rows, _ = _cut_rows(rows, batch, 512, min_rows)
-    return Geometry(chunk_rows, nchunks, vec, gpb, k, apply_vec, cvb, max(1, 256 // cvb),
-                    apply_chunk_rows)
+    cvb = cv if cv <= APPLY_THREADS else APPLY_THREADS // 2
+    apply_k = max(1, min(APPLY_THREADS // cvb, rows))
+    return Geometry(chunk_rows, nchunks, vec, gpb, k, apply_vec, cvb, apply_k)
+
+
+def apply_row_blocks(rows: int, k: int, batch: int, segments: int, sms: int, per_sm: int) -> int:
+    """Blocks of the apply kernel along the rows of one (batch element, column
+    segment): one wave of the card (``sms`` SMs, ``per_sm`` blocks of this
+    geometry at once on each) over the ``batch * segments`` pairs, and no
+    more blocks than there are ``k``-row steps. A block folds the partials
+    once and walks rows ``k`` at a time, ``row_blocks * k`` apart."""
+    return max(1, min(-(-rows // k), sms * per_sm // (batch * segments)))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_row_blocks(device_index: int, dtype_code: int, geo: Geometry, rows: int, channels: int,
+                       groups: int, batch: int) -> int:
+    """``apply_row_blocks`` on one device: its SM count, and the apply blocks
+    of this geometry one SM holds at once (the CUDA occupancy of the kernel
+    instance). Cached: the launch path of a UNet stage waits for the host."""
+    device = torch.device("cuda", device_index)
+    with torch.cuda.device(device):
+        per_sm = _library()[2](dtype_code, geo.apply_vec, geo.cvb, geo.apply_k, groups)
+    if per_sm < 1:
+        raise RuntimeError(f"group_norm_apply: occupancy query failed with code {per_sm}")
+    segments = -(-(channels // geo.apply_vec) // geo.cvb)
+    return apply_row_blocks(rows, geo.apply_k, batch, segments, sm_count(device), per_sm)
 
 
 def _check(x, groups):
@@ -181,7 +216,7 @@ def _check_affine(x, weight, bias):
 def _launch_stats(x, geo, groups):
     b, h, w, c = x.shape
     partial = torch.empty((b, geo.nchunks, groups, 2), dtype=torch.float32, device=x.device)
-    stats, _ = _library()
+    stats, _, _ = _library()
     launch_kernel(stats, "group_norm_stats", x.device,
                   x.data_ptr(), partial.data_ptr(), _DTYPE_CODE[x.dtype], geo.vec, b, h * w, c,
                   groups, geo.chunk_rows, geo.nchunks, geo.gpb, geo.k)
@@ -193,13 +228,14 @@ def _launch_apply(x, partial, weight, bias, geo, groups, eps, apply_silu):
     b, h, w, c = x.shape
     weight, bias = weight.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
-    _, apply = _library()
+    _, apply, _ = _library()
+    code = _DTYPE_CODE[x.dtype]
+    row_blocks = _device_row_blocks(x.device.index, code, geo, h * w, c, groups, b)
     launch_kernel(apply, "group_norm_apply", x.device,
                   x.data_ptr(), partial.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   int(weight.dtype == torch.float32 and x.dtype != torch.float32),
-                  y.data_ptr(), _DTYPE_CODE[x.dtype], geo.apply_vec, b, h * w, c, groups,
-                  geo.nchunks, geo.apply_chunk_rows, geo.cvb, geo.apply_k,
-                  float(eps), int(apply_silu))
+                  y.data_ptr(), code, geo.apply_vec, b, h * w, c, groups,
+                  geo.nchunks, geo.cvb, geo.apply_k, row_blocks, float(eps), int(apply_silu))
     apply_launches.add()
     return y
 

@@ -4,28 +4,29 @@
 
 Builds ``csrc/conv3x3.cu`` (and ``csrc/group_norm_silu.cu``, which the fused
 resblock also runs), prints the compiler's register, shared-memory and spill
-report and fails if the bf16 resblock kernel (``conv3x3_gn_wgmma_kernel``) or
-the fold kernel (``gn_fold_kernel``) spills. Then it holds ``conv3x3_gn_fused``
-(with skip and sums, and without either), ``conv3x3`` (with and without SiLU)
-and ``fold_gn_sums`` against their plain versions: y within ``TOL`` of the
-largest |plain| value (two bf16 steps; 2e-4 in f32), the channel sums within
-``TOL_CONV_SUMS_REL``, the folded (scale, shift) within ``TOL_FOLD``, the same
-bits from two runs, finite values. The bf16 resblock kernel is checked at both
-of its tile heights.
+report and fails if the bf16 conv kernel (``conv3x3_wgmma_kernel``, both the
+resblock half and the plain conv) or the fold kernel (``gn_fold_kernel``)
+spills. Then it holds ``conv3x3_gn_fused`` (with skip and sums, and without
+either), ``conv3x3`` (with and without SiLU) and ``fold_gn_sums`` against
+their plain versions: y within ``TOL`` of the largest |plain| value (two bf16
+steps; 2e-4 in f32), the channel sums within ``TOL_CONV_SUMS_REL``, the folded
+(scale, shift) within ``TOL_FOLD``, the same bits from two runs, finite
+values. Both bf16 functions are checked at both tile heights.
 
 ``--quick`` runs small and ragged shapes only, untimed: the first run after a
 change to a kernel, kept short because a wrong barrier phase hangs (run it
 under ``timeout``). Without it the rows of ``CONV_SHAPES`` (which
 ``chip_smoke.py``'s kernels phase takes from here) are checked too, each
 kernel is timed by CUDA-graph replay (device time, TFLOP/s and share of the
-card's bound), the resblock kernel at both tile heights beside the one
-``gn_fused_tile_rows`` takes, and one ``fused_resblock`` is held against and
+card's bound), both bf16 functions at both tile heights beside the one
+the wrapper takes (``gn_fused_tile_rows``, ``CONV_TILE_ROWS``), and one ``fused_resblock`` is held against and
 timed beside the unfused resnet.
 
 ``--against DIR`` also builds ``DIR/omgsr_tpu_torch/csrc/conv3x3.cu`` (a
-checkout of another commit: this interface, or the one before the bf16
-resblock kernel took a tile height), holds it to the same checks and times
-both builds' kernels in turns (other, this, this, other) at every timed row.
+checkout of another commit: this interface, or one before the bf16 kernels
+took a tile height, read from that source's C entries), holds it to the same
+checks and times both builds' kernels in turns (other, this, this, other) at
+every timed row.
 ``--prologue-cost`` also builds this source with the resblock kernel's
 prologue arithmetic taken out (the staged x is rounded back unchanged: wrong
 results, timed only) and times it in turns with the real kernel at the bf16
@@ -90,7 +91,7 @@ TOL_CONV_SUMS_REL = 1e-3
 # sums are added in another order (f32), and var = E[x^2] - mean^2 passes on
 # their relative error, amplified by E[x^2] / var
 TOL_FOLD = 1e-4
-KERNELS_NEW = ("conv3x3_gn_wgmma_kernel", "gn_fold_kernel")
+KERNELS_NEW = ("conv3x3_wgmma_kernel", "gn_fold_kernel")
 # the prologue's arithmetic in csrc/conv3x3.cu, and what --prologue-cost puts in its place
 # (the staged x rounded back unchanged)
 PROLOGUE_MATH = re.compile(r"r\[i\] = pack_bf16\(silu_half\(fmaf\(f\.x, a8\[2 \* i\], c8\[2 \* i\]\)\),\s*"
@@ -128,27 +129,44 @@ def scaled_error(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def takes_tile_rows(source: str, entry: str) -> bool:
+    """Whether the C entry ``entry`` of a conv3x3.cu source takes a tile height."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", source)
+    return m is not None and "tile_rows" in m.group(1)
+
+
 class Build:
     """The conv entries of one build of csrc/conv3x3.cu, called with the
-    operands of ops.conv3x3's wrappers (and none of their launch counts)."""
+    operands of ops.conv3x3's wrappers (and none of their launch counts);
+    ``source`` is the text it was built from, which says which entries take
+    a tile height."""
 
-    def __init__(self, lib, tile_rows_arg: bool):
+    def __init__(self, lib, source: str):
         vp, i = ctypes.c_void_p, ctypes.c_int
         self.lib = lib
-        self.tile_rows_arg = tile_rows_arg
-        lib.conv3x3.argtypes = [vp] * 4 + [i] * 6 + [vp]
+        self.tile_rows_arg = takes_tile_rows(source, "conv3x3_gn_fused")
+        self.conv_rows_arg = takes_tile_rows(source, "conv3x3")
+        lib.conv3x3.argtypes = [vp] * 4 + [i] * (7 if self.conv_rows_arg else 6) + [vp]
         lib.conv3x3.restype = i
-        lib.conv3x3_gn_fused.argtypes = [vp] * 8 + [i] * (7 if tile_rows_arg else 6) + [vp]
+        lib.conv3x3_gn_fused.argtypes = [vp] * 8 + [i] * (7 if self.tile_rows_arg else 6) + [vp]
         lib.conv3x3_gn_fused.restype = i
-        lib.conv3x3_partials.argtypes = [i] * (4 if tile_rows_arg else 2)
+        lib.conv3x3_partials.argtypes = [i] * (4 if self.tile_rows_arg else 2)
         lib.conv3x3_partials.restype = i
 
-    def conv(self, x, w, b, act="none"):
+    def conv(self, x, w, b, act="none", rows=None):
+        """y as ``conv3x3`` returns it; ``rows`` the tile height (default: the
+        wrapper's choice)."""
         _, h, width, cin = x.shape
         cout = w.shape[0]
         y = torch.empty((1, h, width, cout), dtype=x.dtype, device=x.device)
+        extra = ()
+        if self.conv_rows_arg:
+            if rows is None:
+                rows = C3.CONV_TILE_ROWS if x.dtype == torch.bfloat16 else 0
+            extra = (rows,)
         launch_kernel(self.lib.conv3x3, "conv3x3", x.device, x.data_ptr(), w.data_ptr(),
-                      b.data_ptr(), y.data_ptr(), C3._DTYPE_CODE[x.dtype], C3._ACTS[act], h, width, cin, cout)
+                      b.data_ptr(), y.data_ptr(), C3._DTYPE_CODE[x.dtype], C3._ACTS[act], h, width, cin, cout,
+                      *extra)
         return y
 
     def gn_fused(self, x, w, b, a, c, skip=None, emit_stats=True, rows=None):
@@ -197,13 +215,13 @@ def check_k5(build, x, w, b, a, c, skip, rows=None):
                f"over {partials} partials (bound {TOL_CONV_SUMS_REL}), bit-identical twice and finite {same}"
 
 
-def check_k4(build, x, w, b):
+def check_k4(build, x, w, b, rows=None):
     tol = TOL if x.dtype == torch.bfloat16 else TOL_F32
     worst, same = 0.0, True
     for act in ("none", "silu"):
-        y = build.conv(x, w, b, act)
+        y = build.conv(x, w, b, act, rows)
         torch.cuda.synchronize()
-        same = same and torch.equal(y, build.conv(x, w, b, act)) and bool(torch.isfinite(y.float()).all())
+        same = same and torch.equal(y, build.conv(x, w, b, act, rows)) and bool(torch.isfinite(y.float()).all())
         worst = max(worst, scaled_error(y, C3.conv3x3_plain(x, w, b, act)))
     return worst <= tol and same, f"err {worst:.3g} of max |plain| (bound {tol:.3g}), bit-identical twice {same}"
 
@@ -268,7 +286,7 @@ def main(argv=None):
         if not ok:
             failed.append(f"spills in {name}")
 
-    builds = {"this": Build(C3._library(), True)}
+    builds = {"this": Build(C3._library(), (CSRC_DIR / "conv3x3.cu").read_text())}
     if other is not None:
         path, proc = other
         out, _ = proc.communicate()
@@ -276,7 +294,7 @@ def main(argv=None):
         if proc.returncode != 0:
             raise SystemExit("build against failed")
         lib = ctypes.CDLL(str(path))
-        builds["against"] = Build(lib, hasattr(lib, "conv3x3_fold_sums"))
+        builds["against"] = Build(lib, (args.against / "omgsr_tpu_torch/csrc/conv3x3.cu").read_text())
         print(f"builds done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -302,15 +320,14 @@ def main(argv=None):
             if tag == "this" and bf16:
                 variants = [4, 2]  # both tile heights of the resblock kernel
             for rows_ in variants:
-                ok, msg = check_k5(build, x, w, b, a, c, skip, rows_)
-                name = f"{label} conv3x3_gn_fused {tag}" + (f" tile rows {rows_}" if rows_ else "")
-                print(f"{name}: {msg}: {'ok' if ok else 'FAILED'}", flush=True)
-                if not ok:
-                    failed.append(name)
-            ok, msg = check_k4(build, x, w, b)
-            print(f"{label} conv3x3 {tag}: {msg}: {'ok' if ok else 'FAILED'}", flush=True)
-            if not ok:
-                failed.append(f"{label} conv3x3 {tag}")
+                suffix = f" tile rows {rows_}" if rows_ else ""
+                for name, check in ((f"{label} conv3x3_gn_fused {tag}{suffix}",
+                                     lambda: check_k5(build, x, w, b, a, c, skip, rows_)),
+                                    (f"{label} conv3x3 {tag}{suffix}", lambda: check_k4(build, x, w, b, rows_))):
+                    ok, msg = check()
+                    print(f"{name}: {msg}: {'ok' if ok else 'FAILED'}", flush=True)
+                    if not ok:
+                        failed.append(name)
         if not timed:
             continue
         flops = 2.0 * 9 * cin * cout * h * w_
@@ -333,10 +350,12 @@ def main(argv=None):
             parts.append(f"{k} {ms:.4f} ms ({' / '.join(f'{v:.4f}' for v in t)}; {flops / ms / 1e9:.1f} TFLOP/s, "
                          f"{bound / ms:.3f} of bound)")
         if bf16:
-            sweep = {r: _graph_ms(lambda r=r: builds["this"].gn_fused(x, w, b, a, c, skip, True, r), per_graph)
-                     for r in (4, 2)}
-            parts.append("K5 this by tile rows " + ", ".join(f"{r}: {t:.4f}" for r, t in sweep.items())
-                         + f" (gn_fused_tile_rows takes {chosen})")
+            this = builds["this"]
+            for k, run, takes in (("K5", lambda r: this.gn_fused(x, w, b, a, c, skip, True, r), chosen),
+                                  ("K4", lambda r: this.conv(x, w, b, "none", r), C3.CONV_TILE_ROWS)):
+                sweep = {r: _graph_ms(lambda r=r: run(r), per_graph) for r in (4, 2)}
+                parts.append(f"{k} this by tile rows " + ", ".join(f"{r}: {t:.4f}" for r, t in sweep.items())
+                             + f" (the wrapper takes {takes})")
         xa = x.float() * a + c
         xa = (xa * torch.sigmoid(xa)).to(dtype).permute(0, 3, 1, 2)
         parts.append(f"F.conv2d on the activated input {_graph_ms(lambda: F.conv2d(xa, w, b, padding=1), per_graph):.4f}")
@@ -367,7 +386,7 @@ def prologue_cost(this):
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise SystemExit(f"--prologue-cost: build failed\n{out.stdout}{out.stderr}")
-    without = Build(ctypes.CDLL(str(lib)), True)
+    without = Build(ctypes.CDLL(str(lib)), src)
     for i, (shape, dtype, _) in enumerate(CONV_SHAPES):
         if dtype != torch.bfloat16:
             continue

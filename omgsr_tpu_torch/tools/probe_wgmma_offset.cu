@@ -1,5 +1,5 @@
-// Probe of two facts the bf16 resblock kernel (csrc/conv3x3.cu,
-// conv3x3_gn_wgmma_kernel) rests on, on one NVIDIA Hopper GPU:
+// Probe of two facts the bf16 conv kernels (csrc/conv3x3.cu,
+// conv3x3_wgmma_kernel) rest on, on one NVIDIA Hopper GPU:
 //   (1) a 3-D TMA box of 64 channels x 66 pixels x 6 rows, 128-byte swizzled,
 //       loaded at negative coordinates, lands pixel p = row * 66 + column at
 //       p * 128 bytes with its 16-byte chunks permuted by p % 8, and pixels

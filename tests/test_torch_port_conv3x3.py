@@ -274,6 +274,29 @@ def test_gn_tile_width_matches_the_kernel_source():
     assert int(re.search(r"constexpr int GW = (\d+);", src).group(1)) == TC.GN_TILE_COLS
 
 
+def test_conv_tile_matches_the_kernel_source():
+    """The bf16 plain conv (K4) runs the resblock half's wgmma kernel without the
+    prologue: its tile is GW = 64 columns by GBN = 128 output channels (the
+    wrappers' channel multiple) over chunks of GKC = 64 input channels, and
+    the tile heights the wrappers pick (K4's CONV_TILE_ROWS; 4 or 2 from
+    gn_fused_tile_rows) are the two the C entries launch (MT = 2, 1 rows a
+    consumer warpgroup)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TC.__file__).parent.parent / "csrc" / "conv3x3.cu").read_text()
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in ("GW", "GBN", "GKC")}
+    assert const["GW"] == TC.GN_TILE_COLS and const["GBN"] == TC.CHANNEL_MULTIPLE
+    assert TC.CHANNEL_MULTIPLE % const["GKC"] == 0
+    rows = src[src.index("int launch_wgmma_rows("):src.index("// The FMA kernels (f32)")]
+    assert "tile_rows == 4)\n    return launch_wgmma<2, FUSED>" in rows
+    assert "tile_rows == 2)\n    return launch_wgmma<1, FUSED>" in rows
+    conv = src[src.index('extern "C" int conv3x3('):src.index('extern "C" int conv3x3_gn_fused(')]
+    assert "launch_wgmma_rows<false>(tile_rows," in conv
+    assert {TC.gn_fused_tile_rows(h, w, 128, 132) for h, w in ((64, 64), (512, 512), (7, 9))} == {2, 4}
+    assert TC.CONV_TILE_ROWS in (2, 4)
+
+
 @pytest.mark.parametrize("cin,cout", RESBLOCK_CASES)
 def test_fused_resblock_matches_jax_and_the_unfused_resnet(jax_side, cin, cout):
     p, x = _resblock_params(cin, cout, 30 + cout)

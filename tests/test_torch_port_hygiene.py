@@ -184,20 +184,39 @@ def test_forward_kernels_hold_no_atomics_and_no_library_calls():
 def test_conv_kernels_hold_no_atomics_and_no_library_calls():
     """The 3x3-conv kernels write one row of channel sums per block and the
     fold kernel adds the rows in a fixed order: their source holds no atomic
-    operation, and the nine products are its own, not a library's. The bf16
-    resblock half is the TMA + wgmma kernel; the mma.sync kernel serves the
-    plain conv only."""
+    operation, and the nine products are its own, not a library's. Both bf16
+    functions (the resblock half and the plain conv) are the one TMA + wgmma
+    kernel, and the mma.sync plain conv is gone; f32 stays on FMAs."""
     src = (ROOT / "omgsr_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
     code = "\n".join(l.split("//")[0] for l in src.splitlines())
-    assert "conv3x3_mma_kernel" in code and "conv3x3_fma_kernel" in code and "mma_bf16(" in code
+    assert "conv3x3_fma_kernel" in code
     for banned in ("atomic", "cublas", "cudnn", "cutlass"):
         assert banned not in code.lower(), banned
-    for kernel in ("conv3x3_gn_wgmma_kernel", "gn_fold_kernel"):
+    for kernel in ("conv3x3_wgmma_kernel", "gn_fold_kernel"):
         assert kernel in code, kernel
     assert '#include "sm90.cuh"' in code and "__grid_constant__ CUtensorMap" in code
     assert "wgmma_ss_m64n128k16(" in code and "tma_load_3d(" in code and "tma_store_3d(" in code
-    # the resblock half left the mma.sync kernel: it is no longer templated on FUSED
-    assert not re.search(r"conv3x3_mma_kernel<\w", code)
+    # the mma.sync plain conv (ldmatrix fragments, products from registers) is gone
+    for gone in ("conv3x3_mma_kernel", "mma_bf16(", "ldmatrix", "MMA_SMEM"):
+        assert gone not in code, gone
+    # the plain conv's bf16 entry launches the wgmma kernel without the prologue, at both tile heights
+    entry = code[code.index('extern "C" int conv3x3('):code.index('extern "C" int conv3x3_gn_fused(')]
+    assert "launch_wgmma_rows<false>(tile_rows," in entry
+    assert "launch_wgmma<2, FUSED>" in code and "launch_wgmma<1, FUSED>" in code
+
+
+def test_group_norm_kernels_hold_no_atomics_and_no_library_calls():
+    """The GroupNorm kernels fix the order of every sum: the stats kernel writes
+    one partial per chunk and the apply kernel folds them in a fixed order, so
+    their source holds no atomic operation and calls no library."""
+    src = (ROOT / "omgsr_tpu_torch" / "csrc" / "group_norm_silu.cu").read_text()
+    code = "\n".join(l.split("//")[0] for l in src.splitlines())
+    for banned in ("atomic", "cublas", "cudnn", "cutlass", "cub::", "thrust", "#include <c10", "#include <torch"):
+        assert banned not in code.lower(), banned
+    for kernel in ("gn_stats_kernel", "gn_apply_kernel"):
+        assert kernel in code, kernel
+    # the apply kernel's fold reads partials coalesced, not one lane per chunk
+    assert "for (int c = lane; c < nchunks; c += 32)" not in code
 
 
 @pytest.mark.parametrize("module", ["flash_attention", "fused_groupnorm", "conv3x3"])

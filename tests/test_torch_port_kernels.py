@@ -223,11 +223,60 @@ def test_group_norm_launch_geometry(rows, c, groups, elem, batch):
     assert c % geo.apply_vec == 0 and geo.apply_vec * elem <= 16
     chunk_rows, nchunks = geo.chunk_rows, geo.nchunks
     assert nchunks == -(-rows // chunk_rows) and (nchunks - 1) * chunk_rows < rows
-    assert nchunks * batch <= 512 and geo.apply_chunk_rows >= 1
+    assert nchunks * batch <= 512
     # stats block: whole groups by k rows, within the 1024-thread block
     assert 1 <= geo.gpb <= groups and 1 <= geo.gpb * (cg // geo.vec) * geo.k <= 1024
-    # apply block: cvb vectors by k rows, rounded up to whole warps
-    assert 1 <= -(-geo.cvb * geo.apply_k // 32) * 32 <= 1024
+    # apply block: cvb vectors by k rows (no more rows than the image has), rounded up to
+    # whole warps and to a thread for each (group, sum) of the fold, within APPLY_THREADS
+    assert 1 <= geo.apply_k <= rows and 1 <= geo.cvb <= c // geo.apply_vec
+    threads = max(-(-geo.cvb * geo.apply_k // 32), -(-2 * groups // 32)) * 32
+    assert threads <= TGN.APPLY_THREADS
+
+
+@pytest.mark.parametrize("apply_silu", [True, False])
+def test_group_norm_apply_plain_on_many_chunks_matches_pallas(apply_silu):
+    """K3b's plain route on partial sums cut into many uneven chunks of rows (as
+    the stats kernel writes them on the card; the apply kernel folds them all)
+    against the Pallas kernel in interpret mode."""
+    shape, groups = (2, 12, 10, 32), 8
+    x, scale, bias = _gn_inputs(shape, 9)
+    pallas = jax_once(
+        lambda x, s, b: j_fused_group_norm_silu(x, s, b, groups, 1e-6, apply_silu=apply_silu, block_rows=64),
+        *(jnp.asarray(a) for a in (x, scale, bias)))
+    rows = t(x).reshape(2, 120, 1, 32)
+    cuts = [0, 1, 9, 10, 33, 64, 65, 100, 120]  # eight chunks of 1 to 35 rows
+    partial = torch.cat([TGN.group_norm_stats_plain(rows[:, a:b], groups) for a, b in zip(cuts, cuts[1:])], dim=1)
+    assert partial.shape == (2, 8, groups, 2)
+    before = TGN.apply_launches.count
+    y = TGN.group_norm_apply(t(x), partial, t(scale), t(bias), groups, 1e-6, apply_silu)
+    assert TGN.apply_launches.count == before
+    assert_close(y, pallas, GN_TOL, "apply on 8 chunks vs pallas interpret")
+
+
+@pytest.mark.parametrize("rows,k,batch,segments,per_sm,want", [
+    (512 * 512, 32, 1, 1, 2, 264),  # one wave of 132 SMs x 2 blocks
+    (64 * 64, 12, 4, 1, 2, 66),  # the batch shares the wave
+    (64, 1, 1, 1, 2, 64),  # no more blocks than k-row steps
+    (15, 2, 1, 3, 1, 8),
+    (7, 7, 2, 1, 4, 1),
+    (100, 4, 300, 1, 1, 1),  # more (batch, segment) pairs than a wave: one block each
+])
+def test_apply_row_blocks_fill_one_wave(rows, k, batch, segments, per_sm, want):
+    got = TGN.apply_row_blocks(rows, k, batch, segments, 132, per_sm)
+    assert got == want
+    assert 1 <= got <= -(-rows // k)
+    assert got * batch * segments <= max(132 * per_sm, batch * segments)
+
+
+def test_apply_block_matches_the_kernel_source():
+    """The wrapper's cap on an apply block is the kernel's own (APPLY_MAX_THREADS
+    in the CUDA source, also its launch bound)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TGN.__file__).parent.parent / "csrc" / "group_norm_silu.cu").read_text()
+    assert int(re.search(r"constexpr int APPLY_MAX_THREADS = (\d+);", src).group(1)) == TGN.APPLY_THREADS
+    assert "__launch_bounds__(APPLY_MAX_THREADS) gn_apply_kernel" in src
 
 
 def test_group_norm_wrapper_refuses_bad_shapes():
