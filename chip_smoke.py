@@ -61,6 +61,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -421,7 +422,8 @@ def check_group_norm(shape, groups, dtype, seed):
 # (B, Sq, H, D), Skv, dtype, on the training path?, packed q/k/v and a non-contiguous dO?
 # The bf16 rows are check_flash_bwd's: at head dims 64 and 128 (K2_SHAPES) the training
 # path's, the -F training shape, short kv at batch 4, and a row on each side of the dK/dV
-# kernel's split choice; at 512 (WIDE_SHAPES) the VAE mid block's.
+# kernel's split choice; at 512 (WIDE_SHAPES) the VAE mid block's at 512 and 1024 px, ragged
+# and packed.
 BWD_SHAPES = [(shape, skv, torch.bfloat16, on_path, packed)
               for shape, skv, on_path, packed in K2.K2_SHAPES + K2.WIDE_SHAPES] + [
     ((2, 300, 1, 64), 300, torch.float32, False, False),
@@ -1679,6 +1681,13 @@ def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
     us = sum(u for _, u in flash_bwd)
     print(f"profile: train flash backward kernels (K2a, K2b, the split reduction) {us / 1e3:.3f} ms over "
           f"{sum(n for n, _ in flash_bwd)} launches, {us / busy_us:.3f} of kernel time [{card}]", flush=True)
+    # the D = 512 pair (the VAE encoder's mid head) on its own: the kernels named "wide"
+    wide = [(re.search(r"flash_bwd_\w+", key).group(0), n, u) for key, (n, u) in by_kernel.items()
+            if "flash_bwd" in key and "wide" in key]
+    print("profile: train flash backward at D = 512 (K2a, K2b) "
+          + (", ".join(f"{name} {u / 1e3:.3f} ms over {n} launches" for name, n, u in wide) or "none")
+          + f", {sum(u for *_, u in wide) / 1e3:.3f} ms, {sum(u for *_, u in wide) / busy_us:.4f} of kernel time "
+          f"[{card}]", flush=True)
 
 # ----------------------------------------------------------------------------
 
@@ -1694,10 +1703,10 @@ KERNELS = [
      "omgsr_tpu/ops/flash_attention.py:40", ["flash_fwd_merge_kernel"]),
     ("flash_attention_bwd_dq", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
      "omgsr_tpu/ops/flash_attention.py:88",
-     ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wide_kernel", "flash_bwd_dq_kernel"]),
+     ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dq_kernel"]),
     ("flash_attention_bwd_dkv", "omgsr_tpu_torch/csrc/flash_attention_bwd.cu",
      "omgsr_tpu/ops/flash_attention.py:127",
-     ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel", "flash_bwd_dkv_wide_kernel",
+     ["flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel", "flash_bwd_dkv_wide_wgmma_kernel",
       "flash_bwd_dkv_kernel"]),
     ("group_norm_stats", "omgsr_tpu_torch/csrc/group_norm_silu.cu",
      "omgsr_tpu/ops/fused_groupnorm.py:38", ["gn_stats_kernel"]),

@@ -23,7 +23,7 @@
 //   * The TPU wrapper transposed (B,S,H,D) to (B*H,S,D), padded S to the block
 //     size in device memory and computed delta with tensor code. Here the
 //     kernels read (B,S,H,D) through the strides they are given (the bf16
-//     kernels at D = 64 and 128 through TMA tensor maps built from them) and
+//     kernels through TMA tensor maps built from them) and
 //     mask the ragged ends themselves (kv columns >= Skv in the dQ kernels, q
 //     rows >= Sq in the dK/dV kernels; rows that do not exist are never
 //     stored), and delta is a prologue of the dQ kernels: the block that owns
@@ -50,10 +50,10 @@
 //     where the grid would leave SMs idle a split of the q loop whose partials
 //     flash_bwd_dkv_reduce_kernel adds in a fixed order; described where they
 //     are defined.
-//   * flash_bwd_dq_wide_kernel / flash_bwd_dkv_wide_kernel (bf16 inputs,
-//     D = 512): tensor cores through mma.sync, the owned rows staged in shared
-//     memory, the warps splitting score blocks and output columns; described
-//     where they are defined.
+//   * flash_bwd_dq_wide_wgmma_kernel / flash_bwd_dkv_wide_wgmma_kernel (bf16
+//     inputs, D = 512): the same Hopper path on clusters of two CTAs that
+//     share an owned tile and hand score tiles to each other through
+//     distributed shared memory; described where they are defined.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -526,9 +526,10 @@ __device__ __forceinline__ void issue_abt(float (&c)[32], uint32_t a_wg, uint32_
   }
 }
 
-// C (64 x D) += A B: A (64 x 64) as bf16 fragments in registers, B a streamed
-// tile (64 x D, D contiguous: MN-major, the transpose bit set); four k-steps of
-// 16 rows (2048 bytes of the tile each).
+// C (64 x D) += A B: A (64 x 64) as bf16 fragments in registers, B the D
+// columns of a streamed tile from the box at b_tile on (64 rows, columns
+// contiguous: MN-major, the transpose bit set); four k-steps of 16 rows (2048
+// bytes of each box).
 template <int D>
 __device__ __forceinline__ void issue_fb(float (&c)[D / 2], const uint32_t (&af)[4][4], uint32_t b_tile) {
 #pragma unroll
@@ -536,8 +537,11 @@ __device__ __forceinline__ void issue_fb(float (&c)[D / 2], const uint32_t (&af)
     const uint64_t db = wgmma_desc(b_tile + kk * 2048, STREAM_BOX, 1024);
     if constexpr (D == 64) {
       wgmma_rs_m64n64k16_tb(c, af[kk], db, 1);
-    } else {
+    } else if constexpr (D == 128) {
       wgmma_rs_m64n128k16_tb(c, af[kk], db, 1);
+    } else {
+      static_assert(D == 256, "issue_fb: 64, 128 or 256 columns");
+      wgmma_rs_m64n256k16_tb(c, af[kk], db, 1);
     }
   }
 }
@@ -1046,366 +1050,616 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
 }
 
 // ----------------------------------------------------------------------------
-// bf16 path at D = 512 (the VAE mid block's single head). At this width a warp
-// cannot keep 16 rows of operand fragments and a 16 x 512 accumulator in
-// registers (the dK/dV kernel would need two), so the eight warps of a block
-// split the work and exchange the score tiles through shared memory, as the
-// forward's flash_fwd_wide_kernel does: the owned rows and the streamed tiles
-// are staged as bf16 (rows padded by 16 bytes) and read by ldmatrix; the
-// score products give each warp a 16 x 16 block (rows (warp % R) * 16, two
-// n-tiles), whose P and dS are written as bf16 tiles; the output products
-// give each warp 16 rows by a quarter or a half of D. Each output element is
-// still summed by one thread in one fixed order: no atomics.
+// bf16 path at D = 512 (the VAE mid block's single head):
+// flash_bwd_dq_wide_wgmma_kernel and flash_bwd_dkv_wide_wgmma_kernel, built
+// for Hopper on clusters of two CTAs.
+//
+// What bounds them: operations (K2a 6, K2b 8 times Sq*Skv*512 flops a head)
+// and, with 64-row owned tiles, the L2 traffic of the streamed operands, which
+// every owned tile reads in full. One CTA cannot hold the working set: a
+// 64 x 512 f32 output tile is 128 KiB, half the register file (a consumer
+// warpgroup owns at most 64 x 256 of one output), and the two owned 64 x 512
+// bf16 tiles with two stages of the two streamed ones would take 384 KiB of
+// shared memory against 227. So the two CTAs of a cluster (__cluster_dims__(2,
+// 1, 1); the rank is blockIdx.x) share one 64-row owned tile and hand score
+// tiles to each other through distributed shared memory by st.async: stores
+// into the other CTA's shared memory that do not hold the sending thread and
+// complete an mbarrier there; a second mbarrier gives a tile back once its
+// readers are done (arrivals released, waits acquired, at cluster scope). The
+// pair reads each streamed byte once. Each CTA has a producer warpgroup
+// (setmaxnreg 24; one thread issues every TMA load through the 4-D tensor maps
+// of the D = 64/128 kernels, 64-column boxes, 128-byte swizzled) and two
+// consumer warpgroups (setmaxnreg 240), and a ring of two stages of streamed
+// tiles with `full` and `empty` mbarriers as in the D = 64/128 kernels.
+//   * dQ kernel (K2a): the two CTAs take different roles. CTA 0 holds Q and
+//     streams K; its consumer 0 makes S = Q K^T (wgmma m64n64k16 over 32
+//     k-steps, both operands from shared memory, K-major) and P. CTA 1 holds
+//     dO and streams V; its consumer 0 makes dP = dO V^T and sends it (f32,
+//     16 KiB a kv tile) into one of two slots of CTA 0, so it runs up to two
+//     tiles ahead and CTA 0 seldom waits for it. CTA 0's consumer 0 forms
+//     dS = P (dP - delta) and writes it in place of dP; both of CTA 0's
+//     consumers own 256 columns of dQ (128 f32 registers) and add dS K over
+//     those columns of the K tile (wgmma m64n256k16, dS rounded to bf16 as
+//     register A fragments, K MN-major with the transpose bit set); consumer
+//     0's product runs under its next S. delta = rowsum(dO * O) is the
+//     prologue of CTA 0's consumers, read from device memory while the first
+//     tiles load. kv columns past Skv are masked on the last tile; rows past
+//     Sq take lse = +inf (P = 0) and are never stored. The dK/dV kernel's
+//     symmetric split measured slower here, its exchange in the middle of
+//     every kv tile.
+//   * dK/dV kernel (K2b): each output needs both score products, so the CTAs
+//     split the contraction instead: CTA c holds the columns 256 c .. 256 c +
+//     255 of K and V (owned) and of Q and dO (streamed), and owns the same
+//     columns of dK and dV. Its consumer 0 makes the partial S^T_c = K_c Q_c^T,
+//     consumer 1 dP^T_c = V_c dO_c^T (transposed: rows are kv rows, as the
+//     D = 64/128 kernel takes them); each sends its f32 partial to the other
+//     CTA (float4 j of consumer thread t at (128 j + t) * 16 bytes) and adds
+//     the other CTA's: S^T = S^T_c + S^T_(1-c), one f32 add, so both CTAs
+//     hold the same bits. Consumer 0 forms P^T (the lse and delta of each q
+//     tile are staged by the producer's second warp) and hands it to consumer
+//     1 in place of the other CTA's partial; consumer 0 owns the CTA's 64 x 256
+//     quarter of dV and adds P^T dO_c, consumer 1 dK's and adds dS^T Q_c (wgmma
+//     m64n256k16). q columns past Sq take lse = +inf (P = 0); kv rows past Skv
+//     are never stored. The exchange in the middle of every q tile is what
+//     this kernel waits for most; remote stores with an arrival a thread, and
+//     two chunks of 32 score columns with the first sent under the second's
+//     product, measured slower than st.async of whole tiles.
+// Shared memory a CTA: dQ 192 KiB of tiles and two 16 KiB dP slots, 230,472
+// bytes with the barriers and the alignment slack; dK/dV 192 KiB of tiles, two
+// 16 KiB exchange tiles and 1 KiB of lse / delta rows, 231,488 bytes (232,448
+// allowed). No atomics: every output element is summed by one thread in one
+// order, so a run gives the same bits every time.
 // ----------------------------------------------------------------------------
 
-constexpr int WNT = 256;  // eight warps
-constexpr int WQ = 64;    // q rows owned by a dQ block, streamed by a dK/dV block
-constexpr int WK = 32;    // kv rows streamed by a dQ block, owned by a dK/dV block
+constexpr int WD = 512;                   // the head dim
+constexpr int WROWS = 64;                 // rows of every tile (ops/flash_attention.WIDE_BWD_ROWS)
+constexpr int WCOLS = WD / 2;             // columns of a dK/dV CTA, of dQ a consumer (ops/flash_attention.WIDE_BWD_COLS)
+constexpr int WBOX = WROWS * 128;         // one 64-column box of a tile: 8 KiB
+constexpr int WTILE = WCOLS / 64 * WBOX;  // a dK/dV CTA's half of a 64-row tile: 32 KiB
+constexpr int WSTAGES = 2;                // the ring of streamed tiles
+constexpr int WX = 64 * 64 * 4;           // an exchanged 64 x 64 f32 score tile: 16 KiB
+static_assert(WROWS == HS, "the wide kernels share issue_abt / issue_fb and their box stride");
 
-template <int D>
-constexpr int wide_dq_smem_bytes() {
-  return (2 * WQ + 2 * WK) * (D + 8) * 2 + WQ * (WK + 8) * 2 + 2 * WQ * 4;
+// The dK/dV kernel's shared memory: this CTA's columns of K and V, of the ring of
+// Q and dO tiles, the two exchange tiles and the lse / delta rows of each stage.
+struct WideDkvSmem {
+  static constexpr int A = 0;      // owned: K_c
+  static constexpr int B = WTILE;  // owned: V_c
+  // streamed, stage s: Q_c, then dO_c
+  __host__ __device__ static constexpr int S0(int s) { return 2 * WTILE + 2 * WTILE * s; }
+  __host__ __device__ static constexpr int S1(int s) { return S0(s) + WTILE; }
+  static constexpr int XS = 2 * WTILE + 2 * WTILE * WSTAGES;  // the other CTA's partial S^T, then P^T
+  static constexpr int XDP = XS + WX;                          // its partial dP^T
+  static constexpr int ROWS = XDP + WX;                        // lse, delta of stage s
+  static constexpr int BARS = ROWS + WSTAGES * 2 * WROWS * 4;
+  // own_full, full[WSTAGES], empty[WSTAGES], xs_full, xdp_full, x_free; + alignment slack
+  static constexpr int BYTES = BARS + 8 * (4 + 2 * WSTAGES) + 1024;
+};
+
+struct WideBars {
+  uint32_t own_full;
+  __device__ uint32_t full(int s) const { return own_full + 8u * (1 + s); }
+  __device__ uint32_t empty(int s) const { return own_full + 8u * (1 + WSTAGES + s); }
+  __device__ uint32_t xs_full() const { return own_full + 8u * (1 + 2 * WSTAGES); }
+  __device__ uint32_t xdp_full() const { return xs_full() + 8u; }
+  __device__ uint32_t x_free() const { return xs_full() + 16u; }
+};
+
+// The barriers of a CTA of the dK/dV kernel's pair; each `full` also waits for
+// the 32 lanes of the producer warp that stages lse and delta.
+__device__ __forceinline__ void wide_init(const WideBars& bar) {
+  mbar_init(bar.own_full, 1);
+  for (int s = 0; s < WSTAGES; ++s) {
+    mbar_init(bar.full(s), 1 + 32);
+    mbar_init(bar.empty(s), 8);  // every consumer warp of this CTA
+  }
+  mbar_init(bar.xs_full(), 1);   // this CTA's expect_tx; the other CTA's st.async bytes complete it
+  mbar_init(bar.xdp_full(), 1);
+  mbar_init(bar.x_free(), 256);  // every consumer thread of the other CTA
+  fence_barrier_init();
 }
 
-template <int D>
-constexpr int wide_dkv_smem_bytes() {
-  return (2 * WK + 2 * WQ) * (D + 8) * 2 + 2 * WK * (WQ + 8) * 2 + 2 * WQ * 4;
+// The producer's TMA thread: this CTA's columns (col0 ..) of the owned tiles
+// at row r_own, then of the streamed tiles t = 0 .. n - 1 through the ring.
+__device__ __forceinline__ void wide_produce(const WideBars& bar, uint32_t base, const CUtensorMap* own_a,
+                                             const CUtensorMap* own_b, const CUtensorMap* str_a,
+                                             const CUtensorMap* str_b, int col0, int h, int b, int r_own,
+                                             int n) {
+  using L = WideDkvSmem;
+  prefetch_tensormap(own_a);
+  prefetch_tensormap(own_b);
+  prefetch_tensormap(str_a);
+  prefetch_tensormap(str_b);
+  mbar_arrive_expect_tx(bar.own_full, 2 * WTILE);
+#pragma unroll
+  for (int c = 0; c < WCOLS / 64; ++c) {
+    tma_load_4d(base + L::A + c * WBOX, own_a, bar.own_full, col0 + 64 * c, h, r_own, b);
+    tma_load_4d(base + L::B + c * WBOX, own_b, bar.own_full, col0 + 64 * c, h, r_own, b);
+  }
+  for (int t = 0; t < n; ++t) {
+    const int s = t % WSTAGES;
+    if (t >= WSTAGES) mbar_wait(bar.empty(s), ((t / WSTAGES) - 1) & 1);
+    mbar_arrive_expect_tx(bar.full(s), 2 * WTILE);
+#pragma unroll
+    for (int c = 0; c < WCOLS / 64; ++c) {
+      tma_load_4d(base + L::S0(s) + c * WBOX, str_a, bar.full(s), col0 + 64 * c, h, t * WROWS, b);
+      tma_load_4d(base + L::S1(s) + c * WBOX, str_b, bar.full(s), col0 + 64 * c, h, t * WROWS, b);
+    }
+  }
 }
 
-// dQ at D = 512: a block owns WQ = 64 q rows (Q and dO staged once) and streams
-// WK = 32-row K and V tiles. Warp (rw, cw) = (warp % 4, warp / 4) makes the S
-// and dP blocks of q rows rw*16.. and kv columns cw*16.., writes dS as bf16,
-// and accumulates dQ for q rows rw*16.. and the columns cw*D/2.. (a 16 x 256
-// f32 accumulator). Shared memory: Q and dO 64 x 520, K and V 32 x 520, dS
-// 64 x 40 bf16, lse and delta 64 f32: 205,312 bytes at D = 512.
-template <int D>
-__global__ void __launch_bounds__(WNT, 1) flash_bwd_dq_wide_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv, Strides qs,
-    Strides ks, Strides vs, Strides os, Strides gs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int LP = WK + 8;
-  constexpr int KS = D / 16;
-  constexpr int NW = D / 16;  // n-tiles of a warp's half of D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + WQ * LD;  // dO
-  __nv_bfloat16* Ks = Gs + WQ * LD;
-  __nv_bfloat16* Vs = Ks + WK * LD;
-  __nv_bfloat16* Ds = Vs + WK * LD;  // dS
-  float* lse_s = reinterpret_cast<float*>(Ds + WQ * LP);
-  float* delta_s = lse_s + WQ;
+// Shared address of float4 j of consumer thread ti in an exchange tile.
+__device__ __forceinline__ uint32_t x_slot(uint32_t tile, int j, int ti) {
+  return tile + (uint32_t)(j * 128 + ti) * 16u;
+}
+
+// One consumer's partial score tile of stream step t, c = A B^T over this
+// CTA's 256 columns (16 k-steps of 32 bytes inside each 64-column box), then
+// the pair's exchange: wait until the other CTA is done with what this thread
+// sent at step t - 1, send c into its tile x_peer by st.async (completing its
+// barrier full_peer), expect the other CTA's partial on this CTA's full_own,
+// wait for it in this CTA's tile x_own and add it.
+__device__ __forceinline__ void wide_scores(float (&c)[32], uint32_t a_tile, uint32_t b_tile, int t, int ti,
+                                            uint32_t x_own, uint32_t x_peer, uint32_t full_own,
+                                            uint32_t full_peer, uint32_t free_own) {
+  // through an empty asm, so that the 32 descriptors are computed here and not kept over the loop
+  asm volatile("" : "+r"(a_tile), "+r"(b_tile));
+  fence_operands(c);
+  wgmma_fence();
+  issue_abt<WCOLS, WBOX>(c, a_tile, b_tile);
+  wgmma_commit_group();
+  wgmma_wait_group<0>();
+  fence_operands(c);
+  if (t > 0) mbar_wait_cluster(free_own, (t - 1) & 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_async_v4(x_slot(x_peer, j, ti), c[4 * j], c[4 * j + 1], c[4 * j + 2], c[4 * j + 3], full_peer);
+  if (ti == 0) mbar_arrive_expect_tx(full_own, WX);
+  mbar_wait_cluster(full_own, t & 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint4 v = ld_shared_v4(x_slot(x_own, j, ti));
+    c[4 * j] += __uint_as_float(v.x);
+    c[4 * j + 1] += __uint_as_float(v.y);
+    c[4 * j + 2] += __uint_as_float(v.z);
+    c[4 * j + 3] += __uint_as_float(v.w);
+  }
+}
+
+// This consumer thread's 32 values into an exchange tile of its own CTA.
+__device__ __forceinline__ void x_store(uint32_t tile, int ti, const float (&c)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_shared_v4(x_slot(tile, j, ti), make_uint4(__float_as_uint(c[4 * j]), __float_as_uint(c[4 * j + 1]),
+                                                 __float_as_uint(c[4 * j + 2]), __float_as_uint(c[4 * j + 3])));
+}
+
+// The dQ kernel's shared memory, all 512 columns: the owned tile (Q in CTA 0,
+// dO in CTA 1), a ring of two stages of the streamed tile (K or V) and, in CTA
+// 0, two slots that CTA 1's dP lands in (then dS, for CTA 0's consumer 1).
+struct WideDqSmem {
+  static constexpr int TILE = WD / 64 * WBOX;  // a 64 x 512 tile: 64 KiB
+  static constexpr int A = 0;
+  __host__ __device__ static constexpr int S(int s) { return TILE + TILE * s; }
+  __host__ __device__ static constexpr int XDP(int k) { return TILE + TILE * WSTAGES + WX * k; }
+  static constexpr int BARS = TILE + TILE * WSTAGES + 2 * WX;
+  // own_full, full[WSTAGES], empty[WSTAGES], xdp_full[2], x_free[2]; + alignment slack
+  static constexpr int BYTES = BARS + 8 * (5 + 2 * WSTAGES) + 1024;
+};
+
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(384, 1) flash_bwd_dq_wide_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
+    int Sq, int Skv, Strides os, Strides gs, float scale) {
+  using L = WideDqSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t own_full = base + L::BARS;
+  auto full = [&](int s) { return own_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return own_full + 8u * (1 + WSTAGES + s); };
+  auto xdp_full = [&](int k) { return own_full + 8u * (1 + 2 * WSTAGES + k); };
+  auto x_free = [&](int k) { return own_full + 8u * (3 + 2 * WSTAGES + k); };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int rw = warp & 3;
-  const int cw = warp >> 2;
-  const int bh = blockIdx.y;
+  const int wg = tid >> 7;
+  const int rank = blockIdx.x;  // the pair is the cluster along x: 0 makes S, P, dS and dQ; 1 makes dP
+  const int bh = blockIdx.z;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * WQ;
-  const int qvalid = min(WQ, Sq - q0);
+  const int q0 = blockIdx.y * WROWS;
+  const int n_kv = (Skv + WROWS - 1) / WROWS;
 
-  const __nv_bfloat16* k_base = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* v_base = v + b * vs.b + h * vs.h;
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), rank == 0 ? 8 : 4);  // the consumer warps that read the stage
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(xdp_full(k), 1);  // CTA 0: its expect_tx; CTA 1's st.async bytes complete it
+      mbar_init(x_free(k), 128);  // CTA 1: every thread of CTA 0's consumer 1
+    }
+    fence_barrier_init();
+  }
+  cluster_sync();  // both CTAs' barriers exist before anything arrives on them
 
-  stage_rows_bf16<D, WQ, WNT>(Qs, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, qvalid);
-  stage_rows_bf16<D, WQ, WNT>(Gs, dout + b * gs.b + h * gs.h + (long long)q0 * gs.s, gs.s, qvalid);
-  __syncthreads();
-
-  // delta = rowsum(dO * O) in f32; four neighbouring lanes share one row
-  {
-    const int row = tid >> 2;
-    const int part = tid & 3;
-    float sum = 0.f;
-    if (row < qvalid) {
-      const __nv_bfloat16* o_row = o + b * os.b + h * os.h + (long long)(q0 + row) * os.s;
-      for (int vv = part; vv < D / 8; vv += 4) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(o_row + vv * 8);
-        const uint4 gv = *reinterpret_cast<const uint4*>(Gs + row * LD + vv * 8);
-        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+  if (wg == 0) {
+    // ---- producer: the owned tile, then the streamed tiles, all 512 columns ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const CUtensorMap* own = rank == 0 ? &tm_q : &tm_do;
+      const CUtensorMap* str = rank == 0 ? &tm_k : &tm_v;
+      prefetch_tensormap(own);
+      prefetch_tensormap(str);
+      mbar_arrive_expect_tx(own_full, L::TILE);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = unpack_bf16(ow[e]), c = unpack_bf16(gw[e]);
-          sum += a.x * c.x + a.y * c.y;
+      for (int c = 0; c < WD / 64; ++c) tma_load_4d(base + L::A + c * WBOX, own, own_full, 64 * c, h, q0, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % WSTAGES;
+        if (t >= WSTAGES) mbar_wait(empty(s), ((t / WSTAGES) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), L::TILE);
+#pragma unroll
+        for (int c = 0; c < WD / 64; ++c) tma_load_4d(base + L::S(s) + c * WBOX, str, full(s), 64 * c, h, t * WROWS, b);
+      }
+    }
+  } else if (rank == 1) {
+    // ---- CTA 1: consumer 0 makes dP = dO V^T of every kv tile and sends it to CTA 0 ----
+    setmaxnreg_inc<240>();
+    if (wg == 1) {
+      const int ti = tid & 127;
+      const int lane = tid & 31;
+      uint32_t x_peer[2], full_peer[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        x_peer[k] = mapa_shared(base + L::XDP(k), 0);
+        full_peer[k] = mapa_shared(xdp_full(k), 0);
+      }
+      float dp[32];
+      mbar_wait(own_full, 0);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % WSTAGES;
+        mbar_wait(full(s), (t / WSTAGES) & 1);
+        uint32_t a_tile = base + L::A, b_tile = base + L::S(s);
+        asm volatile("" : "+r"(a_tile), "+r"(b_tile));
+        fence_operands(dp);
+        wgmma_fence();
+        issue_abt<WD, WBOX>(dp, a_tile, b_tile);
+        wgmma_commit_group();
+        wgmma_wait_group<0>();
+        fence_operands(dp);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+        // into slot t % 2 of CTA 0 once its consumers are done with what went there at step t - 2
+        const int k = t & 1;
+        if (t >= 2) mbar_wait_cluster(x_free(k), ((t >> 1) - 1) & 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          st_async_v4(x_slot(x_peer[k], j, ti), dp[4 * j], dp[4 * j + 1], dp[4 * j + 2], dp[4 * j + 3],
+                      full_peer[k]);
+      }
+    }
+  } else {
+    // ---- CTA 0: consumer 0 makes S, P and dS; consumer cw owns dQ's columns 256 cw .. ----
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int ti = tid & 127;
+    const int warp = ti >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int r_lo = q0 + warp * 16 + g;  // this thread's rows r_lo, r_hi
+    const int r_hi = r_lo + 8;
+
+    // delta = rowsum(dO * O) in f32 while the first tiles load
+    float dl_lo = row_dot_part<WD>(o, dout, os, gs, b, h, r_lo, Sq, tig);
+    float dl_hi = row_dot_part<WD>(o, dout, os, gs, b, h, r_hi, Sq, tig);
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, 1);
+    dl_lo += __shfl_xor_sync(0xffffffffu, dl_lo, 2);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, 1);
+    dl_hi += __shfl_xor_sync(0xffffffffu, dl_hi, 2);
+    if (cw == 0 && tig == 0) {
+      if (r_lo < Sq) delta[(long long)bh * Sq + r_lo] = dl_lo;
+      if (r_hi < Sq) delta[(long long)bh * Sq + r_hi] = dl_hi;
+    }
+    // lse in the base-2 domain; +inf past Sq makes P = 0 there
+    const float inf = __int_as_float(0x7f800000u);
+    const float l_lo = r_lo < Sq ? lse[(long long)bh * Sq + r_lo] * LOG2E : inf;
+    const float l_hi = r_hi < Sq ? lse[(long long)bh * Sq + r_hi] * LOG2E : inf;
+    const float scale_log2 = scale * LOG2E;
+    uint32_t free_peer[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) free_peer[k] = mapa_shared(x_free(k), 1);
+
+    float acc[128], sc[32];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t dsf[4][4];
+
+    mbar_wait(own_full, 0);
+    if (cw == 0) {
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % WSTAGES;
+        const int k = t & 1;
+        const uint32_t slot = base + L::XDP(k);
+        // S = Q K^T, issued while the dQ product of tile t - 1 may still run (no fence on sc
+        // here: an instruction defining it under that product makes ptxas serialise every wgmma)
+        mbar_wait(full(s), (t / WSTAGES) & 1);
+        uint32_t a_tile = base + L::A, b_tile = base + L::S(s);
+        asm volatile("" : "+r"(a_tile), "+r"(b_tile));
+        wgmma_fence();
+        issue_abt<WD, WBOX>(sc, a_tile, b_tile);
+        wgmma_commit_group();
+        wgmma_wait_group<0>();
+        fence_operands(sc);
+        fence_operands(acc);
+        fence_fragments(dsf);
+        if (t > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty((t - 1) % WSTAGES));  // the dQ product of tile t - 1 is done
+        }
+        // P = 2^(S scale log2(e) - lse log2(e)); kv columns >= Skv are 0
+        const int kvalid = Skv - t * WROWS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * tig;
+          sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -l_lo));
+          sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -l_lo));
+          sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -l_hi));
+          sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -l_hi));
+          if (kvalid < WROWS) {
+            if (col >= kvalid) sc[4 * j] = sc[4 * j + 2] = 0.f;
+            if (col + 1 >= kvalid) sc[4 * j + 1] = sc[4 * j + 3] = 0.f;
+          }
+        }
+        // dS = P (dP - delta) with CTA 1's dP of this tile, written in its place for consumer 1
+        if (ti == 0) mbar_arrive_expect_tx(xdp_full(k), WX);
+        mbar_wait_cluster(xdp_full(k), (t >> 1) & 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint4 v = ld_shared_v4(x_slot(slot, j, ti));
+          sc[4 * j] *= __uint_as_float(v.x) - dl_lo;
+          sc[4 * j + 1] *= __uint_as_float(v.y) - dl_lo;
+          sc[4 * j + 2] *= __uint_as_float(v.z) - dl_hi;
+          sc[4 * j + 3] *= __uint_as_float(v.w) - dl_hi;
+        }
+        x_store(slot, ti, sc);
+        named_barrier_sync(1, 256);
+        // dQ[:, 0 ..] += dS K over those columns of the K tile; left running under the next S
+        pack_fragments(dsf, sc);
+        fence_fragments(dsf);
+        fence_operands(acc);
+        wgmma_fence();
+        issue_fb<WCOLS>(acc, dsf, base + L::S(s));
+        wgmma_commit_group();
+      }
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+    } else {
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % WSTAGES;
+        const int k = t & 1;
+        const uint32_t slot = base + L::XDP(k);
+        named_barrier_sync(1, 256);  // dS of tile t is in slot k
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint4 v = ld_shared_v4(x_slot(slot, j, ti));
+          sc[4 * j] = __uint_as_float(v.x);
+          sc[4 * j + 1] = __uint_as_float(v.y);
+          sc[4 * j + 2] = __uint_as_float(v.z);
+          sc[4 * j + 3] = __uint_as_float(v.w);
+        }
+        mbar_arrive_cluster(free_peer[k]);  // this thread is done with slot k
+        // dQ[:, 256 ..] += dS K over those columns of the K tile
+        pack_fragments(dsf, sc);
+        fence_fragments(dsf);
+        fence_operands(acc);
+        wgmma_fence();
+        issue_fb<WCOLS>(acc, dsf, base + L::S(s) + (WCOLS / 64) * WBOX);
+        wgmma_commit_group();
+        wgmma_wait_group<0>();
+        fence_operands(acc);
+        fence_fragments(dsf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+      }
+    }
+
+    // ---- epilogue: dQ = scale * acc, rows < Sq ----
+    const long long o_ss = (long long)H * WD;
+    __nv_bfloat16* dq_base = dq + (long long)b * Sq * o_ss + (long long)h * WD + WCOLS * cw;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (r_lo < Sq)
+        *reinterpret_cast<uint32_t*>(dq_base + (long long)r_lo * o_ss + c) =
+            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (r_hi < Sq)
+        *reinterpret_cast<uint32_t*>(dq_base + (long long)r_hi * o_ss + c) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+  cluster_sync();  // neither CTA leaves while the other may still write to it or arrive on its barriers
+}
+
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(384, 1) flash_bwd_dkv_wide_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv, float scale) {
+  using L = WideDkvSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + L::ROWS);  // [stage][lse | delta][WROWS]
+  const WideBars bar{base + L::BARS};
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int rank = blockIdx.x;  // the pair is the cluster along x
+  const int col0 = rank * WCOLS;
+  const int bh = blockIdx.z;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kv0 = blockIdx.y * WROWS;
+  const int n_q = (Sq + WROWS - 1) / WROWS;
+
+  if (tid == 0) wide_init(bar);
+  cluster_sync();  // both CTAs' barriers exist before anything arrives on them
+
+  if (wg == 0) {
+    // ---- producer: thread 0 issues the TMA loads, warp 1 the lse and delta rows ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      wide_produce(bar, base, &tm_k, &tm_v, &tm_q, &tm_do, col0, h, b, kv0, n_q);
+    } else if ((tid >> 5) == 1) {
+      const int lane = tid & 31;
+      const float inf = __int_as_float(0x7f800000u);
+      for (int i = 0; i < n_q; ++i) {
+        const int s = i % WSTAGES;
+        if (i >= WSTAGES) mbar_wait(bar.empty(s), ((i / WSTAGES) - 1) & 1);
+        float* lse_s = rows + s * 2 * WROWS;
+#pragma unroll
+        for (int r = lane; r < WROWS; r += 32) {
+          const int q = i * WROWS + r;
+          const bool ok = q < Sq;
+          lse_s[r] = ok ? lse[(long long)bh * Sq + q] * LOG2E : inf;
+          lse_s[WROWS + r] = ok ? delta[(long long)bh * Sq + q] : 0.f;
+        }
+        mbar_arrive(bar.full(s));  // releases this lane's rows to the consumers
+      }
+    }
+  } else {
+    // ---- consumers: 0 makes S^T and P^T and owns dV, 1 makes dP^T and dS^T and owns dK ----
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int ti = tid & 127;
+    const int warp = ti >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const float scale_log2 = scale * LOG2E;
+
+    const uint32_t peer = rank ^ 1;
+    const uint32_t x_own = base + (cw == 0 ? L::XS : L::XDP);
+    const uint32_t full_own = cw == 0 ? bar.xs_full() : bar.xdp_full();
+    const uint32_t x_peer = mapa_shared(x_own, peer);
+    const uint32_t full_peer = mapa_shared(full_own, peer);
+    const uint32_t free_peer = mapa_shared(bar.x_free(), peer);
+
+    float acc[128], sc[32];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t fr[4][4];
+
+    mbar_wait(bar.own_full, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % WSTAGES;
+      mbar_wait(bar.full(s), (i / WSTAGES) & 1);
+      // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1), both halves of D
+      wide_scores(sc, base + (cw == 0 ? L::A : L::B), base + (cw == 0 ? L::S0(s) : L::S1(s)), i, ti, x_own,
+                  x_peer, full_own, full_peer, bar.x_free());
+      // columns are q rows: this thread's 8j + 2 tig (+1), their lse and delta
+      const float* lse_s = rows + s * 2 * WROWS;
+      if (cw == 0) {  // P^T, handed to consumer 1 in place of the other CTA's partial
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tig);
+          sc[4 * j] = fast_exp2(fmaf(sc[4 * j], scale_log2, -l.x));
+          sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -l.y));
+          sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -l.x));
+          sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -l.y));
+        }
+        x_store(x_own, ti, sc);
+      }
+      named_barrier_sync(1, 256);
+      if (cw == 1) {  // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint4 v = ld_shared_v4(x_slot(base + L::XS, j, ti));
+          const float2 dl = *reinterpret_cast<const float2*>(lse_s + WROWS + 8 * j + 2 * tig);
+          sc[4 * j] = __uint_as_float(v.x) * (sc[4 * j] - dl.x);
+          sc[4 * j + 1] = __uint_as_float(v.y) * (sc[4 * j + 1] - dl.y);
+          sc[4 * j + 2] = __uint_as_float(v.z) * (sc[4 * j + 2] - dl.x);
+          sc[4 * j + 3] = __uint_as_float(v.w) * (sc[4 * j + 3] - dl.y);
         }
       }
+      pack_fragments(fr, sc);
+      fence_fragments(fr);
+      fence_operands(acc);
+      wgmma_fence();
+      // dV_c += P^T dO_c (consumer 0), dK_c += dS^T Q_c (consumer 1)
+      issue_fb<WCOLS>(acc, fr, base + (cw == 0 ? L::S1(s) : L::S0(s)));
+      wgmma_commit_group();
+      // this thread is done with both exchange tiles (measured faster here, under the product,
+      // than before it, where the dQ kernel puts it)
+      mbar_arrive_cluster(free_peer);
+      wgmma_wait_group<0>();
+      fence_operands(acc);
+      fence_fragments(fr);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.empty(s));  // this warp is done with stage s
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      delta_s[row] = sum;
-      lse_s[row] = 0.f;
-      if (row < qvalid) {
-        lse_s[row] = lse[(long long)bh * Sq + q0 + row];
-        delta[(long long)bh * Sq + q0 + row] = sum;
-      }
-    }
-  }
 
-  float acc[NW][4];
+    // ---- epilogue: kv rows < Skv; dK = scale * acc ----
+    const int c_lo = kv0 + warp * 16 + g;
+    const int c_hi = c_lo + 8;
+    const float mul = cw == 0 ? 1.f : scale;
+    const long long o_ss = (long long)H * WD;
+    __nv_bfloat16* out = (cw == 0 ? dv : dk) + (long long)b * Skv * o_ss + (long long)h * WD + col0;
 #pragma unroll
-  for (int j = 0; j < NW; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += WK) {
-    const int kvalid = min(WK, Skv - kv0);
-    __syncthreads();  // the previous tile's readers are done; lse_s / delta_s are written
-    stage_rows_bf16<D, WK, WNT>(Ks, k_base + (long long)kv0 * ks.s, ks.s, kvalid);
-    stage_rows_bf16<D, WK, WNT>(Vs, v_base + (long long)kv0 * vs.s, vs.s, kvalid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for rows rw*16.. and kv columns cw*16..
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int ksi = 0; ksi < KS; ++ksi) {
-      uint32_t qf[4], gf[4], kf[4], vf[4];
-      ldmatrix_a(qf, Qs, LD, rw * 16, ksi * 16, lane);
-      ldmatrix_a(gf, Gs, LD, rw * 16, ksi * 16, lane);
-      ldmatrix_b2(kf, Ks, LD, cw * 16, ksi * 16, lane);
-      ldmatrix_b2(vf, Vs, LD, cw * 16, ksi * 16, lane);
-      mma_bf16(s[0], qf, kf[0], kf[1]);
-      mma_bf16(s[1], qf, kf[2], kf[3]);
-      mma_bf16(dp[0], gf, vf[0], vf[1]);
-      mma_bf16(dp[1], gf, vf[2], vf[3]);
-    }
-    // dS = P (dP - delta), P = exp(scale S - lse); masked kv columns are 0
-    {
-      const int r = rw * 16 + g;
-      const float l_lo = lse_s[r], l_hi = lse_s[r + 8];
-      const float d_lo = delta_s[r], d_hi = delta_s[r + 8];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = cw * 16 + j * 8 + tig * 2;
-        const bool ok0 = col < kvalid, ok1 = col + 1 < kvalid;
-        const float p0 = ok0 ? __expf(s[j][0] * scale - l_lo) : 0.f;
-        const float p1 = ok1 ? __expf(s[j][1] * scale - l_lo) : 0.f;
-        const float p2 = ok0 ? __expf(s[j][2] * scale - l_hi) : 0.f;
-        const float p3 = ok1 ? __expf(s[j][3] * scale - l_hi) : 0.f;
-        *reinterpret_cast<uint32_t*>(Ds + r * LP + col) =
-            pack_bf16(p0 * (dp[j][0] - d_lo), p1 * (dp[j][1] - d_lo));
-        *reinterpret_cast<uint32_t*>(Ds + (r + 8) * LP + col) =
-            pack_bf16(p2 * (dp[j][2] - d_hi), p3 * (dp[j][3] - d_hi));
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K over rows rw*16.. and columns cw*D/2..
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      uint32_t af[4];
-      ldmatrix_a(af, Ds, LP, rw * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        uint32_t kf[4];
-        ldmatrix_b2_trans(kf, Ks, LD, kk * 16, cw * (D / 2) + j * 8, lane);
-        mma_bf16(acc[j], af, kf[0], kf[1]);
-        mma_bf16(acc[j + 1], af, kf[2], kf[3]);
-      }
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (c_lo < Skv)
+        *reinterpret_cast<uint32_t*>(out + (long long)c_lo * o_ss + c) =
+            pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (c_hi < Skv)
+        *reinterpret_cast<uint32_t*>(out + (long long)c_hi * o_ss + c) =
+            pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
     }
   }
-
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* dq_base = dq + (long long)b * Sq * o_ss + (long long)h * D;
-  const int r_lo = q0 + rw * 16 + g, r_hi = r_lo + 8;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const int c = cw * (D / 2) + j * 8 + tig * 2;
-    if (r_lo < Sq)
-      *reinterpret_cast<uint32_t*>(dq_base + (long long)r_lo * o_ss + c) =
-          pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
-    if (r_hi < Sq)
-      *reinterpret_cast<uint32_t*>(dq_base + (long long)r_hi * o_ss + c) =
-          pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
-  }
+  cluster_sync();  // neither CTA leaves while the other may still arrive on its barriers
 }
 
-// dK/dV at D = 512: a block owns WK = 32 kv rows (K and V staged once) and
-// streams WQ = 64-row Q and dO tiles with their log-sum-exp and delta. Warp
-// (rw, cw) = (warp % 2, warp / 2) makes the transposed score blocks S^T and
-// dP^T of kv rows rw*16.. and q columns cw*16.., writes P^T and dS^T as bf16,
-// and accumulates dV and dK for kv rows rw*16.. and the columns cw*D/4.. (two
-// 16 x 128 f32 accumulators). Shared memory: K and V 32 x 520, Q and dO 64 x
-// 520, P^T and dS^T 32 x 72 bf16, lse and delta 64 f32: 209,408 bytes at
-// D = 512.
-template <int D>
-__global__ void __launch_bounds__(WNT, 1) flash_bwd_dkv_wide_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-    Strides gs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int LP = WQ + 8;
-  constexpr int KS = D / 16;
-  constexpr int NW = D / 32;  // n-tiles of a warp's quarter of D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + WK * LD;
-  __nv_bfloat16* Qs = Vs + WK * LD;
-  __nv_bfloat16* Gs = Qs + WQ * LD;  // dO
-  __nv_bfloat16* Pt = Gs + WQ * LD;  // P^T
-  __nv_bfloat16* Dt = Pt + WK * LP;  // dS^T
-  float* lse_s = reinterpret_cast<float*>(Dt + WK * LP);
-  float* delta_s = lse_s + WQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int rw = warp & 1;
-  const int cw = warp >> 1;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kv0 = blockIdx.x * WK;
-  const int kvalid = min(WK, Skv - kv0);
-
-  const __nv_bfloat16* q_base = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* g_base = dout + b * gs.b + h * gs.h;
-
-  stage_rows_bf16<D, WK, WNT>(Ks, k + b * ks.b + h * ks.h + (long long)kv0 * ks.s, ks.s, kvalid);
-  stage_rows_bf16<D, WK, WNT>(Vs, v + b * vs.b + h * vs.h + (long long)kv0 * vs.s, vs.s, kvalid);
-
-  float acc_k[NW][4], acc_v[NW][4];
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_k[j][e] = 0.f;
-      acc_v[j][e] = 0.f;
-    }
-
-  const int c_lo = rw * 16 + g, c_hi = c_lo + 8;  // kv rows of this thread in the tile
-  for (int q0 = 0; q0 < Sq; q0 += WQ) {
-    const int qvalid = min(WQ, Sq - q0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows_bf16<D, WQ, WNT>(Qs, q_base + (long long)q0 * qs.s, qs.s, qvalid);
-    stage_rows_bf16<D, WQ, WNT>(Gs, g_base + (long long)q0 * gs.s, gs.s, qvalid);
-    if (tid < WQ) {
-      const bool ok = tid < qvalid;
-      lse_s[tid] = ok ? lse[(long long)bh * Sq + q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[(long long)bh * Sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for kv rows rw*16.. and q columns cw*16..
-    float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-    for (int ksi = 0; ksi < KS; ++ksi) {
-      uint32_t kf[4], vf[4], qf[4], gf[4];
-      ldmatrix_a(kf, Ks, LD, rw * 16, ksi * 16, lane);
-      ldmatrix_a(vf, Vs, LD, rw * 16, ksi * 16, lane);
-      ldmatrix_b2(qf, Qs, LD, cw * 16, ksi * 16, lane);
-      ldmatrix_b2(gf, Gs, LD, cw * 16, ksi * 16, lane);
-      mma_bf16(st[0], kf, qf[0], qf[1]);
-      mma_bf16(st[1], kf, qf[2], qf[3]);
-      mma_bf16(dpt[0], vf, gf[0], gf[1]);
-      mma_bf16(dpt[1], vf, gf[2], gf[3]);
-    }
-    // P^T and dS^T; kv rows >= kvalid and q columns >= qvalid are 0
-    {
-      const bool lo_ok = c_lo < kvalid, hi_ok = c_hi < kvalid;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = cw * 16 + j * 8 + tig * 2;  // q column of this thread's first value
-        const float l0 = lse_s[r], l1 = lse_s[r + 1];
-        const float d0 = delta_s[r], d1 = delta_s[r + 1];
-        const bool q0ok = r < qvalid, q1ok = r + 1 < qvalid;
-        const float p0 = (q0ok && lo_ok) ? __expf(st[j][0] * scale - l0) : 0.f;
-        const float p1 = (q1ok && lo_ok) ? __expf(st[j][1] * scale - l1) : 0.f;
-        const float p2 = (q0ok && hi_ok) ? __expf(st[j][2] * scale - l0) : 0.f;
-        const float p3 = (q1ok && hi_ok) ? __expf(st[j][3] * scale - l1) : 0.f;
-        *reinterpret_cast<uint32_t*>(Pt + c_lo * LP + r) = pack_bf16(p0, p1);
-        *reinterpret_cast<uint32_t*>(Pt + c_hi * LP + r) = pack_bf16(p2, p3);
-        *reinterpret_cast<uint32_t*>(Dt + c_lo * LP + r) =
-            pack_bf16(p0 * (dpt[j][0] - d0), p1 * (dpt[j][1] - d1));
-        *reinterpret_cast<uint32_t*>(Dt + c_hi * LP + r) =
-            pack_bf16(p2 * (dpt[j][2] - d0), p3 * (dpt[j][3] - d1));
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q over kv rows rw*16.. and columns cw*D/4..
-#pragma unroll
-    for (int kk = 0; kk < WQ / 16; ++kk) {
-      uint32_t pf[4], df[4];
-      ldmatrix_a(pf, Pt, LP, rw * 16, kk * 16, lane);
-      ldmatrix_a(df, Dt, LP, rw * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        uint32_t gf[4], qf[4];
-        ldmatrix_b2_trans(gf, Gs, LD, kk * 16, cw * (D / 4) + j * 8, lane);
-        mma_bf16(acc_v[j], pf, gf[0], gf[1]);
-        mma_bf16(acc_v[j + 1], pf, gf[2], gf[3]);
-        ldmatrix_b2_trans(qf, Qs, LD, kk * 16, cw * (D / 4) + j * 8, lane);
-        mma_bf16(acc_k[j], df, qf[0], qf[1]);
-        mma_bf16(acc_k[j + 1], df, qf[2], qf[3]);
-      }
-    }
-  }
-
-  const long long o_ss = (long long)H * D;
-  const long long base = (long long)b * Skv * o_ss + (long long)h * D;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const int c = cw * (D / 4) + j * 8 + tig * 2;
-    if (kv0 + c_lo < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + base + (long long)(kv0 + c_lo) * o_ss + c) =
-          pack_bf16(acc_k[j][0] * scale, acc_k[j][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + (long long)(kv0 + c_lo) * o_ss + c) =
-          pack_bf16(acc_v[j][0], acc_v[j][1]);
-    }
-    if (kv0 + c_hi < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + base + (long long)(kv0 + c_hi) * o_ss + c) =
-          pack_bf16(acc_k[j][2] * scale, acc_k[j][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + (long long)(kv0 + c_hi) * o_ss + c) =
-          pack_bf16(acc_v[j][2], acc_v[j][3]);
-    }
-  }
-}
-
-template <int D>
-int launch_dq_wide(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
-                   const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes = wide_dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + WQ - 1) / WQ, B * H);
-  flash_bwd_dq_wide_kernel<D><<<grid, WNT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dq, H, Sq,
-      Skv, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
-      Strides{st[12], st[13], st[14]}, scale);
+int launch_dq_wide_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                         const float* lse, float* delta, void* dq, int B, int H, int Sq, int Skv,
+                         const long long* st, float scale, cudaStream_t stream) {
+  using L = WideDqSmem;
+  if ((Sq + WROWS - 1) / WROWS > 65535) return (int)cudaErrorInvalidValue;
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_bwd_dq_wide_wgmma_kernel, L::BYTES);
+  if (code != 0) return code;
+  CUtensorMap tq, tdo, tk, tv;
+  code = encode_bshd(&tq, q, B, Sq, H, WD, st[0], st[1], st[2], WROWS);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, WD, st[3], st[4], st[5], WROWS);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, WD, st[6], st[7], st[8], WROWS);
+  if (code == 0) code = encode_bshd(&tdo, dout, B, Sq, H, WD, st[12], st[13], st[14], WROWS);
+  if (code != 0) return code;
+  dim3 grid(2, (Sq + WROWS - 1) / WROWS, B * H);
+  flash_bwd_dq_wide_wgmma_kernel<<<grid, 384, L::BYTES, stream>>>(
+      tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dq, H,
+      Sq, Skv, Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
-                    const float* lse, const float* delta, void* dk, void* dv, int B, int H, int Sq,
-                    int Skv, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int smem_bytes = wide_dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Skv + WK - 1) / WK, B * H);
-  flash_bwd_dkv_wide_kernel<D><<<grid, WNT, smem_bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Sq, Skv,
-      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, scale);
+int launch_dkv_wide_wgmma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                          const float* delta, void* dk, void* dv, int B, int H, int Sq, int Skv,
+                          const long long* st, float scale, cudaStream_t stream) {
+  using L = WideDkvSmem;
+  if ((Skv + WROWS - 1) / WROWS > 65535) return (int)cudaErrorInvalidValue;
+  static SmemOptIn opt;
+  int code = opt_in_smem(opt, (const void*)flash_bwd_dkv_wide_wgmma_kernel, L::BYTES);
+  if (code != 0) return code;
+  CUtensorMap tq, tdo, tk, tv;
+  code = encode_bshd(&tq, q, B, Sq, H, WD, st[0], st[1], st[2], WROWS);
+  if (code == 0) code = encode_bshd(&tk, k, B, Skv, H, WD, st[3], st[4], st[5], WROWS);
+  if (code == 0) code = encode_bshd(&tv, v, B, Skv, H, WD, st[6], st[7], st[8], WROWS);
+  if (code == 0) code = encode_bshd(&tdo, dout, B, Sq, H, WD, st[9], st[10], st[11], WROWS);
+  if (code != 0) return code;
+  dim3 grid(2, (Skv + WROWS - 1) / WROWS, B * H);
+  flash_bwd_dkv_wide_wgmma_kernel<<<grid, 384, L::BYTES, stream>>>(
+      tq, tdo, tk, tv, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Sq, Skv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1428,7 +1682,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   if (dtype == 0 && D == 64 && dq_warpgroups(B, H, Sq, D) == 3) OMGSR_DQ((launch_dq_wgmma<64, 3>));
   if (dtype == 0 && D == 64) OMGSR_DQ((launch_dq_wgmma<64, 2>));
   if (dtype == 0 && D == 128) OMGSR_DQ((launch_dq_wgmma<128, 2>));
-  if (dtype == 0 && D == 512) OMGSR_DQ(launch_dq_wide<512>);
+  if (dtype == 0 && D == 512) OMGSR_DQ(launch_dq_wide_wgmma);
   if (dtype == 1 && D == 64) OMGSR_DQ((launch_dq<float, 64, 64, 64>));
   if (dtype == 1 && D == 128) OMGSR_DQ((launch_dq<float, 128, 64, 64>));
   if (dtype == 1 && D == 512) OMGSR_DQ((launch_dq<float, 512, 32, 16>));
@@ -1457,7 +1711,7 @@ extern "C" int flash_attention_bwd_dkv_split(const void* q, const void* k, const
   if (splits != 1) return -1;
 #define OMGSR_DKV(launcher) \
   return launcher(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Skv, strides, scale, s)
-  if (dtype == 0 && D == 512) OMGSR_DKV(launch_dkv_wide<512>);
+  if (dtype == 0 && D == 512) OMGSR_DKV(launch_dkv_wide_wgmma);
   if (dtype == 1 && D == 64) OMGSR_DKV((launch_dkv<float, 64, 64, 64>));
   if (dtype == 1 && D == 128) OMGSR_DKV((launch_dkv<float, 128, 64, 64>));
   if (dtype == 1 && D == 512) OMGSR_DKV((launch_dkv<float, 512, 16, 32>));

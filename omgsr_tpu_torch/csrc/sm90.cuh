@@ -1,11 +1,16 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels (the
 // forward's flash_fwd_wgmma_kernel and flash_fwd_wide_wgmma_kernel, the
-// backward's dQ and dK/dV kernels) and the 3x3 convs
+// backward's dQ and dK/dV kernels at every head dim) and the 3x3 convs
 // (conv3x3_wgmma_kernel): one PTX instruction each, inline, plus the host
 // side they share. Included by the .cu files of this directory.
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count, and a
 //     wait on a phase parity (try_wait in a loop);
+//   * clusters: the address of a variable in another CTA's shared memory
+//     (mapa), asynchronous stores there that complete on its mbarriers
+//     (st.async), arrivals on its mbarriers, waits that acquire at cluster
+//     scope, and the cluster-wide barrier (the backward's D = 512 kernels share
+//     their score products between the two CTAs of a pair);
 //   * TMA: cp.async.bulk.tensor loads (completing on an mbarrier) and stores
 //     (bulk groups), 3-D and 4-D, through a CUtensorMap passed as a
 //     __grid_constant__ kernel parameter; fence.proxy.async for shared memory written by
@@ -83,6 +88,51 @@ __device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
+}
+
+// ---- clusters: another CTA's shared memory and barriers -----------------------
+
+// The shared::cluster address, in the cluster's CTA of rank `rank`, of the
+// variable at this CTA's shared address `addr`.
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes to a shared::cluster address (another CTA's shared memory), without
+// waiting: the bytes count towards the transaction count of the mbarrier at
+// shared::cluster address `bar` in that CTA.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+               : "memory");
+}
+
+// One arrival on the mbarrier at shared::cluster address `bar` (another CTA's),
+// releasing this thread's earlier memory accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: what the threads of another CTA wrote
+// before their arrivals is visible once it returns.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Every thread of every CTA of the cluster arrives (release) and waits (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // ---- TMA -------------------------------------------------------------------

@@ -43,10 +43,16 @@ of the second products; the dK/dV kernel takes its scores transposed, so its
 rows are kv rows). Where ceil(Skv/128)*B*H blocks would leave SMs idle
 (77 text tokens) or a partial last wave, ``dkv_splits`` may cut the dK/dV
 kernel's q loop into chunks whose f32 partials a second kernel of the same
-launch adds in chunk order. At D = 512 the bf16 kernels stage the owned tile in shared memory, the
-warps split the score blocks and the output columns through ``mma.sync`` and
-exchange P and dS through shared memory; f32 inputs go to kernels that
-multiply with f32 FMAs from shared memory and are exact. delta =
+launch adds in chunk order. At D = 512 (the VAE mid block's single head) the
+bf16 kernels are built the same way on clusters of two CTAs that share a
+64-row owned tile (``WIDE_BWD_ROWS``) and hand score tiles to each other
+through distributed shared memory: in the dQ kernel one CTA makes S, P, dS and
+all of dQ while the other makes dP and sends it ahead; in the dK/dV kernel each
+CTA holds ``WIDE_BWD_COLS`` of the 512 columns of every operand and output and
+the two add each other's partial scores. Every product is made once, each
+streamed byte is read once, and 4096 tokens fill one wave of 128 CTAs with no
+split (``wide_bwd_ctas``); f32 inputs go to kernels that multiply with f32 FMAs
+from shared memory and are exact. delta =
 rowsum(dout * O), which the JAX package computes with tensor code outside its
 kernels, is a prologue of the dQ kernel here: it writes the (B*H, Sq) f32 sums
 that the dK/dV kernel, launched after it on the same stream, reads.
@@ -93,6 +99,12 @@ WIDE_KV_ROWS = 64
 _WIDE_TILE_US = 2.8  # one kv tile of a block
 _MERGE_US = 3.0  # the merge kernel's launch
 _MERGE_US_PER_MB = 0.6  # per MB of f32 partials (written, then read back by the merge)
+
+# the bf16 backward at head dim 512: the rows of every tile a CTA owns or streams,
+# and the columns of D each CTA of a dK/dV pair holds (each consumer of dQ owns
+# as many); WROWS and WCOLS in csrc/flash_attention_bwd.cu
+WIDE_BWD_ROWS = 64
+WIDE_BWD_COLS = 256
 
 launches = LaunchCounter("flash_attention_fwd")
 merge_launches = LaunchCounter("flash_attention_fwd_merge")
@@ -269,6 +281,13 @@ def dkv_splits(b: int, h: int, sq: int, skv: int, d: int, sms: int) -> int:
         if us < best_us:
             best, best_us = g, us
     return best
+
+
+def wide_bwd_ctas(b: int, h: int, sq: int, skv: int) -> tuple[int, int]:
+    """The CTAs the bf16 dQ and dK/dV kernels at head dim 512 launch: a pair
+    (one cluster of two CTAs) for each owned 64-row tile of q (dQ) or of kv
+    (dK/dV) of each (batch, head)."""
+    return (2 * -(-sq // WIDE_BWD_ROWS) * b * h, 2 * -(-skv // WIDE_BWD_ROWS) * b * h)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: float | None = None):

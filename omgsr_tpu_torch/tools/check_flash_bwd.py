@@ -4,19 +4,22 @@
 
 Builds ``csrc/flash_attention_bwd.cu`` (and the forward, which makes the saved
 output and log-sum-exp), prints the compiler's register, shared-memory and
-spill report and fails if the kernels at head dims 64 and 128
-(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``,
-``flash_bwd_dkv_reduce_kernel``) spill. Then, at each shape, it holds the
+spill report and fails if the bf16 kernels (``flash_bwd_dq_wgmma_kernel``,
+``flash_bwd_dkv_wgmma_kernel``, ``flash_bwd_dkv_reduce_kernel`` at head dims
+64 and 128, ``flash_bwd_dq_wide_wgmma_kernel`` and
+``flash_bwd_dkv_wide_wgmma_kernel`` at 512) spill. Then, at each shape, it holds the
 backward wrapper's dq, dk and dv against ``flash_attention_bwd_plain``: the
 error over the largest |plain| value within ``TOL`` (the forward tool's), the
 same bits from two runs, finite values, and the delta prologue against
 rowsum(dO * O), and the forward that made the saved output and log-sum-exp
 against ``flash_attention_plain``. ``--quick`` runs the small shapes only (one head with one tile
-each way, ragged ends, packed q/k/v with a permuted dO, a split dK/dV loop),
+each way, ragged ends, packed q/k/v with a permuted dO, a split dK/dV loop, at
+head dims 64, 128 and 512),
 untimed: the first run after a change to a kernel, kept short because a wrong
 barrier phase hangs (run it under ``timeout``). Without it the bf16 rows of
 ``chip_smoke.py``'s backward shapes (``K2_SHAPES`` at head dims 64 and 128,
-``WIDE_SHAPES`` at 512, which ``chip_smoke.py`` takes from here) are checked
+``WIDE_SHAPES`` at 512: the VAE mid block at 512 and 1024 px, ragged and
+packed, which ``chip_smoke.py`` takes from here) are checked
 too and each kernel is timed by
 CUDA-graph replay (device time), with TFLOP/s and its share of the card's
 bound, and by the host's time to issue one call (the training step waits for
@@ -30,8 +33,8 @@ this, this, other) at every shape; an other build with the split entry runs
 this build's split choice. At head dims 64 and 128 this build's dK/dV kernel is
 also timed at every split of its q loop from 1 up to one wave of blocks (at
 least 4), beside the split ``dkv_splits`` takes: the measurement its cost
-constants are fitted to. ``EXTRA_SHAPES`` (f32, and D = 512 at 1024 px and
-packed) are checked, untimed. Exits 1 if a check fails.
+constants are fitted to. ``EXTRA_SHAPES`` (f32) are checked, untimed. Exits 1
+if a check fails.
 """
 
 from __future__ import annotations
@@ -81,14 +84,14 @@ K2_SHAPES = [
 ]
 WIDE_SHAPES = [
     ((1, 4096, 1, 512), 4096, True, False),  # the VAE mid block at 512 px
-    ((1, 1100, 1, 512), 700, False, False),  # ends inside a 64-row q and a 32-row kv tile
+    ((1, 1100, 1, 512), 700, False, False),  # ends inside a 64-row q and a 64-row kv tile
+    ((1, 16384, 1, 512), 16384, False, False),  # the VAE mid block at 1024 px (training at 1024 px)
+    ((2, 300, 2, 512), 300, False, True),
 ]
-# checked only, not timed: the f32 kernels and more of the D = 512 ones, which
-# chip_smoke.py does not hold at these shapes. (B, Sq, H, D), Skv, dtype, packed?
+# checked only, not timed: the f32 kernels, which chip_smoke.py does not hold
+# at this shape. (B, Sq, H, D), Skv, dtype, packed?
 EXTRA_SHAPES = [
     ((2, 300, 2, 128), 77, torch.float32, False),
-    ((1, 16384, 1, 512), 16384, torch.bfloat16, False),  # the VAE mid block at 1024 px
-    ((2, 300, 2, 512), 300, torch.bfloat16, True),
 ]
 TOL_F32 = 2e-4  # f32 kernels against the plain version (chip_smoke.py's)
 SMALL_SHAPES = [
@@ -102,8 +105,12 @@ SMALL_SHAPES = [
     ((2, 256, 3, 128), 77, False, True),  # split in 4, packed
     ((1, 192, 67, 64), 64, False, False),  # 67 heads: the dQ kernel takes three consumer warpgroups
     ((1, 130, 67, 64), 100, False, False),  # the same, ragged: its third warpgroup owns two rows
+    ((1, 64, 1, 512), 64, False, False),  # one pair of CTAs each way, one stream step
+    ((1, 200, 1, 512), 130, False, False),  # ragged q and kv, more steps than the ring's two stages
+    ((2, 300, 2, 512), 300, False, True),
 ]
-NEW_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel")
+NEW_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_reduce_kernel",
+               "flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
 
 
 def _randn(shape, seed, dtype):
@@ -264,8 +271,10 @@ def main(argv=None):
         lse = lse.contiguous()
         splits = (FA.dkv_splits(b, h, sq, skv, d, sms)
                   if dtype == bf16 and d in FA._SPLIT_HEAD_DIMS else 1)
+        grid = (f"dQ / dK/dV CTAs {' / '.join(map(str, FA.wide_bwd_ctas(b, h, sq, skv)))}"
+                if dtype == bf16 and d == 512 else f"dK/dV q loop in {splits}")
         label = (f"q{list(shape)} kv{skv}" + ("" if dtype == bf16 else " f32") + (" packed" if packed else "")
-                 + f" (dK/dV q loop in {splits})")
+                 + f" ({grid})")
         tol = TOL if dtype == bf16 else TOL_F32
         for tag, launchers in builds.items():
             scaled, err_delta, same = _check(launchers, qo, ko, vo, oo, lse, go, ref, delta_ref, scale)

@@ -101,7 +101,10 @@ def _dkv_chunked_plain(q, k, v, out, lse, dout, scale, splits):
 
 def test_split_tile_sizes_match_the_kernel_source():
     """dkv_splits counts blocks and q tiles with the dK/dV kernel's own tile
-    sizes: HO of its launcher and the streamed tile HS in the CUDA source."""
+    sizes: HO of its launcher and the streamed tile HS in the CUDA source; and
+    wide_bwd_ctas counts the D = 512 kernels' CTAs with theirs: WROWS rows a
+    tile, a cluster of two CTAs along grid x, and WCOLS = WD / 2 columns a
+    dK/dV CTA holds (the split _wide_pair_plain sums)."""
     import re
     from pathlib import Path
 
@@ -109,6 +112,25 @@ def test_split_tile_sizes_match_the_kernel_source():
     assert int(re.search(r"constexpr int HS = (\d+);", src).group(1)) == TFA.Q_TILE_ROWS
     launcher = src[src.index("int launch_dkv_wgmma("):]
     assert int(re.search(r"constexpr int HO = (\d+);", launcher).group(1)) == TFA.DKV_BLOCK_ROWS
+    wd = int(re.search(r"constexpr int WD = (\d+);", src).group(1))
+    assert int(re.search(r"constexpr int WROWS = (\d+);", src).group(1)) == TFA.WIDE_BWD_ROWS
+    assert "constexpr int WCOLS = WD / 2;" in src and wd // 2 == TFA.WIDE_BWD_COLS
+    assert src.count("__cluster_dims__(2, 1, 1)") == 2
+    for rows in ("Sq", "Skv"):
+        assert f"dim3 grid(2, ({rows} + WROWS - 1) / WROWS, B * H);" in src, rows
+
+
+@pytest.mark.parametrize("sq,waves,fill", [(4096, 1, 0.96), (16384, 4, 0.87)], ids=["512px", "1024px"])
+def test_wide_bwd_pairs_fill_the_card_without_a_split(sq, waves, fill):
+    """The bf16 backward at head dim 512 (the VAE mid block's single head,
+    self-attention) launches a pair of CTAs for each 64-row owned tile and
+    does not split its streamed loop: at 4096 tokens 128 CTAs, one wave of an
+    H100's 132 SMs; at 16,384 tokens 512, whose last of four waves is 0.88
+    full."""
+    dq, dkv = TFA.wide_bwd_ctas(1, 1, sq, sq)
+    assert dq == dkv == 2 * -(-sq // TFA.WIDE_BWD_ROWS)
+    assert -(-dq // H100_SMS) == waves and dq / (waves * H100_SMS) >= fill
+    assert TFA.wide_bwd_ctas(2, 3, 300, 77) == (2 * 5 * 6, 2 * 2 * 6)
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d,split", [
@@ -273,6 +295,19 @@ def test_group_norm_silu_function_matches_autograd_through_plain(shape, groups, 
 D512_BF16_TOL = 2.0 ** -7
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_d512(dtype_name):
+    """(out, (dq, dk, dv)) of flash_attention_bshd in interpret mode and
+    jax.vjp of it at the VAE mid block's single 512-wide head, ragged (300
+    tokens), inputs _operands((1, 300, 1, 512), 300, 5) in ``dtype_name``
+    ("float32" or "bfloat16"), computed once per module run."""
+    q, k, v, g = _operands((1, 300, 1, 512), 300, 5)
+    out_ref, grads_ref = jax_once(
+        lambda a, b, c, gg: (lambda o, vjp: (o, vjp(gg)))(*jax.vjp(JFA.flash_attention_bshd, a, b, c)),
+        *(jnp.asarray(a, dtype_name) for a in (q, k, v, g)))
+    return out_ref, grads_ref
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_d512_matches_pallas_interpret(dtype):
     """The VAE mid block's single 512-wide head, ragged (300 tokens): the
@@ -280,10 +315,7 @@ def test_flash_d512_matches_pallas_interpret(dtype):
     function, plain versions on the CPU) against flash_attention_bshd in
     interpret mode and jax.vjp of it."""
     q, k, v, g = _operands((1, 300, 1, 512), 300, 5)
-    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
-    out_ref, grads_ref = jax_once(
-        lambda a, b, c, gg: (lambda o, vjp: (o, vjp(gg)))(*jax.vjp(JFA.flash_attention_bshd, a, b, c)),
-        *(jnp.asarray(a, jdt) for a in (q, k, v, g)))
+    out_ref, grads_ref = _pallas_d512(str(dtype)[6:])
     assert TFA.supports(512, dtype)
     leaves = [t(a).to(dtype).requires_grad_() for a in (q, k, v)]
     out = TFA.flash_attention(*leaves)
@@ -296,6 +328,42 @@ def test_flash_d512_matches_pallas_interpret(dtype):
         else:
             err = np.abs(got.float().numpy() - want).max()
             assert err <= D512_BF16_TOL * np.abs(want).max(), (name, err)
+
+
+def _wide_pair_plain(q, k, v, out, lse, dout, scale):
+    """(dq, dk, dv) summed as the D = 512 dK/dV kernel's pair of CTAs sums
+    them, in tensor code: each CTA's partial scores S_c and dP_c over its
+    WIDE_BWD_COLS columns of D, added (S = S_0 + S_1), then each CTA's columns
+    of the outputs from the whole P and dS (dq too, which the dQ kernel's pair
+    forms from unsplit products)."""
+    b, sq, h, d = q.shape
+    qh, kh, vh, oh, gh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, out, dout))
+    cols = [slice(c, c + TFA.WIDE_BWD_COLS) for c in range(0, d, TFA.WIDE_BWD_COLS)]
+    assert len(cols) == 2
+    s = sum(torch.matmul(qh[..., c], kh[..., c].transpose(-1, -2)) for c in cols)
+    dp = sum(torch.matmul(gh[..., c], vh[..., c].transpose(-1, -2)) for c in cols)
+    p = torch.exp(s * scale - lse.reshape(b, h, sq, 1))
+    ds = p * (dp - (gh * oh).sum(dim=-1, keepdim=True))
+    dq = torch.cat([torch.matmul(ds, kh[..., c]) for c in cols], dim=-1) * scale
+    dk = torch.cat([torch.matmul(ds.transpose(-1, -2), qh[..., c]) for c in cols], dim=-1) * scale
+    dv = torch.cat([torch.matmul(p.transpose(-1, -2), gh[..., c]) for c in cols], dim=-1)
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+def test_wide_pair_sum_matches_plain_and_pallas():
+    """The D = 512 dK/dV kernel's split of the score products over the two
+    CTAs of a pair, in f32 tensor code at the VAE mid block's ragged 300-token
+    head:
+    against the unsplit plain backward (1e-5: the same sums in another order)
+    and against the Pallas kernels in interpret mode (FLASH_TOL, the reference
+    test_flash_d512_matches_pallas_interpret computed)."""
+    q, k, v, g = (t(a) for a in _operands((1, 300, 1, 512), 300, 5))
+    out, lse = TFA.flash_attention_plain(q, k, v, return_lse=True)
+    got = _wide_pair_plain(q, k, v, out, lse, g, 512 ** -0.5)
+    want = TFA.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    for name, a, w, ref in zip(("dq", "dk", "dv"), got, want, _pallas_d512("float32")[1]):
+        assert_close(a, w.numpy(), 1e-5, name)
+        assert_close(a, np.asarray(ref), FLASH_TOL, name)
 
 
 def test_encoder_mid_attention_gradient_goes_through_flash(monkeypatch):

@@ -143,7 +143,9 @@ def test_backward_kernels_hold_no_atomics_and_no_library_calls():
     """The dQ and dK/dV kernels fix the order of every sum: their source
     holds no atomic operation and no library product. The bf16 kernels at head
     dims 64 and 128 are the TMA + wgmma ones (with the fixed-order reduction of
-    the split dK/dV partials), and the mma.sync kernels they replaced are gone."""
+    the split dK/dV partials), those at 512 the same on clusters of two CTAs
+    that add each other's partial scores, and the mma.sync kernels they
+    replaced are gone."""
     src = (ROOT / "omgsr_tpu_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
     code = "\n".join(l.split("//")[0] for l in src.splitlines())
     assert "flash_bwd_dq_kernel" in code and "flash_bwd_dkv_kernel" in code
@@ -154,6 +156,19 @@ def test_backward_kernels_hold_no_atomics_and_no_library_calls():
     for gone in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel", "launch_dq_mma", "launch_dkv_mma"):
         assert gone not in code, gone
     assert '#include "sm90.cuh"' in code and "__grid_constant__ CUtensorMap" in code
+    # at D = 512 the TMA + wgmma kernels on clusters of two CTAs; the mma.sync kernels (ldmatrix
+    # fragments from padded rows staged by all threads, products from registers) are gone
+    for kernel in ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel"):
+        assert kernel in code, kernel
+    for gone in ("flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel", "launch_dq_wide(", "launch_dkv_wide(",
+                 "wide_dq_smem_bytes", "wide_dkv_smem_bytes", "mma_bf16(", "ldmatrix", "stage_rows_bf16"):
+        assert gone not in code, gone
+    assert "__cluster_dims__(2, 1, 1)" in code and "wgmma_rs_m64n256k16_tb(" in code
+    assert "mapa_shared(" in code and "st_async_v4(" in code and "mbar_wait_cluster(" in code
+    sm90 = "\n".join(l.split("//")[0] for l in (ROOT / "omgsr_tpu_torch" / "csrc" / "sm90.cuh").read_text().splitlines())
+    for instruction in ("mapa.shared::cluster", "st.async.shared::cluster", "mbarrier.arrive.release.cluster",
+                        "acquire.cluster", "barrier.cluster.arrive"):
+        assert instruction in sm90, instruction
 
 
 def test_forward_kernels_hold_no_atomics_and_no_library_calls():
