@@ -44,6 +44,16 @@ them. Phases, each of which must pass:
            256x256 latent) counted; each route's VAE stages against the
            full-image VAE at 2048 px, the fast route's also against its plain
            versions; latency, stage times and peak memory of each route
+  load     OMGSR-S from a checkpoint directory on disk: the same weights and a
+           seeded SD2.1 CLIP text encoder written in the published layout (f32;
+           the UNet in two shards with an index) with a synthetic vocabulary of
+           the published size, each component ported back and held to the
+           weights written; cli.infer_omgsr_s.main on four images (--prompt "",
+           bf16, the adapters the train phase exported) against the in-memory
+           pipeline on the same merged weights and embeddings, its launches
+           against the structure's; a server built from --sd_path against the
+           CLI's image; build_frozen_s and encode_fixed_prompt on the same
+           directory (and a ConvNeXt-L .pth)
 
 Where the VAE mid block's 512-wide head is timed, it is also timed on the
 route it took before the flash kernels took head dim 512 (explicit matmul
@@ -61,6 +71,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -73,30 +84,39 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from omgsr_tpu_torch.cli import infer_omgsr_s as infer_cli
 from omgsr_tpu_torch.cli import serve as serve_cli
 from omgsr_tpu_torch.cli import train_omgsr_s as train_cli
+from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
 from omgsr_tpu_torch.config import TrainConfig
-from omgsr_tpu_torch.convert.params import init_convnext, init_unet, init_vae
+from omgsr_tpu_torch.convert import porters
+from omgsr_tpu_torch.convert.params import init_convnext, init_unet, init_vae, to_hf_state_dict
 from omgsr_tpu_torch.diffusion.tiling import tile_grid_2d
 from omgsr_tpu_torch.inference import tiled_vae as TTV
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
 from omgsr_tpu_torch.inference.tiled import auto_tile_batch
+from omgsr_tpu_torch.lora import merge_lora
 from omgsr_tpu_torch.losses.dists import init_dists
-from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, SD21_UNET, SD21_VAE
+from omgsr_tpu_torch.models.clip_text import clip_text_apply, init_clip_text
+from omgsr_tpu_torch.models.clip_tokenizer import CLIPTokenizer
+from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, SD21_CLIP, SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.models.layers import count_params
 from omgsr_tpu_torch.ops import attention as ATT
 from omgsr_tpu_torch.ops import conv3x3 as C3
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
+from omgsr_tpu_torch.ops.color import adain_color_fix
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
 from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.tools import check_group_norm as K3
+from omgsr_tpu_torch.tools.sd_checkpoint import synthetic_bpe, write_sd_checkpoint
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
 from omgsr_tpu_torch.training.trainer import draw_step_noise, grads_of
-from omgsr_tpu_torch.utils.tree import flatten_dict
+from omgsr_tpu_torch.utils.image_io import load_image_rgb, postprocess_sr_output, preprocess_sr_input
+from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet; f32 without tensor cores)
 PEAK_BYTES_PER_S = K1.PEAK_BYTES_PER_S
@@ -227,7 +247,7 @@ FLASH_SHAPES = [
     # (B, Sq, H, D), Skv, dtype, on the serving path?, q/k/v as views of one packed tensor?
     # bf16: the shapes of tools/check_flash_fwd.py, at D = 64 and 128 (K1_SHAPES) and at
     # 512 (K1_WIDE_SHAPES: the VAE mid block's single head at 512, 1024 and 2048 px, the
-    # fast tiled decode's window, ragged packed); f32 ragged
+    # fast tiled decode's window, the padded 640x512 request, ragged packed); f32 ragged
     *((shape, skv, torch.bfloat16, on_path, packed) for shape, skv, on_path, packed in K1.K1_SHAPES),
     ((2, 300, 1, 64), 300, torch.float32, False, False),
     *((shape, skv, torch.bfloat16, on_path, packed) for shape, skv, on_path, packed in K1.K1_WIDE_SHAPES),
@@ -242,7 +262,9 @@ GN_SHAPES = K3.GN_SHAPES  # (B, H, W, C), groups, dtype, on the serving path?
 flash_plain_in_chunks = K1.flash_plain_in_chunks
 
 
-def check_flash(shape, skv, dtype, seed, packed=False):
+def check_flash(shape, skv, dtype, seed, packed=False, timed=True):
+    """K1 through its wrapper (with the kv split and merge it picks) against the
+    plain version at one shape; with ``timed`` also its times and bound."""
     b, sq, h, d = shape
     if packed:  # (B, S, 3, H, D): the kernel must take the views as they are
         assert skv == sq
@@ -264,13 +286,16 @@ def check_flash(shape, skv, dtype, seed, packed=False):
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     assert scaled <= TOL[dtype], f"flash_attention {shape} kv {skv} {dtype}: scaled err {scaled}"
     assert err_lse <= TOL_LSE, f"flash_attention lse {shape} kv {skv}: max abs err {err_lse}"
+    label = f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + (" packed qkv" if packed else "")
+    if not timed:
+        return {"shape": label, "max_abs_err": err, "max_err_over_max_ref": scaled, "max_abs_err_lse": err_lse}
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     flops = 4.0 * b * h * sq * skv * d
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + lse.numel() * 4
     t_flops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     iters = 5 if sq * skv * d > 2 ** 36 else 20
     row = {
-        "shape": f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + (" packed qkv" if packed else ""),
+        "shape": label,
         "max_abs_err": err,
         "max_err_over_max_ref": scaled,
         "max_abs_err_lse": err_lse,
@@ -353,11 +378,13 @@ def check_fold(shape, seed):
     }
 
 
-def check_group_norm(shape, groups, dtype, seed):
+def check_group_norm(shape, groups, dtype, seed, affine_dtype=None, timed=True):
+    """K3a and K3b (with and without SiLU) against their plain versions at one
+    shape -> (stats row, apply row); with ``timed`` also their times and bounds."""
     b, hh, ww, c = shape
     x = randn(shape, dtype, seed) * 2 + 0.5
-    weight = randn((c,), dtype, seed + 1) * 0.1 + 1
-    bias = randn((c,), dtype, seed + 2) * 0.1
+    weight = randn((c,), affine_dtype or dtype, seed + 1) * 0.1 + 1
+    bias = randn((c,), affine_dtype or dtype, seed + 2) * 0.1
     eps = 1e-6
     ref_sums = GN.group_norm_stats_plain(x, groups)[:, 0]
     partial = GN.group_norm_stats(x, groups)
@@ -379,6 +406,9 @@ def check_group_norm(shape, groups, dtype, seed):
         errs[silu] = max(err, err_f)
         assert max(scaled, scaled_f) <= TOL[dtype], \
             f"group_norm_apply {shape} silu={silu}: scaled err {max(scaled, scaled_f)}"
+    label = f"x{list(shape)} G{groups} {str(dtype)[6:]}"
+    if not timed:
+        return {"shape": label, "max_abs_err": err_sums}, {"shape": label, "max_abs_err": max(errs.values())}
     xc = x.permute(0, 3, 1, 2)  # channels_last view for the library calls
     nbytes = x.numel() * x.element_size()
     small = partial.numel() * 4
@@ -388,7 +418,6 @@ def check_group_norm(shape, groups, dtype, seed):
     t_stats = ((nbytes + small) / PEAK_BYTES_PER_S, 3 * x.numel() / f32_rate)
     t_apply = ((2 * nbytes + small + 2 * c * weight.element_size()) / PEAK_BYTES_PER_S,
                6 * x.numel() / f32_rate)
-    label = f"x{list(shape)} G{groups} {str(dtype)[6:]}"
     iters = 5 if x.numel() > 2 ** 28 else 20  # the 2K row's plain versions take tens of ms a call
     stats = {
         "shape": label,
@@ -1297,7 +1326,7 @@ def moved(tree, before):
     return any(not torch.equal(v.detach(), before[p]) for p, v in flatten_dict(tree).items())
 
 
-def phase_train(card, vae_params, unet_params, profile=False):
+def phase_train(card, vae_params, unet_params, work_dir, profile=False):
     dtype = torch.bfloat16
     t0 = time.perf_counter()
     cn_cfg = CONVNEXT_SIZES["large"]
@@ -1321,25 +1350,32 @@ def phase_train(card, vae_params, unet_params, profile=False):
         return {"lq": lq, "hq": hq}
 
     loader = [pair(10 + i) for i in range(4)]
-    with tempfile.TemporaryDirectory() as out_dir:
-        cfg = TrainConfig(
-            output_dir=out_dir, resolution=512, train_batch_size=1, vae_lora_rank=16, unet_lora_rank=32,
-            mixed_precision="bf16", gradient_accumulation_steps=2, max_train_steps=2, lr_warmup_steps=0,
-            checkpointing_steps=1000, save_img_steps=1000, seed=123,
-            extra={"disc_channels": list(cn_cfg.dims[:3]), "metrics_jsonl": f"{out_dir}/metrics.jsonl"},
-        )
-        expect = micro_step_counts(SD21_VAE, SD21_UNET)
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer = train_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        lines = [json.loads(l) for l in open(f"{out_dir}/metrics.jsonl")]
-        ckpt = latest_checkpoint(out_dir)
-        assert ckpt is not None and ckpt.endswith("checkpoint-2.pt"), ckpt
+    out_dir = os.path.join(work_dir, "train")  # kept: the load phase serves the adapters exported here
+    cfg = TrainConfig(
+        output_dir=out_dir, resolution=512, train_batch_size=1, vae_lora_rank=16, unet_lora_rank=32,
+        mixed_precision="bf16", gradient_accumulation_steps=2, max_train_steps=2, lr_warmup_steps=0,
+        checkpointing_steps=1000, save_img_steps=1000, seed=123,
+        extra={"disc_channels": list(cn_cfg.dims[:3]), "metrics_jsonl": f"{out_dir}/metrics.jsonl"},
+    )
+    expect = micro_step_counts(SD21_VAE, SD21_UNET)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lines = [json.loads(l) for l in open(f"{out_dir}/metrics.jsonl")]
+    ckpt = latest_checkpoint(out_dir)
+    assert ckpt is not None and ckpt.endswith("checkpoint-2.pt"), ckpt
+    # the adapters of the last step, in the reference's layout, and the LoRA tree they hold
+    export = {"dir": os.path.join(out_dir, "weight-2"),
+              "lora": {part: {p: v.detach().clone() for p, v in flatten_dict(tree).items()}
+                       for part, tree in trainer.state["gen"]["lora"].items()}}
+    for name in ("vae_encoder_lora_adapter", "unet_lora_adapter"):
+        assert sorted(os.listdir(os.path.join(export["dir"], name))) == [
+            "adapter_config.json", "adapter_model.safetensors"], name
     n_lora = sum(v.numel() for v in flatten_dict(trainer.state["gen"]["lora"]).values())
     n_heads = sum(v.numel() for v in flatten_dict(trainer.state["disc"]["params"]).values())
     print(f"train: run_training took 2 optimizer steps (4 micro-steps) in {wall:.2f} s; trainable "
@@ -1439,7 +1475,7 @@ def phase_train(card, vae_params, unet_params, profile=False):
     timings = {"train_micro_step_s": s_per, "train_G_ms": g_ms, "train_D_ms": d_ms,
                "train_host_enqueue_ms": enqueue_ms, "train_peak_memory_GiB": peak / 2**30,
                **{f"train_{k.replace(' ', '_')}_ms": v for k, v in stages.items()}, **encoder}
-    return counts, timings
+    return counts, timings, export
 
 
 def encoder_step_mid_head_routes(trainer, batch, noise, card):
@@ -1627,6 +1663,245 @@ def phase_serve_tiled(card, vae_params, unet_params):
     return total, timings
 
 
+# ----------------------------------------------------------------------------
+# phase: load
+# ----------------------------------------------------------------------------
+
+# (W, H) of the CLI's inputs: three 512x512 outputs and one whose prepared size (608x512 after the
+# min-side guard, upscale and snap) the 64 px size bucket pads to 640x512
+LOAD_INPUTS = [(128, 128)] * 3 + [(120, 100)]
+
+
+def same_tree(a, b, dtype=None):
+    """Every leaf of b equals a's, cast to ``dtype``, bit for bit."""
+    fa, fb = flatten_dict(a), flatten_dict(b)
+    return set(fa) == set(fb) and all(torch.equal(fa[p].to(dtype or fa[p].dtype), fb[p]) for p in fa)
+
+
+def ported_component(name, fn, path, written, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = fn(path, device="cuda", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nbytes = written[1]
+    print(f"load: ported {name}: {nbytes / 1e9:.3f} GB in {dt:.3f} s, {nbytes / 1e9 / dt:.2f} GB/s "
+          f"(files in the page cache -> the card)", flush=True)
+    return tree, dt
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """The shapes at which K1 (its kv split and merge included) and K3a/K3b
+    launch inside the block: {"flash": {(shape, Skv, dtype)}, "gn": {(shape,
+    groups, dtype): the affine dtype}}."""
+    seen = {"flash": set(), "gn": {}}
+    forward, stats, apply = FA._forward, GN._launch_stats, GN._launch_apply
+
+    def seen_forward(q, k, v, scale):
+        if q.is_cuda:
+            seen["flash"].add((tuple(q.shape), k.shape[1], q.dtype))
+        return forward(q, k, v, scale)
+
+    def seen_stats(x, geo, groups):
+        seen["gn"].setdefault((tuple(x.shape), groups, x.dtype), x.dtype)
+        return stats(x, geo, groups)
+
+    def seen_apply(x, partial, weight, *a):
+        seen["gn"][(tuple(x.shape), a[2], x.dtype)] = weight.dtype
+        return apply(x, partial, weight, *a)
+
+    FA._forward, GN._launch_stats, GN._launch_apply = seen_forward, seen_stats, seen_apply
+    try:
+        yield seen
+    finally:
+        FA._forward, GN._launch_stats, GN._launch_apply = forward, stats, apply
+
+
+def hold_launch_shapes(seen, seed):
+    """K1 and K3a/K3b against their plain versions (the kernels phase's checks,
+    untimed) at each shape in ``seen`` that FLASH_SHAPES and GN_SHAPES do not
+    list -> ({kernel: shapes launched}, [(kernel, row) of each shape held])."""
+    listed_flash = {(shape, skv, dtype) for shape, skv, dtype, _, _ in FLASH_SHAPES}
+    listed_gn = {(shape, groups, dtype) for shape, groups, dtype, _ in GN_SHAPES}
+    held = []
+    for i, (shape, skv, dtype) in enumerate(sorted(seen["flash"] - listed_flash, key=str)):
+        held.append(("flash_attention_fwd", check_flash(shape, skv, dtype, seed + 10 * i, timed=False)))
+    extra = sorted(((k, a) for k, a in seen["gn"].items() if k not in listed_gn or a != k[2]), key=str)
+    for i, ((shape, groups, dtype), affine) in enumerate(extra):
+        s, a = check_group_norm(shape, groups, dtype, seed + 5000 + 10 * i, affine, timed=False)
+        held += [("group_norm_stats", s), ("group_norm_apply", a)]
+    return {"flash_attention_fwd": len(seen["flash"]), "group_norm": len(seen["gn"])}, held
+
+
+def phase_load(card, vae_params, unet_params, export, work_dir):
+    """OMGSR-S from a checkpoint directory on disk: an SD2.1-base directory at
+    full width written by the port's writer, ported back, its text encoder run
+    on the empty prompt, then cli.infer_omgsr_s.main, cli.serve.build_server
+    --sd_path and cli.train_omgsr_s.build_frozen_s on it."""
+    from PIL import Image
+
+    dtype = torch.bfloat16
+    root = os.path.join(work_dir, "sd21")
+    torch.cuda.reset_peak_memory_stats()
+    clip_params = init_clip_text(3, SD21_CLIP, torch.float32, "cuda")
+    vocab, merges = synthetic_bpe()
+    assert len(vocab) == SD21_CLIP.vocab_size and (vocab["<|startoftext|>"], vocab["<|endoftext|>"], vocab["!"]) == (
+        49406, 49407, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = write_sd_checkpoint(root, vae_params, SD21_VAE, unet_params, SD21_UNET, clip_params, SD21_CLIP,
+                                  (vocab, merges), torch.float32, unet_shards=2)
+    write_s = time.perf_counter() - t0
+    unet_files = sorted(os.listdir(os.path.join(root, "unet")))
+    assert unet_files == ["config.json", "diffusion_pytorch_model-00001-of-00002.safetensors",
+                          "diffusion_pytorch_model-00002-of-00002.safetensors",
+                          "diffusion_pytorch_model.safetensors.index.json"], unet_files
+    print(f"load: SD2.1-base checkpoint written in f32 in {write_s:.2f} s (text encoder "
+          f"{count_params(clip_params) / 1e6:.1f}M parameters from a seed, vocabulary {len(vocab)} entries): "
+          + ", ".join(f"{k} {b / 1e9:.3f} GB in {t:.2f} s" for k, (t, b) in written.items()) + f" [{card}]",
+          flush=True)
+
+    # each component through its porter, timed, and held to the weights written
+    vae_p, vae_s = ported_component("vae", porters.port_diffusers_vae, os.path.join(root, "vae"), written["vae"],
+                                    cfg=SD21_VAE, dtype=dtype)
+    unet_p, unet_s = ported_component("unet (index + 2 shards)", porters.port_diffusers_unet,
+                                      os.path.join(root, "unet"), written["unet"], cfg=SD21_UNET, dtype=dtype)
+    clip_p, clip_s = ported_component("text_encoder", porters.port_clip_text, os.path.join(root, "text_encoder"),
+                                      written["text_encoder"], cfg=SD21_CLIP, dtype=torch.float32)
+    assert same_tree(vae_params, vae_p, dtype) and same_tree(unet_params, unet_p, dtype)
+    assert same_tree(clip_params, clip_p)
+    del vae_p, unet_p
+
+    # the text encoder on the empty prompt: the CLI's function against the in-memory encoder
+    tok = CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer"))
+    ids = tok("").to("cuda")
+    assert ids.shape == (1, 77) and ids[0, :3].tolist() == [49406, 49407, 0], ids[0, :4]
+    with torch.no_grad():
+        ref_hidden, pooled = clip_text_apply(clip_params, SD21_CLIP, ids)
+        encode_ms = time_ms(lambda: clip_text_apply(clip_p, SD21_CLIP, ids), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hidden = encode_prompt_sd(root, "", torch.float32, "cuda")
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    err = (hidden - ref_hidden).abs().max().item()
+    assert hidden.shape == (1, 77, 1024) and torch.isfinite(hidden).all() and err <= 1e-5, err
+    assert pooled.shape == (1, 1024) and torch.equal(pooled, ref_hidden[:, 1])
+    embeds = hidden.to(dtype)
+    print(f"load: text encoder on the empty prompt: {encode_ms:.3f} ms on the device (f32, 77 tokens); "
+          f"encode_prompt_sd {prompt_s:.2f} s with its tokenizer and port; against the in-memory encoder max abs "
+          f"{err:.3g} [{card}]", flush=True)
+    del clip_p
+
+    # the inference CLI in-process, with the adapters the train phase exported
+    rng = np.random.default_rng(7)
+    img_dir, out_dir = os.path.join(work_dir, "load_inputs"), os.path.join(work_dir, "load_outputs")
+    os.makedirs(img_dir)
+    names = []
+    for i, (w, h) in enumerate(LOAD_INPUTS):
+        names.append(os.path.join(img_dir, f"img{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(names[-1])
+    prepared = [preprocess_sr_input(load_image_rgb(n), 512, 4, 64) for n in names]
+    sizes = [item[0].shape[1:3] for item in prepared]
+    assert sizes[-1] == (512, 640) and prepared[-1][4] == (512, 608) and prepared[-1][2], sizes
+    tile, overlap = 512 // 8, 512 // 16
+    expect = expected_launches(sizes, structure_counts(SD21_VAE, SD21_UNET), tile, overlap, SD21_VAE.downscale)
+    args = infer_cli.parse_args(["--input_image", img_dir, "--output_dir", out_dir, "--sd_path", root,
+                                 "--lora_path", export["dir"], "--prompt", "", "--weight_dtype", "bf16",
+                                 "--process_size", "512", "--mid_timestep", "273"])
+    log = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with launch_shapes() as seen, contextlib.redirect_stdout(log):
+        infer_cli.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if k in expect}
+    per_image = [float(v) for v in re.findall(r"Inference time per image: (\S+)s", log.getvalue())]
+    assert len(per_image) == len(names), log.getvalue()
+    print(f"load: infer_omgsr_s.main answered {len(names)} images ({', '.join(f'{w}x{h}' for w, h in LOAD_INPUTS)}) "
+          f"in {cli_s:.2f} s with the checkpoint's load; launches {counts}; the structure predicts {expect}",
+          flush=True)
+    assert counts == expect and expect["flash_attention_fwd"] > 0 and expect["group_norm_stats"] > 0, counts
+    # every shape the CLI launched the kernels at, held against the plain versions (after the count)
+    n_seen, held = hold_launch_shapes(seen, 3000)
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
+    for name, r in held:
+        print(f"load: {name} {r['shape']} (launched by the CLI, not listed by the kernels phase): err "
+              f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
+    n_held = sum(name == "flash_attention_fwd" for name, _ in held)
+    print(f"load: the CLI launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
+          f"{n_seen['group_norm']}; those the kernels phase does not list ({n_held} and "
+          f"{(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
+
+    # the in-memory pipeline on the same merged weights and embeddings, with the CLI's noise (seed = index)
+    lora = {part: unflatten_dict(flat) for part, flat in export["lora"].items()}
+    vae_m = {**vae_params, "encoder": merge_lora(vae_params["encoder"], lora["vae_encoder"])}
+    pipe = OMGSRSPipeline(vae_m, merge_lora(unet_params, lora["denoiser"]), SD21_VAE, SD21_UNET, 273, device="cuda")
+    cli_out = []
+    for i, (name, (lq, src01, resize_flag, orig, true_hw)) in enumerate(zip(names, prepared)):
+        with torch.inference_mode():
+            out = pipe(torch.from_numpy(lq).to("cuda", dtype), embeds, tile, overlap,
+                       generator=torch.Generator(device="cuda").manual_seed(i), sample_latent=True)
+            ref = np.asarray(postprocess_sr_output(out, src01, true_hw, adain_color_fix, resize_flag, orig, 4))
+        got = np.asarray(Image.open(os.path.join(out_dir, os.path.basename(name))))
+        cli_out.append(got)
+        d = np.abs(got.astype(int) - ref.astype(int))
+        w, h = LOAD_INPUTS[i]
+        assert got.shape == ref.shape == (4 * h, 4 * w, 3) and got.std() > 1.0, (got.shape, ref.shape)
+        assert d.max() <= 1, (name, d.max(), d.mean())
+    print(f"load: the CLI's {len(names)} PNGs against the in-memory pipeline on the same merged weights and "
+          f"prompt embeddings: within 1 uint8 step", flush=True)
+    del pipe, vae_m
+
+    # a server from --sd_path: its first request (index 1) draws the noise of the CLI's second image
+    sargs = serve_cli.parse_args(["--sd_path", root, "--lora_path", export["dir"], "--prompt", "",
+                                  "--weight_dtype", "bf16", "--process_size", "512", "--mid_timestep", "273",
+                                  "--port", "0"])
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(sargs)
+    build_s = time.perf_counter() - t0
+    try:
+        with open(names[1], "rb") as f:
+            body = f.read()
+        reply = np.asarray(Image.open(io.BytesIO(server.process_image(body, "adain"))))
+    finally:
+        server.shutdown()
+    d = np.abs(reply.astype(int) - cli_out[1].astype(int))
+    print(f"load: serve --sd_path built in {build_s:.2f} s; one request against the CLI's image: max "
+          f"{d.max()} uint8 steps", flush=True)
+    assert reply.shape == cli_out[1].shape and d.max() <= 1, d.max()
+
+    # the training CLI's frozen bundle and fixed prompt from the same directory (and a DINOv3 ConvNeXt-L .pth)
+    cn_cfg = CONVNEXT_SIZES["large"]
+    backbone = init_convnext(2, cn_cfg, dtype, "cuda", with_final_norm=True)
+    pth = os.path.join(work_dir, "dinov3_convnext_large.pth")
+    torch.save({"model": {k: v.float().cpu() for k, v in to_hf_state_dict(backbone).items()}}, pth)
+    cfg = TrainConfig(sd_path=root, mixed_precision="bf16", extra={"dinov3_weights_path": pth})
+    t0 = time.perf_counter()
+    frozen, got_cn = train_cli.build_frozen_s(cfg, dtype, device="cuda")
+    fixed = train_cli.encode_fixed_prompt(cfg, dtype, device="cuda")
+    torch.cuda.synchronize()
+    frozen_s = time.perf_counter() - t0
+    assert got_cn == cn_cfg and frozen["vae_cfg"] == SD21_VAE and frozen["unet_cfg"] == SD21_UNET
+    assert same_tree(vae_params, frozen["vae"], dtype) and same_tree(unet_params, frozen["unet"], dtype)
+    assert same_tree(backbone, frozen["backbone"], dtype)
+    assert fixed.shape == (1, 77, 1024) and torch.isfinite(fixed.float()).all() and torch.equal(fixed, embeds)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"load: build_frozen_s + encode_fixed_prompt in {frozen_s:.2f} s (VAE, UNet and ConvNeXt-L equal to "
+          f"the written weights in bf16; the fixed prompt's embeddings (1, 77, 1024), finite)", flush=True)
+    s_per_image = statistics.mean(per_image[1:])
+    print(f"timings: load phase: checkpoint written in {write_s:.2f} s; ported vae {vae_s:.3f} s, unet "
+          f"{unet_s:.3f} s, text encoder {clip_s:.3f} s; text encoding {encode_ms:.3f} ms; CLI "
+          f"{s_per_image:.4f} s per image (first image excluded: {per_image[0]:.4f} s); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+    return counts, {"load_write_s": write_s, "load_port_vae_s": vae_s, "load_port_unet_s": unet_s,
+                    "load_port_text_encoder_s": clip_s, "load_text_encode_ms": encode_ms,
+                    "load_cli_s_per_image": s_per_image, "load_peak_memory_GiB": peak / 2**30}
+
+
 def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
     """With --profile: kernel time by name over one micro-step, and the idle
     share of the step (1 - busy / elapsed without the profiler)."""
@@ -1745,11 +2020,14 @@ def main():
     vae_params, unet_params = init_sd21(torch.bfloat16)
     serve_counts, timings = phase_serve(card, vae_params, unet_params, args.profile)
     fused_counts, fused_timings = phase_serve_fused(card, vae_params, unet_params, args.profile)
-    train_counts, train_timings = phase_train(card, vae_params, unet_params, args.profile)
-    tiled_counts, tiled_timings = phase_serve_tiled(card, vae_params, unet_params)
+    with tempfile.TemporaryDirectory() as work_dir:
+        train_counts, train_timings, export = phase_train(card, vae_params, unet_params, work_dir, args.profile)
+        tiled_counts, tiled_timings = phase_serve_tiled(card, vae_params, unet_params)
+        load_counts, load_timings = phase_load(card, vae_params, unet_params, export, work_dir)
     timings.update(fused_timings)
     timings.update(train_timings)
     timings.update(tiled_timings)
+    timings.update(load_timings)
 
     kernels = []
     for name, source, replaces, cuda_kernels in KERNELS:
@@ -1758,19 +2036,21 @@ def main():
             or shapes[name]
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
+        launches_load = load_counts.get(name, 0)
         if name in OFF_PATH:
-            assert launches_serve + launches_fused + launches_train + launches_tiled == 0, name
+            assert launches_serve + launches_fused + launches_train + launches_tiled + launches_load == 0, name
         elif name.startswith("conv3x3"):
-            assert launches_fused > 0 and launches_serve == launches_train == 0, name
+            assert launches_fused > 0 and launches_serve == launches_train == launches_load == 0, name
         elif name == "flash_attention_fwd_merge":  # the 512-px mid heads split their kv loop
-            assert launches_serve > 0 and launches_fused > 0 and launches_train > 0, name
+            assert launches_serve > 0 and launches_fused > 0 and launches_train > 0 and launches_load > 0, name
         else:
-            assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0)), name
+            assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0
+                                                             and launches_load > 0)), name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
-            "launches": launches_serve + launches_fused + launches_train + launches_tiled,
+            "launches": launches_serve + launches_fused + launches_train + launches_tiled + launches_load,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
-            "launches_train": launches_train, "launches_serve_tiled": launches_tiled,
+            "launches_train": launches_train, "launches_serve_tiled": launches_tiled, "launches_load": launches_load,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

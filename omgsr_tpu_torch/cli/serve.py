@@ -1,37 +1,34 @@
 """OMGSR serving daemon: a long-lived HTTP process around the -S pipeline.
 
     python -m omgsr_tpu_torch.cli.serve --pipeline s \
-        --sd_path /ckpts/sd21 --prompt_npz prompts.npz --port 8000 --warmup 128x128
+        --sd_path /ckpts/sd21 --lora_path /ckpts/omgsr_s --port 8000 --warmup 128x128
 
     curl -X POST --data-binary @lq.png \
         "http://localhost:8000/v1/sr?align=adain" -o sr.png
 
-The checkpoint load path is not ported yet, so ``--sd_path`` raises; until
-then ``build_server`` takes the pipeline's parameters (and optionally the
-prompt embeddings) in memory from its caller. Dispatch defaults to serial
-batch-1 with opt-in fixed-size micro-batching. ``--vae_tile N`` sends the VAE
-stages of images larger than N pixels through the tiled VAE, with
-``--vae_stats fast|exact|auto`` (see ``inference/pipeline_s.py``).
+The pipeline is built as the inference CLI builds it
+(``cli/infer_omgsr_s.build_pipeline``: configs and weights from ``--sd_path``,
+the adapters of ``--lora_path`` merged), and the prompt embeddings come from
+``--prompt_npz`` or from ``--prompt`` through the checkpoint's text encoder.
+``build_server`` also takes the parameters and the embeddings in memory from
+its caller. Dispatch defaults to serial batch-1 with opt-in fixed-size
+micro-batching. ``--vae_tile N`` sends the VAE stages of images larger than N
+pixels through the tiled VAE, with ``--vae_stats fast|exact|auto`` (see
+``inference/pipeline_s.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
 import torch
 
+from omgsr_tpu_torch.cli.infer_omgsr_s import build_pipeline, prompt_embeddings
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
 from omgsr_tpu_torch.models.configs import SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.serving.server import ServeOptions, SRServer, make_fused_infer
 from omgsr_tpu_torch.utils.devices import resolve_device
 from omgsr_tpu_torch.utils.dtypes import resolve_dtype
-
-
-def load_prompt_npz(path: str) -> dict:
-    """Pre-computed embeddings: npz with a prompt_embeds array."""
-    data = np.load(path)
-    return {k: torch.from_numpy(data[k]) for k in data.files}
 
 
 def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
@@ -43,28 +40,24 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     tile_size = args.process_size // 8
     tile_overlap = tile_size // 2
 
-    if params is None:
-        if args.sd_path:
-            raise NotImplementedError(
-                "--sd_path: loading SD2.1 checkpoints and LoRA adapters is not ported yet "
-                "(load-path slice); hand build_server the parameters in memory"
-            )
+    if params is None and not args.sd_path:
         raise ValueError("build_server needs --sd_path or an in-memory (vae_params, unet_params) pair")
     if prompt_embeds is None:
-        if not args.prompt_npz:
-            raise NotImplementedError(
-                "text encoding is not ported yet (load-path slice): pass --prompt_npz "
-                "or in-memory prompt embeddings"
-            )
-        prompt_embeds = load_prompt_npz(args.prompt_npz)["prompt_embeds"]
+        if not (args.prompt_npz or args.sd_path):
+            raise ValueError("build_server needs --prompt_npz, --sd_path (whose text encoder encodes "
+                             "--prompt) or in-memory prompt embeddings")
+        prompt_embeds = prompt_embeddings(args, dtype, device)
     prompt_embeds = torch.as_tensor(prompt_embeds).to(device=device, dtype=dtype)
 
-    vae_params, unet_params = params
-    vae_cfg, unet_cfg = configs
-    pipe = OMGSRSPipeline(
-        vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep,
-        vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
-    )
+    if params is None:
+        pipe = build_pipeline(args, dtype, device)
+    else:
+        vae_params, unet_params = params
+        vae_cfg, unet_cfg = configs
+        pipe = OMGSRSPipeline(
+            vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep,
+            vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
+        )
     sample = args.latent == "sample"
 
     def pipe_call(lq, i):
@@ -84,8 +77,8 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
 
 def build_server(args, params=None, configs=(SD21_VAE, SD21_UNET), prompt_embeds=None) -> SRServer:
     """``params``: an in-memory ``(vae_params, unet_params)`` pair in the
-    port's layout, with their ``configs``; required until ``--sd_path`` can
-    be loaded. ``prompt_embeds`` (1, S, C) overrides ``--prompt_npz``."""
+    port's layout, with their ``configs``, in place of ``--sd_path``.
+    ``prompt_embeds`` (1, S, C) overrides ``--prompt_npz`` and ``--prompt``."""
     dtype = resolve_dtype(args.weight_dtype)
     device = resolve_device(args.device)
     warmup = tuple(tuple(int(v) for v in s.split("x")) for s in (args.warmup or []))
@@ -129,7 +122,9 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="OMGSR serving daemon (PyTorch/CUDA)")
     parser.add_argument("--pipeline", type=str, default="s", choices=["s"],
                         help="only the -S pipeline is ported")
-    parser.add_argument("--sd_path", type=str, default=None, help="SD2.1 dir (not loadable yet)")
+    parser.add_argument("--sd_path", type=str, default=None, help="SD2.1 dir (HF layout)")
+    parser.add_argument("--lora_path", type=str, default=None,
+                        help="dir holding vae_encoder_lora_adapter/ and unet_lora_adapter/")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", type=str, default="cuda",
@@ -141,6 +136,7 @@ def parse_args(argv=None):
     parser.add_argument("--weight_dtype", type=str, default="bf16",
                         choices=["fp32", "bf16"],
                         help="the CUDA kernels take bf16 and f32")
+    parser.add_argument("--prompt", type=str, nargs="*", default="")
     parser.add_argument("--prompt_npz", type=str, default=None)
     parser.add_argument("--mid_timestep", type=int, default=273)
     parser.add_argument("--vae_tile", type=int, default=None,

@@ -8,12 +8,15 @@ LoRA(VAE-encoder rank 16, UNet rank 32) -> DISTS + multi-level discriminator
 full-state resume (the reference's resume is a TODO stub,
 train/train_omgsr_s.py:394-419).
 
-Loading the trained SD2.1 / DINOv3 weights and the prompt encoder from
-``cfg.sd_path`` is not ported yet (load-path slice), nor are the dataset and
-the Real-ESRGAN degradation (data slice): ``run_training`` takes the frozen
-bundle and an iterable of LQ/HQ pairs in memory, and ``main`` raises until
-those slices exist. Adapter export in the reference's directory layout also
-waits for the load-path slice.
+The frozen SD2.1 VAE and UNet come from ``cfg.sd_path``, the DINOv3
+ConvNeXt from ``cfg.extra["dinov3_weights_path"]`` (from a seed, with a
+warning, where none is set), and the fixed prompt's embeddings from
+``cfg.fixed_prompt_path`` or the checkpoint's text encoder. The adapters are
+exported in the reference's directory layout (``weight-{step}/``) at every
+checkpoint step and at the end. The dataset and the Real-ESRGAN degradation
+are not ported yet (data slice): ``run_training`` takes an iterable of LQ/HQ
+pairs in memory (and optionally the frozen bundle), and ``main`` stops at the
+loader until that slice exists.
 """
 
 from __future__ import annotations
@@ -35,18 +38,52 @@ logger = logging.getLogger("omgsr_tpu_torch.train")
 
 
 def build_frozen_s(cfg: TrainConfig, dtype, device="cuda"):
-    """Load the frozen model bundle for -S from cfg.sd_path."""
-    raise NotImplementedError(
-        "sd_path: loading SD2.1 / DINOv3 checkpoints is not ported yet (load-path slice); "
-        "hand run_training the frozen bundle in memory (frozen=...)"
-    )
+    """Load the frozen model bundle for -S from cfg.sd_path: (bundle, the
+    ConvNeXt config)."""
+    from omgsr_tpu_torch.convert.hf_config import unet_config_from_json, vae_config_from_json
+    from omgsr_tpu_torch.convert.params import init_convnext
+    from omgsr_tpu_torch.convert.porters import port_diffusers_unet, port_diffusers_vae, port_dinov3_convnext
+    from omgsr_tpu_torch.losses.dists import init_dists
+    from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES
+
+    device = resolve_device(device)
+    if not cfg.sd_path:
+        raise ValueError("cfg.sd_path is not set: name the SD2.1 checkpoint directory, or hand run_training "
+                         "the frozen bundle in memory (frozen=...)")
+    vae_dir = os.path.join(cfg.sd_path, "vae")
+    unet_dir = os.path.join(cfg.sd_path, "unet")
+    vae_cfg = vae_config_from_json(vae_dir)
+    unet_cfg = unet_config_from_json(unet_dir)
+    vae_params = port_diffusers_vae(vae_dir, cfg=vae_cfg, dtype=dtype, device=device)
+    unet_params = port_diffusers_unet(unet_dir, cfg=unet_cfg, dtype=dtype, device=device)
+
+    cn_cfg = CONVNEXT_SIZES[cfg.dinov3_convnext_size]
+    dinov3_path = cfg.extra.get("dinov3_weights_path")
+    if dinov3_path:
+        backbone = port_dinov3_convnext(dinov3_path, cfg=cn_cfg, dtype=dtype, device=device)
+    else:
+        logger.warning("no dinov3_weights_path set — using random ConvNeXt backbone")
+        backbone = init_convnext(0, cn_cfg, dtype, device)
+
+    return {
+        "vae": vae_params,
+        "vae_cfg": vae_cfg,
+        "unet": unet_params,
+        "unet_cfg": unet_cfg,
+        "backbone": backbone,
+        "dists": init_dists(backbone, cn_cfg.dims),
+    }, cn_cfg
 
 
 def encode_fixed_prompt(cfg: TrainConfig, dtype, device="cuda"):
-    raise NotImplementedError(
-        "text encoding is not ported yet (load-path slice): put prompt_embeds into the "
-        "frozen bundle handed to run_training"
-    )
+    """The fixed prompt's embeddings: cfg.fixed_prompt_path (.npz), else
+    cfg.fixed_prompt through the text encoder of cfg.sd_path."""
+    from omgsr_tpu_torch.cli.prompts import encode_prompt_sd, load_prompt_npz
+
+    device = resolve_device(device)
+    if cfg.fixed_prompt_path:
+        return load_prompt_npz(cfg.fixed_prompt_path)["prompt_embeds"].to(device=device, dtype=dtype)
+    return encode_prompt_sd(cfg.sd_path, cfg.fixed_prompt, dtype, device)
 
 
 def save_triptych(path, lq, pred, hq):
@@ -93,6 +130,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     from omgsr_tpu_torch.convert.params import init_discriminator
     from omgsr_tpu_torch.lora import SD_TARGET_MODULES, init_lora_tree
     from omgsr_tpu_torch.training.checkpoint import (
+        export_adapters,
         latest_checkpoint,
         restore_train_state,
         save_train_state,
@@ -167,6 +205,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     global_step = start_step
     t0 = time.time()
     metrics_jsonl = cfg.extra.get("metrics_jsonl")
+    adapter_names = {"vae_encoder": "vae_encoder_lora_adapter", "denoiser": "unet_lora_adapter"}
     while global_step < (cfg.max_train_steps or 0):
         for batch in loader:
             batch = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in batch.items()}
@@ -196,6 +235,9 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
                     )
                 if global_step % cfg.checkpointing_steps == 0:
                     save_train_state(cfg.output_dir, trainer.state, global_step)
+                    export_adapters(
+                        cfg.output_dir, global_step, trainer.state["gen"]["lora"], cfg, adapter_names
+                    )
                 if global_step >= (cfg.max_train_steps or 0):
                     break
         else:
@@ -203,6 +245,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
         break
 
     save_train_state(cfg.output_dir, trainer.state, global_step)
+    export_adapters(cfg.output_dir, global_step, trainer.state["gen"]["lora"], cfg, adapter_names)
     logger.info("training done at step %d", global_step)
     return trainer
 

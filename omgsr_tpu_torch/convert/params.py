@@ -13,7 +13,10 @@ JAX layout); ``init_vae`` / ``init_unet`` / ``init_convnext`` /
 ``init_discriminator`` build trees of the same structure from a seed
 (torch's default Linear/Conv2d distribution; the values differ from the JAX
 initialisers', so parity tests always carry the JAX weights across the
-bridge).
+bridge). On the ``meta`` device they allocate and draw nothing: the porters
+take the expected structure from them that way. ``to_hf_state_dict`` flattens
+a tree into the diffusers/HF state dict (dotted keys, contiguous tensors),
+the inverse of ``convert/porters.py``.
 """
 
 from __future__ import annotations
@@ -99,6 +102,22 @@ def to_jax_tree(tree):
     return walk(tree)
 
 
+def to_hf_state_dict(tree, dtype=None) -> dict:
+    """Nested dict of tensors in the port's layout -> the flat diffusers/HF
+    state dict of a checkpoint file: dotted keys, every tensor contiguous
+    (conv weights OIHW), cast to ``dtype`` when given. The porters read it
+    back to the same tree."""
+    from omgsr_tpu_torch.utils.tree import flatten_dict
+
+    out = {}
+    for path, t in flatten_dict(tree).items():
+        t = t.detach()
+        if dtype is not None:
+            t = t.to(dtype)
+        out[".".join(path)] = t.contiguous()
+    return out
+
+
 # ----------------------------------------------------------------------------
 # seed-based initialisers (torch-default: kaiming uniform, fan_in, a=sqrt(5))
 # ----------------------------------------------------------------------------
@@ -113,13 +132,22 @@ class _Init:
         self.dtype = dtype
         if isinstance(seed, torch.Generator):
             self.gen = seed
+        elif self.device.type == "meta":  # shapes only: nothing is drawn
+            self.gen = None
         else:
             self.gen = torch.Generator(device=self.device)
             self.gen.manual_seed(int(seed))
 
     def _uniform(self, shape, bound):
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
-        t.uniform_(-bound, bound, generator=self.gen)
+        if self.gen is not None:
+            t.uniform_(-bound, bound, generator=self.gen)
+        return t.to(self.dtype)
+
+    def normal(self, shape, std):
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        if self.gen is not None:
+            t.normal_(0.0, std, generator=self.gen)
         return t.to(self.dtype)
 
     def dense(self, in_dim, out_dim, use_bias=True):
@@ -335,12 +363,17 @@ def _convnext_block(it: _Init, dim, ls_init):
     }
 
 
-def init_convnext(seed, cfg: ConvNeXtConfig, dtype=torch.float32, device="cuda", num_stages: int = 4):
+def init_convnext(seed, cfg: ConvNeXtConfig, dtype=torch.float32, device="cuda", num_stages: int = 4,
+                  with_final_norm: bool = False):
     """Random DINOv3-ConvNeXt parameters with the torch module tree's paths
-    (downsample_layers.0.0, stages.2.5.dwconv, ...)."""
+    (downsample_layers.0.0, stages.2.5.dwconv, ...). ``with_final_norm`` adds
+    the model-level LayerNorm (``norm``) that a published checkpoint holds and
+    the DISTS / discriminator feature extractors never reach."""
     it = _Init(seed, dtype, device)
     dims = list(cfg.dims)
     params = {"downsample_layers": {}, "stages": {}}
+    if with_final_norm:
+        params["norm"] = it.norm(dims[-1])
     # stem: conv 4x4/s4 + channels-first LN
     params["downsample_layers"]["0"] = {"0": it.conv(4, 4, 3, dims[0]), "1": it.norm(dims[0])}
     for i in range(1, num_stages):

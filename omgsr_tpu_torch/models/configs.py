@@ -1,11 +1,10 @@
-"""Model architecture configs of the ported slices (SD2.1 VAE and UNet, DINOv3
-ConvNeXt).
+"""Model architecture configs of the ported slices (SD2.1 VAE, UNet and CLIP
+text encoder, DINOv3 ConvNeXt).
 
 Values mirror the HF checkpoint configs of
-stabilityai/stable-diffusion-2-1-base (vae/unet). The port keeps its own
-copy of these dataclasses; the FLUX and text-encoder configs arrive with the
-slices that need them. ConvNeXt sizes follow
-dinov3/models/convnext.py:309-326.
+stabilityai/stable-diffusion-2-1-base (vae/unet/text_encoder). The port keeps
+its own copy of these dataclasses; the FLUX configs (and FLUX's CLIP-L) arrive
+with the -F slice. ConvNeXt sizes follow dinov3/models/convnext.py:309-326.
 """
 
 from __future__ import annotations
@@ -71,6 +70,23 @@ class UNetConfig:
 
 
 SD21_UNET = UNetConfig()
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 23
+    num_attention_heads: int = 16
+    max_position_embeddings: int = 77
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407
+
+
+# stabilityai/stable-diffusion-2-1-base text_encoder (OpenCLIP ViT-H text tower)
+SD21_CLIP = CLIPTextConfig()
 
 
 @dataclass(frozen=True)

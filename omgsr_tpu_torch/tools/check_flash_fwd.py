@@ -83,8 +83,10 @@ K1_SHAPES = [
 K1_WIDE_SHAPES = [
     # the VAE mid block's single 512-wide head: the whole latent at 512, 1024 and 2048 px
     # (the full-image and exact routes), the fast tiled decode's 86x86-latent window
-    # (7396 tokens end inside a 64-row q and kv tile), ragged packed q/k/v
+    # (7396 tokens end inside a 64-row q and kv tile), the 640x512 request a 64 px size bucket
+    # pads to (a 64x80 latent), ragged packed q/k/v
     ((1, 4096, 1, 512), 4096, True, False),
+    ((1, 5120, 1, 512), 5120, True, False),
     ((1, 16384, 1, 512), 16384, True, False),
     ((1, 65536, 1, 512), 65536, True, False),
     ((1, 7396, 1, 512), 7396, True, False),

@@ -75,6 +75,7 @@ GN_SHAPES = [
     ((1, 256, 256, 512), 32, torch.bfloat16, True),  # decoder up2
     ((1, 256, 256, 256), 32, torch.bfloat16, True),  # encoder down2, decoder up2's later resnets
     ((1, 2048, 2048, 128), 32, torch.bfloat16, True),  # the 2K exact route's widest stage
+    ((1, 512, 640, 128), 32, torch.bfloat16, True),  # the VAE's widest stage at 640x512 (a padded request)
 ]
 QUICK_SHAPES = [
     ((1, 16, 16, 128), 32, torch.bfloat16),

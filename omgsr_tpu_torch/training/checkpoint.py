@@ -7,9 +7,9 @@ package, the full train state (LoRA + both optimizers + discriminator heads
 + spectral-norm state + micro-step count) is saved and restorable: real
 resume. One ``torch.save`` file per step,
 ``<output_dir>/checkpoints/checkpoint-<step>.pt``, holding nested dicts of
-CPU tensors and integers only. The per-step export of adapters in the
-reference's directory layout (``export_adapters``) arrives with the
-load-path slice.
+CPU tensors and integers only. Adapters are ALSO exported per step in the
+reference's directory layout (``weight-{step}/{adapter_name}``, through
+``lora.adapter_io.save_adapter``) for inference.
 """
 
 from __future__ import annotations
@@ -62,6 +62,35 @@ def latest_checkpoint(output_dir: str):
     if not steps:
         return None
     return os.path.join(_ckpt_dir(output_dir), f"checkpoint-{steps[-1]}{_SUFFIX}")
+
+
+def keep_last_n_checkpoints(output_dir: str, n):
+    """Remove all but the n highest-step checkpoint files (the reference
+    checkpointer's keep_last_n_checkpoints). n = None or 0 keeps everything."""
+    if not n:
+        return
+    for step in _checkpoint_steps(output_dir)[:-n]:
+        path = os.path.join(_ckpt_dir(output_dir), f"checkpoint-{step}{_SUFFIX}")
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def export_adapters(output_dir: str, step: int, gen_lora, cfg, adapter_names: dict):
+    """Write reference-layout adapter directories: weight-{step}/<name>.
+
+    adapter_names, for -S: {"vae_encoder": "vae_encoder_lora_adapter",
+    "denoiser": "unet_lora_adapter"} (infer/omgsr_s_infer_model.py:16-21).
+    The -F export (FLUX targets, scan-stacked LoRA) arrives with -F."""
+    from omgsr_tpu_torch.lora import SD_TARGET_MODULES
+    from omgsr_tpu_torch.lora.adapter_io import save_adapter
+
+    if cfg.is_flux:
+        raise NotImplementedError("exporting -F adapters is not ported yet (-F slice)")
+    weight_path = os.path.join(output_dir, f"weight-{step}")
+    ranks = {"vae_encoder": cfg.vae_lora_rank, "denoiser": cfg.unet_lora_rank}
+    for part, name in adapter_names.items():
+        save_adapter(gen_lora[part], os.path.join(weight_path, name), rank=ranks[part], targets=SD_TARGET_MODULES)
+    return weight_path
 
 
 def _restore_into(target, saved, path=()):

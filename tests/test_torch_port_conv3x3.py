@@ -138,7 +138,8 @@ def jax_side():
             jax_once(lambda p, x: JV.vae_encode_features(p, J_FUSED_VAE, x), vp, jnp.asarray(img)))
         up = jax_init(JU.init_unet, 1, J_TINY_UNET)
         jpipe = JPipeline(vp, up, J_FUSED_VAE, J_TINY_UNET)
-        out["pipeline"] = np.asarray(jpipe(jnp.asarray(img), jnp.asarray(prompt), 16, 8, sample_latent=False))
+        out["pipeline"] = np.asarray(jax_once(lambda x, p: jpipe(x, p, 16, 8, sample_latent=False),
+                                              jnp.asarray(img), jnp.asarray(prompt)))
         out["unet_params"] = up
     return out
 

@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax():
     for sub in ("config", "lora.lora", "losses.dists", "losses.diffaug", "losses.discriminator",
                 "models.convnext", "training.optim", "training.trainer", "training.checkpoint",
                 "cli.train_omgsr_s", "utils.tree", "ops.conv3x3", "tools.check_conv3x3",
-                "inference.tiled_vae", "inference.vae_routing"):
+                "inference.tiled_vae", "inference.vae_routing", "convert.safetensors_io", "convert.hf_config",
+                "convert.porters", "lora.adapter_io", "models.clip_text", "models.clip_tokenizer", "cli.prompts",
+                "inference.batch_runner", "cli.infer_omgsr_s", "tools.sd_checkpoint"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -37,6 +39,10 @@ def test_every_module_imports_without_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'omgsr_tpu' or m.startswith('omgsr_tpu.')]\n"
+        "assert not bad, bad\n"
+        "# the load path carries its own safetensors reader and CLIP tokenizer: the card lacks these\n"
+        "absent = ('safetensors', 'transformers', 'tokenizers', 'regex', 'ftfy')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in absent]\n"
         "assert not bad, bad\n"
         "assert 'PIL' not in sys.modules, 'PIL must be imported lazily'\n"
         "assert 'triton' not in sys.modules\n"
@@ -70,8 +76,13 @@ def _no_cuda():
 
 def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
-    from omgsr_tpu_torch.cli import serve, train_omgsr_s
+    from omgsr_tpu_torch.cli import infer_omgsr_s, serve, train_omgsr_s
+    from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
     from omgsr_tpu_torch.config import TrainConfig
+    from omgsr_tpu_torch.convert import porters
+    from omgsr_tpu_torch.lora import adapter_io
+    from omgsr_tpu_torch.models.clip_text import init_clip_text
+    from omgsr_tpu_torch.models.configs import SD21_CLIP
     from omgsr_tpu_torch.convert.params import (
         from_jax_tree,
         init_convnext,
@@ -106,6 +117,21 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "build_server --vae_tile": lambda: serve.build_server(
             serve.parse_args(["--vae_tile", "64", "--vae_stats", "auto"]), params=(vp, up), configs=(vc, uc),
             prompt_embeds=np.zeros((1, 7, 16), np.float32)),
+        # the load path: each raises before it reads a file
+        "infer_omgsr_s.main": lambda: infer_omgsr_s.main(infer_omgsr_s.parse_args(
+            ["--input_image", str(tmp_path), "--output_dir", str(tmp_path), "--sd_path", str(tmp_path)])),
+        "build_server --sd_path": lambda: serve.build_server(serve.parse_args(["--sd_path", str(tmp_path)])),
+        "port_diffusers_vae": lambda: porters.port_diffusers_vae(str(tmp_path)),
+        "port_diffusers_unet": lambda: porters.port_diffusers_unet(str(tmp_path)),
+        "port_clip_text": lambda: porters.port_clip_text(str(tmp_path)),
+        "port_dinov3_convnext": lambda: porters.port_dinov3_convnext(str(tmp_path / "x.pth")),
+        "encode_prompt_sd": lambda: encode_prompt_sd(str(tmp_path), "a cat"),
+        "load_adapter": lambda: adapter_io.load_adapter(str(tmp_path)),
+        "import_peft_adapter": lambda: adapter_io.import_peft_adapter(str(tmp_path)),
+        "init_clip_text": lambda: init_clip_text(0, SD21_CLIP),
+        "build_frozen_s": lambda: train_omgsr_s.build_frozen_s(TrainConfig(sd_path=str(tmp_path)), torch.float32),
+        "encode_fixed_prompt": lambda: train_omgsr_s.encode_fixed_prompt(
+            TrainConfig(sd_path=str(tmp_path)), torch.float32),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -133,8 +159,22 @@ def test_unported_options_raise_naming_their_slice():
             fn(vp, vc, torch.zeros(1, 16, 16, 3), None)
     with pytest.raises(NotImplementedError, match="distribution slice"):
         OMGSRSPipeline(vp, up, vc, uc, device="cpu").shard_for_mesh(None)
-    with pytest.raises(NotImplementedError, match="load-path slice"):
+    # the load path is ported: a checkpoint directory that is not there is named
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
         serve.build_server(serve.parse_args(["--sd_path", "/nowhere", "--device", "cpu"]))
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
+        serve.build_server(serve.parse_args(["--sd_path", "/nowhere", "--prompt_npz", "/nowhere/p.npz",
+                                             "--device", "cpu"]))
+    from omgsr_tpu_torch.convert.porters import load_safetensors_dir
+
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
+        load_safetensors_dir("/nowhere/vae")
+    from omgsr_tpu_torch.cli import infer_omgsr_s
+
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        infer_omgsr_s.build_pipeline(infer_omgsr_s.parse_args(
+            ["--input_image", "x", "--output_dir", "x", "--sd_path", "/nowhere", "--shard", "tiles"]), torch.float32,
+            "cpu")
     with pytest.raises(SystemExit):
         serve.parse_args(["--pipeline", "f"])
 

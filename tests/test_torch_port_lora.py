@@ -28,6 +28,7 @@ from tests.torch_port_helpers import (
     bridge,
     jax_init,
     jax_lora_tree,
+    jax_once,
     t,
     to_numpy_tree,
 )
@@ -105,7 +106,7 @@ def test_vae_encode_with_attached_lora(vae_with_lora):
     x = np.random.default_rng(4).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
     jparams = dict(jp)
     jparams["encoder"] = JL.attach_lora(jp["encoder"], jl)
-    ref = JV.vae_encode(jparams, J_TINY_VAE, jnp.asarray(x), rng=None)
+    ref = jax_once(lambda p, x: JV.vae_encode(p, J_TINY_VAE, x, rng=None), jparams, jnp.asarray(x))
     tp, tl = bridge(jp), bridge(jl)
     tparams = dict(tp)
     tparams["encoder"] = TL.attach_lora(tp["encoder"], tl)

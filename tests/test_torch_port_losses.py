@@ -131,7 +131,7 @@ def test_diff_augment_with_shared_draws(policy):
         c = t(np.asarray(jax.random.randint(k2, (b, 1, 1), lo_x, hi_x))).long()
         z = torch.zeros(b, 1, 1, 1)
         draws = TDA.DiffAugDraws(z, z, z, a, c, a, c)
-    ref = JDA.diff_augment(key, jnp.asarray(x), policy)
+    ref = jit_unoptimised(lambda k, x: JDA.diff_augment(k, x, policy), key, jnp.asarray(x))
     assert_close(TDA.diff_augment(t(x), draws, policy), ref, 1e-6)
 
 

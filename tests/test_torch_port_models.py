@@ -96,8 +96,7 @@ def test_unet_apply(unet_pair, batch, timestep):
     rng = np.random.default_rng(5)
     z = rng.standard_normal((batch, 8, 8, 4)).astype(np.float32)
     ctx = rng.standard_normal((batch, 7, 16)).astype(np.float32)
-    ref = jax.jit(lambda p, a, c: JU.unet_apply(p, J_TINY_UNET, a, timestep, c))(
-        jp, jnp.asarray(z), jnp.asarray(ctx))
+    ref = jax_once(lambda p, a, c: JU.unet_apply(p, J_TINY_UNET, a, timestep, c), jp, jnp.asarray(z), jnp.asarray(ctx))
     assert_close(TU.unet_apply(tp, T_TINY_UNET, t(z), timestep, t(ctx)), ref, TOL)
 
 

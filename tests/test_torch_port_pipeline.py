@@ -26,6 +26,7 @@ from tests.torch_port_helpers import (
     assert_close,
     bridge,
     jax_init,
+    jax_once,
     t,
 )
 
@@ -54,7 +55,8 @@ def pipes():
 def test_pipeline_matches_jax(pipes, hw, tile, overlap):
     jpipe, tpipe, prompt = pipes
     lq = np.random.default_rng(3).uniform(-1, 1, (1, *hw, 3)).astype(np.float32)
-    ref = jpipe(jnp.asarray(lq), jnp.asarray(prompt), tile, overlap, sample_latent=False)
+    # the JAX pipeline as one jit at XLA optimisation level 0 (the same sums; it compiles sooner)
+    ref = jax_once(lambda x, p: jpipe(x, p, tile, overlap, sample_latent=False), jnp.asarray(lq), jnp.asarray(prompt))
     out = tpipe(lq, prompt, tile, overlap, sample_latent=False)
     assert out.shape == (1, *hw, 3) and out.dtype == torch.float32
     assert float(out.min()) >= -1.0 and float(out.max()) <= 1.0
@@ -65,7 +67,7 @@ def test_pipeline_batch_and_noise(pipes):
     jpipe, tpipe, prompt = pipes
     lq = np.random.default_rng(4).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     # no noise source: the posterior mean, whatever sample_latent says (as in the JAX package)
-    ref = jpipe(jnp.asarray(lq), jnp.asarray(prompt), 8, 4)
+    ref = jax_once(lambda x, p: jpipe(x, p, 8, 4), jnp.asarray(lq), jnp.asarray(prompt))
     assert_close(tpipe(lq, prompt, 8, 4), ref, PIPE_TOL)
     # explicit noise changes the result, reproducibly
     noise = np.random.default_rng(5).standard_normal((2, 16, 16, 4)).astype(np.float32)
@@ -134,7 +136,8 @@ def test_switched_color_fix_batch():
     hw = np.asarray([[24, 20], [17, 9], [20, 20]], np.int32)
     idx = np.asarray([TC.ALIGN_IDX["wavelet"], TC.ALIGN_IDX["adain"], TC.ALIGN_IDX["nofix"]], np.int32)
     assert TC.ALIGN_IDX == JC.ALIGN_IDX
-    ref = np.asarray(JC.switched_color_fix_batch(jnp.asarray(tgt), jnp.asarray(src), jnp.asarray(hw), jnp.asarray(idx)))
+    ref = np.asarray(jax_once(JC.switched_color_fix_batch, jnp.asarray(tgt), jnp.asarray(src), jnp.asarray(hw),
+                              jnp.asarray(idx)))
     out = TC.switched_color_fix_batch(t(tgt), t(src), hw, idx)
     for i, (h, w) in enumerate(hw):
         assert_close(out[i, :h, :w], ref[i, :h, :w], COLOR_TOL, f"image {i}")

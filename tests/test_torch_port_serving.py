@@ -414,6 +414,6 @@ class TestServeCLI:
         args = self._args(tmp_path)
         with pytest.raises(ValueError):
             serve_cli.build_server(args)
-        args.prompt_npz = None
-        with pytest.raises(NotImplementedError, match="load-path slice"):
+        args.prompt_npz = None  # and no --sd_path whose text encoder could encode --prompt
+        with pytest.raises(ValueError, match="prompt"):
             serve_cli.build_server(args, params=(bridge(vp), bridge(up)), configs=(T_TINY_VAE, T_TINY_UNET))

@@ -78,6 +78,7 @@ def test_optimizer_matches_optax(accum, warmup):
     params = {"a": {"w": rng.standard_normal((3, 4)).astype(np.float32)},
               "b": rng.standard_normal(5).astype(np.float32)}
     jtx = JOPT.make_optimizer(JTrainConfig(**kw))
+    jupdate = jax.jit(jtx.update)  # one compile for the 5 * accum updates (the same sums as op by op)
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jtx.init(jp)
     ttx = TOPT.make_optimizer(TrainConfig(**kw))
@@ -88,7 +89,7 @@ def test_optimizer_matches_optax(accum, warmup):
         scale = 5.0 if i % 3 == 0 else 0.05  # global norm above and below max_grad_norm
         g = {"a": {"w": (rng.standard_normal((3, 4)) * scale).astype(np.float32)},
              "b": (rng.standard_normal(5) * scale).astype(np.float32)}
-        updates, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
+        updates, jstate = jupdate(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, updates)
         before = tp["b"].clone()
         applied = ttx.update({"a": {"w": t(g["a"]["w"])}, "b": t(g["b"])}, tstate, tp)
@@ -168,10 +169,15 @@ def _batch(seed):
 def _replay_noise(rng_key, image_shape, latent_shape) -> StepNoise:
     """The random numbers of TrainerS._train_step(state, batch, rng_key, ...),
     drawn from its keys in its order (trainer.py:188-190, vae.py
-    sample_diagonal_gaussian, diffaug.py:67-76)."""
+    sample_diagonal_gaussian, diffaug.py:67-76); the normals as one jit per
+    shape (the same bits as op by op)."""
     keys = jax.random.split(rng_key, 6)
-    normals = [t(np.asarray(jax.random.normal(k, latent_shape, jnp.float32))) for k in keys[:3]]
-    return StepNoise(*normals, *(jax_diffaug_draws(k, image_shape) for k in keys[3:]))
+    normals = jax.jit(_latent_normals, static_argnums=1)(keys[:3], tuple(latent_shape))
+    return StepNoise(*(t(np.asarray(n)) for n in normals), *(jax_diffaug_draws(k, image_shape) for k in keys[3:]))
+
+
+def _latent_normals(keys, latent_shape):
+    return [jax.random.normal(k, latent_shape, jnp.float32) for k in keys]
 
 
 def _assert_tree_close(port_tree, jax_tree, tol, what):
@@ -403,7 +409,8 @@ def test_run_training_is_deterministic_from_the_seed_and_saves_a_triptych(tmp_pa
 
 
 def test_unported_training_inputs_raise_naming_their_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="load-path slice"):
+    # the load path is ported: without a frozen bundle the checkpoint directory must be named
+    with pytest.raises(ValueError, match="sd_path"):
         TCLI.run_training(_cfg(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="data slice"):
         import omgsr_tpu_torch.convert.params as P

@@ -1,6 +1,8 @@
 """Shared helpers of the tests/test_torch_port_*.py files: tiny configs on
 both sides and the weight bridge from a JAX parameter tree."""
 
+import json
+
 import jax
 import numpy as np
 import torch
@@ -102,23 +104,30 @@ def jax_lora_tree(jax_params, rank, seed, targets=None):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def _diffaug_raw(key, shape):
+    b, h, w, _ = shape
+    ks = jax.random.split(key, 8)
+    uniforms = [jax.random.uniform(ks[i], (b, 1, 1, 1), jax.numpy.float32) for i in range(3)]
+    sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
+    k1, k2 = jax.random.split(ks[3])
+    ty = jax.random.randint(k1, (b, 1, 1), -sh, sh + 1)
+    tx = jax.random.randint(k2, (b, 1, 1), -sw, sw + 1)
+    ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
+    k1, k2 = jax.random.split(ks[4])
+    oy = jax.random.randint(k1, (b, 1, 1), 0, h + (1 - ch % 2))
+    ox = jax.random.randint(k2, (b, 1, 1), 0, w + (1 - cw % 2))
+    return (*uniforms, ty, tx, oy, ox)
+
+
 def jax_diffaug_draws(key, shape):
     """The seven draws that omgsr_tpu.losses.diffaug.diff_augment(key, x) makes
     for x of ``shape`` under its default policy, replayed key by key in its
-    order, as the port's DiffAugDraws of CPU tensors."""
+    order, as the port's DiffAugDraws of CPU tensors. They are drawn as one jit
+    per shape: the same bits as op by op, where each primitive compiles apart."""
     from omgsr_tpu_torch.losses.diffaug import DiffAugDraws
 
-    b, h, w, _ = shape
-    ks = jax.random.split(key, 8)
-    uniforms = [np.asarray(jax.random.uniform(ks[i], (b, 1, 1, 1), jax.numpy.float32)) for i in range(3)]
-    sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
-    k1, k2 = jax.random.split(ks[3])
-    ty = np.asarray(jax.random.randint(k1, (b, 1, 1), -sh, sh + 1))
-    tx = np.asarray(jax.random.randint(k2, (b, 1, 1), -sw, sw + 1))
-    ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
-    k1, k2 = jax.random.split(ks[4])
-    oy = np.asarray(jax.random.randint(k1, (b, 1, 1), 0, h + (1 - ch % 2)))
-    ox = np.asarray(jax.random.randint(k2, (b, 1, 1), 0, w + (1 - cw % 2)))
+    raw = [np.asarray(a) for a in jax.jit(_diffaug_raw, static_argnums=1)(key, tuple(shape))]
+    uniforms, (ty, tx, oy, ox) = raw[:3], raw[3:]
     return DiffAugDraws(*(t(a) for a in uniforms), *(t(a).long() for a in (ty, tx, oy, ox)))
 
 
@@ -130,3 +139,93 @@ def jit_unoptimised(fn, *args):
     compiled = jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
     return compiled(*args)
+
+
+# ----------------------------------------------------------------------------
+# a tiny SD2.1-layout checkpoint directory that both packages' porters read
+# ----------------------------------------------------------------------------
+
+# ConvNeXt and CLIP text tower at a few channels: every leaf kind of the published models
+J_TINY_CONVNEXT_KW = dict(depths=(1, 1, 1, 1), dims=(8, 8, 8, 8))
+TINY_MERGES = 600  # the synthetic vocabulary: 512 byte symbols + merges + BOS/EOS
+TINY_CLIP_KW = dict(vocab_size=512 + TINY_MERGES + 2, hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                    num_attention_heads=2, eos_token_id=512 + TINY_MERGES + 1)
+
+
+def torch_layout(tree):
+    """A JAX-layout tree -> the flat HF state dict of numpy arrays, as
+    tests/test_porters._to_torch_layout writes it (embedding tables stay)."""
+    from tests.test_porters import _to_torch_layout
+
+    return _to_torch_layout(to_numpy_tree(tree))
+
+
+def write_tiny_checkpoint(root, seed=0):
+    """Write, under ``root`` (a pathlib.Path), an SD2.1-layout checkpoint of the
+    tiny configs from numpy draws, with the ``safetensors`` package and JAX's
+    adapter writer, as a published directory and the JAX CLIs hold it:
+
+        vae/ (one file), unet/ (two shards + index), text_encoder/ (with the
+        position-id buffer and a text projection the porter drops), tokenizer/,
+        lora/{vae_encoder_lora_adapter, unet_lora_adapter}/, dinov3_convnext.pth
+        (the filtered keys and the ``norms.3`` alias besides), prompt.npz
+
+    Returns the JAX-layout trees written: vae, unet, clip, convnext, lora_vae, lora_unet."""
+    from safetensors.numpy import save_file
+
+    from omgsr_tpu.lora import save_adapter as jax_save_adapter
+    from omgsr_tpu.lora import SD_TARGET_MODULES
+    from omgsr_tpu.models import clip_text as JC
+    from omgsr_tpu.models import convnext as JCN
+    from omgsr_tpu.models import unet_sd as JU
+    from omgsr_tpu.models import vae as JV
+    from omgsr_tpu.models.configs import CLIPTextConfig as JCLIPTextConfig
+    from omgsr_tpu.models.configs import ConvNeXtConfig as JConvNeXtConfig
+    from omgsr_tpu_torch.tools.sd_checkpoint import synthetic_bpe, write_tokenizer
+
+    trees = {
+        "vae": jax_init(JV.init_vae, seed, J_TINY_VAE),
+        "unet": jax_init(JU.init_unet, seed + 1, J_TINY_UNET),
+        "clip": jax_init(JC.init_clip_text, seed + 2, JCLIPTextConfig(**TINY_CLIP_KW)),
+        "convnext": jax_init(lambda k, c: JCN.init_convnext(k, c, with_final_norm=True), seed + 3,
+                             JConvNeXtConfig(**J_TINY_CONVNEXT_KW)),
+    }
+    trees["lora_vae"] = jax_lora_tree(trees["vae"]["encoder"], 2, seed + 4)
+    trees["lora_unet"] = jax_lora_tree(trees["unet"], 2, seed + 5)
+    trees = {k: to_numpy_tree(v) for k, v in trees.items()}
+
+    for sub in ("vae", "unet", "text_encoder"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    save_file(torch_layout(trees["vae"]), str(root / "vae" / "diffusion_pytorch_model.safetensors"))
+    unet = torch_layout(trees["unet"])
+    keys = sorted(unet)
+    shards = {"diffusion_pytorch_model-00001-of-00002.safetensors": keys[: len(keys) // 2],
+              "diffusion_pytorch_model-00002-of-00002.safetensors": keys[len(keys) // 2:]}
+    for name, ks in shards.items():
+        save_file({k: unet[k] for k in ks}, str(root / "unet" / name))
+    (root / "unet" / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": {k: name for name, ks in shards.items() for k in ks}}))
+    clip = torch_layout(trees["clip"])
+    clip["text_model.embeddings.position_ids"] = np.arange(77, dtype=np.int64)[None]
+    clip["text_projection.weight"] = np.ones((4, TINY_CLIP_KW["hidden_size"]), np.float32)
+    save_file(clip, str(root / "text_encoder" / "model.safetensors"))
+
+    (root / "vae" / "config.json").write_text(json.dumps(
+        {"block_out_channels": [8, 16], "norm_num_groups": 4, "latent_channels": 4, "layers_per_block": 1,
+         "scaling_factor": 0.18215}))
+    (root / "unet" / "config.json").write_text(json.dumps(
+        {"block_out_channels": [8, 16, 16, 16], "attention_head_dim": [1, 2, 2, 2], "cross_attention_dim": 16,
+         "norm_num_groups": 4, "layers_per_block": 1}))
+    (root / "text_encoder" / "config.json").write_text(json.dumps(TINY_CLIP_KW))
+    write_tokenizer(str(root / "tokenizer"), *synthetic_bpe(TINY_MERGES, seed))
+
+    for name, tree in (("vae_encoder_lora_adapter", trees["lora_vae"]), ("unet_lora_adapter", trees["lora_unet"])):
+        jax_save_adapter(tree, str(root / "lora" / name), rank=2, targets=SD_TARGET_MODULES)
+
+    cn = {k: torch.from_numpy(np.array(v)) for k, v in torch_layout(trees["convnext"]).items()}
+    cn["norms.3.weight"], cn["norms.3.bias"] = cn["norm.weight"], cn["norm.bias"]
+    cn["head.weight"] = torch.zeros(2, 8)
+    torch.save({"model": cn}, root / "dinov3_convnext.pth")
+    np.savez(root / "prompt.npz",
+             prompt_embeds=np.random.default_rng(seed).normal(size=(1, 7, 16)).astype(np.float32))
+    return trees
