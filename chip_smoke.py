@@ -54,6 +54,19 @@ them. Phases, each of which must pass:
            against the structure's; a server built from --sd_path against the
            CLI's image; build_frozen_s and encode_fixed_prompt on the same
            directory (and a ConvNeXt-L .pth)
+  data     OMGSR-S from files on disk end to end: eight images written from a
+           seed (PNG and JPEG, 2040x1356 down to 400x600, an FFHQ face, two
+           named in a .txt list); the host's decode + crop per image and the
+           decoder that ran; the card's Real-ESRGAN degrade against the CPU's
+           on the same draws (uint8 steps; with cuDNN's TF32 on and off) and
+           its device ms and peak memory per 512-px batch;
+           train_omgsr_s.main --config at full width from the load phase's
+           directory (2 optimizer steps at accumulation 2) with its launches,
+           the loader's wait and the micro-step beside the train phase's;
+           mid_timestep_sd.main on the same folder (4 samples, f32 VAE) with
+           its launches; the shapes at which the two CLIs launched K1 and
+           K3a/K3b that the earlier phases did not, held against the plain
+           versions
 
 Where the VAE mid block's 512-wide head is timed, it is also timed on the
 route it took before the flash kernels took head dim 512 (explicit matmul
@@ -73,6 +86,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,12 +99,17 @@ import torch
 import torch.nn.functional as F
 
 from omgsr_tpu_torch.cli import infer_omgsr_s as infer_cli
+from omgsr_tpu_torch.cli import mid_timestep_sd as calib_cli
 from omgsr_tpu_torch.cli import serve as serve_cli
 from omgsr_tpu_torch.cli import train_omgsr_s as train_cli
 from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
 from omgsr_tpu_torch.config import TrainConfig
 from omgsr_tpu_torch.convert import porters
 from omgsr_tpu_torch.convert.params import init_convnext, init_unet, init_vae, to_hf_state_dict
+from omgsr_tpu_torch.data import degradation as DEG
+from omgsr_tpu_torch.data import imgdec_native
+from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
+from omgsr_tpu_torch.data.kernels import KernelSynthesisConfig, random_kernels
 from omgsr_tpu_torch.diffusion.tiling import tile_grid_2d
 from omgsr_tpu_torch.inference import tiled_vae as TTV
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
@@ -107,6 +126,7 @@ from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.color import adain_color_fix
 from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.ops.noise import GeneratorDraws, ReplayDraws
 from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
@@ -1899,7 +1919,305 @@ def phase_load(card, vae_params, unet_params, export, work_dir):
           f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
     return counts, {"load_write_s": write_s, "load_port_vae_s": vae_s, "load_port_unet_s": unet_s,
                     "load_port_text_encoder_s": clip_s, "load_text_encode_ms": encode_ms,
-                    "load_cli_s_per_image": s_per_image, "load_peak_memory_GiB": peak / 2**30}
+                    "load_cli_s_per_image": s_per_image, "load_peak_memory_GiB": peak / 2**30}, \
+        {"sd_path": root, "dinov3_weights_path": pth, "seen": seen}
+
+
+# ----------------------------------------------------------------------------
+# phase: data
+# ----------------------------------------------------------------------------
+
+# (file, (W, H)) of the images the data phase writes: a DIV2K-sized pair, a smaller pair, a 512x512
+# pair named only in a .txt list, one image under the crop on one side (reflect pad), one FFHQ face
+# (LANCZOS to 512 on the host)
+DATA_IMAGES = [("hq/div2k_0801.png", (2040, 1356)), ("hq/div2k_0802.jpg", (2040, 1356)),
+               ("hq/photo_a.png", (1024, 768)), ("hq/photo_b.jpg", (1024, 768)),
+               ("listed/square.png", (512, 512)), ("listed/square.jpg", (512, 512)),
+               ("hq/portrait.png", (400, 600)), ("hq/ffhq_00042.png", (1024, 1024))]
+DATA_TRAIN_STEPS, DATA_ACCUM = 2, 2
+DATA_CALIB_SAMPLES = 4
+# the card's degrade against the CPU's on the same draws, in uint8 steps: the last operation
+# rounds x*255, so a pixel within a few f32 ulps of a .5 boundary lands one step apart
+MAX_DEGRADE_STEPS = 1
+
+
+def write_data_images(root, seed):
+    """Smooth colour fields with a little noise (decode costs like a photo's,
+    not like noise's), saved as PNG or JPEG (quality 95); the .txt list names
+    the images under listed/."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for name, (w, h) in DATA_IMAGES:
+        small = Image.fromarray(rng.integers(0, 256, (max(h // 32, 2), max(w // 32, 2), 3), dtype=np.uint8))
+        arr = np.asarray(small.resize((w, h), Image.BICUBIC), np.float32)
+        arr = np.clip(arr + rng.normal(0, 6, arr.shape), 0, 255).astype(np.uint8)
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, quality=95)
+        paths.append(path)
+    listed = os.path.join(root, "listed.txt")
+    with open(listed, "w") as f:
+        f.write("".join(p + "\n" for p in paths if "/listed/" in p))
+    return [os.path.join(root, "hq"), listed]
+
+
+@contextlib.contextmanager
+def timed_loader():
+    """Around every PairedLoader iteration: the host seconds each next() of
+    the consumer took (the wait for a batch and the dispatch of the next one's
+    degradation) and the clock when it returned."""
+    rec = {"wait": [], "at": []}
+    iterate = PairedLoader.__iter__
+
+    def timed(self):
+        it = iterate(self)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec["at"].append(time.perf_counter())
+                rec["wait"].append(rec["at"][-1] - t0)
+                yield batch
+        finally:
+            it.close()
+
+    PairedLoader.__iter__ = timed
+    try:
+        yield rec
+    finally:
+        PairedLoader.__iter__ = iterate
+
+
+class RecordedDraws(GeneratorDraws):
+    """A torch.Generator's draws, each also kept in ``recorded``."""
+
+    def __init__(self, generator):
+        super().__init__(generator)
+        self.recorded = []
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        self.recorded.append(super().uniform(shape, lo, hi))
+        return self.recorded[-1]
+
+    def normal(self, shape):
+        self.recorded.append(super().normal(shape))
+        return self.recorded[-1]
+
+    def poisson(self, rates):
+        self.recorded.append(super().poisson(rates))
+        return self.recorded[-1]
+
+
+def degrade_against_cpu(opt, hq, seed):
+    """One 512-px batch through the card's degrade (its draws recorded) and
+    the CPU's (the same kernels, plan and draws) -> (uint8-step histogram, the
+    card's output under cudnn.allow_tf32 True equal to it under False?)."""
+    rng = np.random.default_rng(seed)
+    kcfg = KernelSynthesisConfig.from_opt(opt, 512)
+    ks = [random_kernels(rng, kcfg) for _ in range(hq.shape[0])]
+    kernels = [np.stack([k[i] for k in ks]) for i in range(3)]
+    full = {**opt, "scale": 4}
+    plan = DEG.draw_plan(rng, full, 512, 512, 4, True, 16)
+    draws = RecordedDraws(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        card = DEG.degrade(hq.cuda(), tuple(torch.from_numpy(k).cuda() for k in kernels), draws, plan, full)
+    recorded = [d.cpu() for d in draws.recorded]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        card_f32 = DEG.degrade(hq.cuda(), tuple(torch.from_numpy(k).cuda() for k in kernels),
+                               ReplayDraws(recorded, "cuda"), plan, full)
+    replay = ReplayDraws(recorded, "cpu")
+    cpu = DEG.degrade(hq, tuple(torch.from_numpy(k) for k in kernels), replay, plan, full)
+    assert replay.left() == 0 and card.shape == cpu.shape == hq.shape
+    steps = (torch.round(card.cpu() * 255) - torch.round(cpu * 255)).abs()
+    hist = {int(v): int((steps == v).sum()) for v in steps.unique()}
+    return plan, hist, torch.equal(card, card_f32)
+
+
+def phase_data(card, work_dir, ckpt, train_metrics):
+    """OMGSR-S from files on disk end to end: images written here, the
+    Real-ESRGAN degradation on the card, train_omgsr_s.main from a YAML config
+    (full SD2.1 width, the checkpoint directory of the load phase) and
+    mid_timestep_sd.main on the same folder."""
+    root = os.path.join(work_dir, "data")
+    t0 = time.perf_counter()
+    sources = write_data_images(root, 11)
+    write_s = time.perf_counter() - t0
+    gxx = shutil.which("g++")
+    decoder = imgdec_native.status()
+    print(f"data: {len(DATA_IMAGES)} images written in {write_s:.2f} s ("
+          + ", ".join(f"{os.path.basename(n)} {w}x{h}" for n, (w, h) in DATA_IMAGES)
+          + f"); g++: {gxx or 'not found'}; decoder: {decoder}", flush=True)
+
+    # the host's decode + crop (+ flip) per image, as the loader's producer thread runs it
+    ds = PairedDataset(sources, 512, seed=0)
+    assert len(ds) == len(DATA_IMAGES), ds.gt_list
+    host_ms = {}
+    for i, path in enumerate(ds.gt_list):
+        t0 = time.perf_counter()
+        arr = ds[i]
+        host_ms[os.path.basename(path)] = (time.perf_counter() - t0) * 1e3
+        assert arr.shape == (512, 512, 3) and arr.dtype == np.float32 and 0 <= arr.min() <= arr.max() <= 1
+    print("data: host decode + crop per image, ms: " + ", ".join(f"{k} {v:.2f}" for k, v in host_ms.items())
+          + f"; decoders {dict(ds.decoders)} [{card}]", flush=True)
+
+    # the card's degrade against the CPU's, the draws copied across
+    opt = DEG.load_degradation_params()
+    for seed in range(4):
+        hq = torch.from_numpy(np.stack([ds[seed]]))
+        plan, hist, tf32_same = degrade_against_cpu(opt, hq, 100 + seed)
+        print(f"data: degrade, card against CPU on the same draws, 512x512 batch {seed}: uint8-step histogram "
+              f"{hist}; the card's output with cudnn.allow_tf32 on equal to off: {tf32_same}; plan {plan}",
+              flush=True)
+        assert max(hist) <= MAX_DEGRADE_STEPS and tf32_same, (hist, tf32_same)
+
+    # the degrader's device time per 512-px batch, and the loader's dispatch of a pinned host batch (copy,
+    # degrade, scale to [-1,1]): two calls at a time are enqueued while the device sleeps, so the events
+    # time the device's work back to back, and neither may wait for the device: the two must be enqueued
+    # well inside the sleep. (Two calls, some 500 launches, stay inside the stream's queue of pending
+    # launches; more would make the host wait for a free slot, not for a result.)
+    degrader = DEG.RealESRGANDegrader(opt, resolution=512, seed=3)
+    loader = PairedLoader(ds, 1, degrader)
+    pinned = torch.from_numpy(np.stack([ds[0]])).pin_memory()
+    x = pinned.cuda()
+    for _ in range(3):
+        degrader(x)
+        loader._dispatch(pinned)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    degrader(x)
+    torch.cuda.synchronize()
+    deg_peak = torch.cuda.max_memory_allocated() - base
+
+    def behind_a_sleep(fn, rounds=5, n=2):
+        """(device ms a call, host ms a call, the longest host time of a round
+        over its sleep's ms)"""
+        device, host, ratio = [], [], []
+        for _ in range(rounds):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            marks[0].record()
+            torch.cuda._sleep(4 * 10**8)
+            marks[1].record()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            marks[2].record()
+            torch.cuda.synchronize()
+            device.append(marks[1].elapsed_time(marks[2]))
+            ratio.append(host[-1] / marks[0].elapsed_time(marks[1]))
+        assert max(ratio) < 0.5, f"the host waited for the device: {max(ratio):.2f} of the sleep"
+        return sum(device) / (rounds * n), sum(host) / (rounds * n), max(ratio)
+
+    deg_ms, enqueue_ms, deg_ratio = behind_a_sleep(lambda: degrader(x))
+    dispatch_ms, dispatch_host_ms, dispatch_ratio = behind_a_sleep(lambda: loader._dispatch(pinned))
+    print(f"timings: degrade of one 512x512 batch: {deg_ms:.3f} ms on the device (10 calls over their drawn "
+          f"plans, two at a time enqueued while the device slept), host {enqueue_ms:.3f} ms a call (kernels, plan, "
+          f"enqueue; at most {deg_ratio:.3f} of the sleep); the loader's dispatch of a pinned batch "
+          f"{dispatch_ms:.3f} ms on the device, host {dispatch_host_ms:.3f} ms (at most {dispatch_ratio:.3f} of the "
+          f"sleep); peak memory {deg_peak / 2**20:.1f} MiB above its input [{card}]", flush=True)
+
+    # train_omgsr_s.main from a YAML config: the checkpoint directory, the ConvNeXt-L .pth, the folder
+    import yaml
+
+    out_dir = os.path.join(work_dir, "data_train")
+    cfg_path = os.path.join(work_dir, "train_from_disk.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({
+            "sd_path": ckpt["sd_path"], "dinov3_weights_path": ckpt["dinov3_weights_path"], "fixed_prompt": "",
+            "dataset_txt_or_dir_paths": sources, "output_dir": out_dir, "resolution": 512, "train_batch_size": 1,
+            "gradient_accumulation_steps": DATA_ACCUM, "max_train_steps": DATA_TRAIN_STEPS, "mixed_precision": "bf16",
+            "vae_lora_rank": 16, "unet_lora_rank": 32, "lr_warmup_steps": 0, "checkpointing_steps": 1000,
+            "save_img_steps": 1000, "seed": 123, "metrics_jsonl": os.path.join(out_dir, "metrics.jsonl")}, f)
+    micro = DATA_TRAIN_STEPS * DATA_ACCUM
+    expect = micro_step_counts(SD21_VAE, SD21_UNET)
+    reset_counts()
+    t0 = time.perf_counter()
+    # what the CLI runs under: PyTorch's default cudnn.allow_tf32 (the script turned it off for its checks)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), timed_loader() as waits, \
+            launch_shapes() as seen_train:
+        train_cli.main(["--config", cfg_path])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    lines = [json.loads(l) for l in open(os.path.join(out_dir, "metrics.jsonl"))]
+    assert [l["step"] for l in lines] == list(range(1, DATA_TRAIN_STEPS + 1)), lines
+    for l in lines:
+        print(f"data: train from disk, optimizer step {l['step']}: " + " ".join(f"{k}={l[k]:.4f}" for k in METRICS),
+              flush=True)
+        assert all(math.isfinite(l[k]) for k in METRICS), l
+    assert sorted(os.listdir(os.path.join(out_dir, f"weight-{DATA_TRAIN_STEPS}"))) == [
+        "unet_lora_adapter", "vae_encoder_lora_adapter"]
+    assert latest_checkpoint(out_dir).endswith(f"checkpoint-{DATA_TRAIN_STEPS}.pt")
+    print(f"data: train_omgsr_s.main --config took {DATA_TRAIN_STEPS} optimizer steps ({micro} micro-steps) from "
+          f"disk in {train_s:.2f} s with the checkpoint's load; launches {train_counts}; {micro} x the structure's "
+          f"{expect}", flush=True)
+    for name, n_one in expect.items():
+        assert train_counts[name] == micro * n_one, (name, train_counts[name], micro * n_one)
+    assert len(waits["wait"]) == micro, waits
+    # the last accumulation window, between the two optimizer steps' metric lines (each written after a sync)
+    window = lines[-1]["time"] - lines[-2]["time"]
+    s_per_micro = window / DATA_ACCUM
+    wait = sum(waits["wait"][-DATA_ACCUM:])
+    mem = [json.loads(l) for l in open(train_metrics)]
+    s_per_micro_mem = (mem[-1]["time"] - mem[-2]["time"]) / DATA_ACCUM
+    print(f"timings: training micro-step from disk {s_per_micro:.4f} s (the last accumulation window over "
+          f"{DATA_ACCUM}), of it waiting for the loader {wait / DATA_ACCUM * 1e3:.2f} ms a micro-step, share "
+          f"{wait / window:.4f}; each micro-step's wait, ms: {', '.join(f'{w * 1e3:.2f}' for w in waits['wait'])}; "
+          f"the train phase's in-memory pairs, the same window: {s_per_micro_mem:.4f} s [{card}]", flush=True)
+
+    # mid_timestep_sd.main on the same folder (f32 VAE, as the JAX CLI), in the work directory (its plot)
+    argv = ["--dataset_txt_or_dir_paths", *sources, "--sd_path", ckpt["sd_path"], "--max_samples",
+            str(DATA_CALIB_SAMPLES)]
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), timed_loader() as batches, \
+            launch_shapes() as seen_calib, contextlib.chdir(work_dir), contextlib.redirect_stdout(log):
+        t_best, avg = calib_cli.main(argv)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_counts = read_counts()
+    encodes = 2 * DATA_CALIB_SAMPLES
+    per_encode = structure_counts(SD21_VAE, SD21_UNET)["encode"]  # f32: K1's kv loop is not split
+    print(f"data: mid_timestep_sd.main on {DATA_CALIB_SAMPLES} samples in {calib_s:.2f} s with the VAE's load: "
+          + log.getvalue().strip().replace("\n", "; ") + f"; launches {calib_counts}; {encodes} encodes x "
+          f"{per_encode}", flush=True)
+    assert 0 <= t_best <= 999 and avg.shape == (1000,) and np.isfinite(avg).all(), (t_best, avg)
+    for name, n_one in per_encode.items():
+        assert calib_counts[name] == encodes * n_one, (name, calib_counts[name], encodes * n_one)
+    assert all(calib_counts[k] == 0 for k in calib_counts if k not in per_encode), calib_counts
+    periods = np.diff(batches["at"])
+    print(f"timings: calibration {statistics.median(periods):.4f} s a batch (median of {len(periods)}, two f32 "
+          f"encodes and the sweep) [{card}]", flush=True)
+
+    # every shape at which the two CLIs launched K1 and K3a/K3b and the load phase did not, held against
+    # the plain versions
+    seen = {"flash": (seen_train["flash"] | seen_calib["flash"]) - ckpt["seen"]["flash"],
+            "gn": {k: a for k, a in {**seen_train["gn"], **seen_calib["gn"]}.items()
+                   if ckpt["seen"]["gn"].get(k) != a}}
+    n_seen, held = hold_launch_shapes(seen, 7000)
+    n_held = sum(name == "flash_attention_fwd" for name, _ in held)
+    for name, r in held:
+        print(f"data: {name} {r['shape']} (launched by the CLIs, not listed by the kernels phase): err "
+              f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
+    print(f"data: the CLIs launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
+          f"{n_seen['group_norm']} that the load phase did not; those the kernels phase does not list either "
+          f"({n_held} and {(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
+    counts = {k: train_counts[k] + calib_counts[k] for k in train_counts}
+    return counts, {"data_degrade_ms": deg_ms, "data_degrade_host_ms": enqueue_ms,
+                    "data_dispatch_ms": dispatch_ms, "data_dispatch_host_ms": dispatch_host_ms,
+                    "data_degrade_peak_MiB": deg_peak / 2**20,
+                    "data_host_decode_crop_ms": statistics.mean(host_ms.values()),
+                    "data_train_micro_step_s": s_per_micro, "data_train_loader_wait_ms": wait / DATA_ACCUM * 1e3,
+                    "data_train_loader_wait_share": wait / window, "train_in_memory_micro_step_s": s_per_micro_mem,
+                    "data_calibration_s_per_batch": statistics.median(periods), "data_decoder": decoder}
 
 
 def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
@@ -2023,11 +2341,13 @@ def main():
     with tempfile.TemporaryDirectory() as work_dir:
         train_counts, train_timings, export = phase_train(card, vae_params, unet_params, work_dir, args.profile)
         tiled_counts, tiled_timings = phase_serve_tiled(card, vae_params, unet_params)
-        load_counts, load_timings = phase_load(card, vae_params, unet_params, export, work_dir)
+        load_counts, load_timings, ckpt = phase_load(card, vae_params, unet_params, export, work_dir)
+        data_counts, data_timings = phase_data(card, work_dir, ckpt, os.path.join(work_dir, "train", "metrics.jsonl"))
     timings.update(fused_timings)
     timings.update(train_timings)
     timings.update(tiled_timings)
     timings.update(load_timings)
+    timings.update(data_timings)
 
     kernels = []
     for name, source, replaces, cuda_kernels in KERNELS:
@@ -2036,21 +2356,23 @@ def main():
             or shapes[name]
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
-        launches_load = load_counts.get(name, 0)
+        launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
+        launches = launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
         if name in OFF_PATH:
-            assert launches_serve + launches_fused + launches_train + launches_tiled + launches_load == 0, name
+            assert launches == 0, name
         elif name.startswith("conv3x3"):
-            assert launches_fused > 0 and launches_serve == launches_train == launches_load == 0, name
-        elif name == "flash_attention_fwd_merge":  # the 512-px mid heads split their kv loop
-            assert launches_serve > 0 and launches_fused > 0 and launches_train > 0 and launches_load > 0, name
+            assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
+        elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
+            assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
         else:
-            assert launches_train > 0 and ("bwd" in name or (launches_serve > 0 and launches_fused > 0
-                                                             and launches_load > 0)), name
+            assert launches_train > 0 and launches_data > 0 and ("bwd" in name or (
+                launches_serve > 0 and launches_fused > 0 and launches_load > 0)), name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
-            "launches": launches_serve + launches_fused + launches_train + launches_tiled + launches_load,
+            "launches": launches,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
             "launches_train": launches_train, "launches_serve_tiled": launches_tiled, "launches_load": launches_load,
+            "launches_data": launches_data,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

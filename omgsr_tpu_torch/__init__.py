@@ -12,7 +12,9 @@ the mid-timestep -> x0 -> VAE decode -> clamp -> colour fix) behind the
 serving daemon, and OMGSR-S LoRA-GAN training (``cli.train_omgsr_s`` ->
 ``training.trainer.TrainerS``: LoRA on the VAE encoder and the UNet, DISTS
 and the spectral-norm discriminator on a frozen ConvNeXt, AdamW inside
-gradient accumulation, full-state checkpoints). Entry points default to ``device="cuda"`` and raise when
+gradient accumulation, full-state checkpoints) from a folder of images through
+the Real-ESRGAN degradation on the device (``data``), and the -S mid-timestep
+calibration (``cli.mid_timestep_sd``). Entry points default to ``device="cuda"`` and raise when
 there is no CUDA device; pass ``device="cpu"`` to run the plain versions.
 """
 

@@ -13,10 +13,11 @@ ConvNeXt from ``cfg.extra["dinov3_weights_path"]`` (from a seed, with a
 warning, where none is set), and the fixed prompt's embeddings from
 ``cfg.fixed_prompt_path`` or the checkpoint's text encoder. The adapters are
 exported in the reference's directory layout (``weight-{step}/``) at every
-checkpoint step and at the end. The dataset and the Real-ESRGAN degradation
-are not ported yet (data slice): ``run_training`` takes an iterable of LQ/HQ
-pairs in memory (and optionally the frozen bundle), and ``main`` stops at the
-loader until that slice exists.
+checkpoint step and at the end. The training pairs come from
+``cfg.dataset_txt_or_dir_paths`` through ``data.dataset.PairedLoader``, with
+the Real-ESRGAN degradation of ``cfg.degradation_params`` (default: the
+package's params_realesrgan.yml) on the device; ``run_training`` also takes
+an iterable of LQ/HQ pairs in memory (and optionally the frozen bundle).
 """
 
 from __future__ import annotations
@@ -104,6 +105,22 @@ def append_metrics_jsonl(path, global_step, metrics, s_per_step):
         f.write(json.dumps(rec) + "\n")
 
 
+def build_loader(cfg: TrainConfig, device="cuda"):
+    """The Real-ESRGAN pair loader of cfg.dataset_txt_or_dir_paths, seeded
+    with cfg.seed; a ValueError where it would yield no batch."""
+    from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
+    from omgsr_tpu_torch.data.degradation import RealESRGANDegrader, load_degradation_params
+
+    degrader = RealESRGANDegrader(load_degradation_params(cfg.degradation_params), resolution=cfg.resolution,
+                                  seed=cfg.seed)
+    dataset = PairedDataset(cfg.dataset_txt_or_dir_paths, cfg.resolution, seed=cfg.seed)
+    loader = PairedLoader(dataset, cfg.train_batch_size, degrader, seed=cfg.seed, device=device)
+    if len(loader) == 0:
+        raise ValueError(f"dataset_txt_or_dir_paths {cfg.dataset_txt_or_dir_paths!r} hold {len(dataset)} images, "
+                         f"fewer than one batch of train_batch_size {cfg.train_batch_size}")
+    return loader
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
@@ -122,10 +139,12 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     "prompt_embeds"} with tensors on ``device``; with it, cfg.extra
     ["disc_channels"] names the three ConvNeXt stage widths. loader: an
     iterable of {"lq", "hq"} batches (arrays or tensors, (B,H,W,3) in
-    [-1,1]), iterated again when exhausted. trainer: a pre-built TrainerS to
-    continue with; its cfg must match the loop-relevant fields of ``cfg``.
-    Every random number (LoRA init, discriminator init, the steps' noise)
-    comes from one torch.Generator on ``device`` seeded with cfg.seed.
+    [-1,1]), iterated again when exhausted; without it, ``build_loader``'s.
+    trainer: a pre-built TrainerS to continue with; its cfg must match the
+    loop-relevant fields of ``cfg``. Every random number of the step (LoRA
+    init, discriminator init, the steps' noise) comes from one
+    torch.Generator on ``device`` seeded with cfg.seed; the loader's from
+    its own generators, seeded with cfg.seed as in the JAX package.
     """
     from omgsr_tpu_torch.convert.params import init_discriminator
     from omgsr_tpu_torch.lora import SD_TARGET_MODULES, init_lora_tree
@@ -189,10 +208,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
             )
 
     if loader is None:
-        raise NotImplementedError(
-            "dataset_txt_or_dir_paths: the paired dataset and the Real-ESRGAN degradation are "
-            "not ported yet (data slice); hand run_training a loader of LQ/HQ pairs"
-        )
+        loader = build_loader(cfg, device)
 
     if cfg.max_train_steps is None:
         # reference fallback: epochs * ceil(len(loader)/accum)

@@ -79,7 +79,8 @@ class TrainConfig:
     mixed_precision: str = "bf16"
 
     # extensions of the JAX package (absent from the reference); accepted so
-    # that its configs load unchanged, not read by the port yet
+    # that its configs load unchanged; of these the port reads degradation_params
+    # (default: the package's params_realesrgan.yml)
     mesh_shape: Optional[dict] = None  # e.g. {"data": 4} or {"data": 2, "fsdp": 4}
     degradation_params: Optional[str] = None  # path to params_realesrgan.yml
     degrade_on_device: bool = True

@@ -25,3 +25,14 @@ def tree_to(tree, device=None, dtype=None):
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     return tree.to(device=device, dtype=dtype)
+
+
+def host_to_device(array, device) -> torch.Tensor:
+    """A numpy array (or CPU tensor) on ``device`` without waiting for it: to
+    a CUDA device through pinned memory with ``non_blocking=True`` (a copy
+    from pageable memory would wait for the stream to drain); on the CPU a
+    copy that aliases nothing."""
+    t = torch.as_tensor(array)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device).clone()

@@ -2,7 +2,8 @@
 package's on the same directory: infer_omgsr_s (PNGs within 1 uint8 step,
 fp32, with adapters and batches of 2), serve --sd_path (one HTTP request
 answered with the CLI's image), build_frozen_s (the same trees), and
-train_omgsr_s.main from a config file up to the loader of the data slice."""
+train_omgsr_s.main from a config file: without images it names the dataset
+option; with a folder of images it trains two optimizer steps."""
 
 import io
 import json
@@ -166,7 +167,8 @@ def test_train_main_reads_sd_path_and_stops_at_the_loader(ckpt, micro_convnext, 
 
     TRAIN.encode_fixed_prompt = spy
     try:
-        with pytest.raises(NotImplementedError, match="data slice"):
+        # no images: the loader would yield no batch, and the dataset option is named
+        with pytest.raises(ValueError, match="dataset_txt_or_dir_paths"):
             TRAIN.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu", "seed=5"])
     finally:
         TRAIN.encode_fixed_prompt = real
@@ -180,3 +182,55 @@ def test_train_main_reads_sd_path_and_stops_at_the_loader(ckpt, micro_convnext, 
     # the prompt from a .npz, as the reference's fixed_prompt_path
     npz = TRAIN.encode_fixed_prompt(TrainConfig(fixed_prompt_path=str(root / "prompt.npz")), torch.float32, "cpu")
     assert npz.shape == (1, 7, 16)
+
+
+def test_train_main_trains_from_a_folder_of_images(ckpt, micro_convnext, tmp_path, monkeypatch):
+    """Two optimizer steps (accumulation 2) from a YAML config, the tiny
+    checkpoint and four images of other sizes and formats, on the CPU: the
+    Real-ESRGAN pairs come from the loader, the metrics are finite, the
+    checkpoint and the adapters are written."""
+    import yaml
+
+    import omgsr_tpu_torch.convert.params as P
+
+    # discriminator heads of one stride-1 conv each: the published ones need the 512-px feature maps
+    real_init = P.init_discriminator
+    monkeypatch.setattr(P, "init_discriminator", lambda seed, ch, res, dtype, device: real_init(
+        seed, ch, res, dtype, device, configs=[([0.5], [1])] * 3))
+    root, _ = ckpt
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    rng = np.random.default_rng(4)
+    for name, (h, w) in {"a.png": (96, 80), "b.jpg": (64, 120), "c.png": (48, 70), "d.jpeg": (90, 90)}.items():
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(imgs / name)
+    out = tmp_path / "run"
+    cfg = {"sd_path": str(root), "output_dir": str(out), "dinov3_convnext_size": "micro",
+           "dinov3_weights_path": str(root / "dinov3_convnext.pth"), "fixed_prompt_path": str(root / "prompt.npz"),
+           "dataset_txt_or_dir_paths": [str(imgs)], "mixed_precision": "no", "resolution": 64,
+           "vae_lora_rank": 2, "unet_lora_rank": 2, "train_batch_size": 1, "gradient_accumulation_steps": 2,
+           "max_train_steps": 2, "lr_warmup_steps": 0, "checkpointing_steps": 1000, "save_img_steps": 1,
+           "metrics_jsonl": str(tmp_path / "metrics.jsonl")}
+    (tmp_path / "cfg.yml").write_text(yaml.safe_dump(cfg))
+    seen = []
+    from omgsr_tpu_torch.training import trainer as TT
+
+    real = TT.TrainerS.train_step
+
+    def spy(self, batch, noise):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return real(self, batch, noise)
+
+    TT.TrainerS.train_step = spy
+    try:
+        TRAIN.main(["--config", str(tmp_path / "cfg.yml"), "--device", "cpu"])
+    finally:
+        TT.TrainerS.train_step = real
+    assert len(seen) == 4
+    for b in seen:
+        assert b["hq"].shape == b["lq"].shape == (1, 64, 64, 3) and b["hq"].dtype == torch.float32
+        assert b["lq"].min() >= -1 and b["lq"].max() <= 1 and not torch.equal(b["lq"], b["hq"])
+    lines = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [line["step"] for line in lines] == [1, 2]
+    assert all(np.isfinite(v) for line in lines for v in line.values())
+    assert sorted(os.listdir(out / "weight-2")) == ["unet_lora_adapter", "vae_encoder_lora_adapter"]
+    assert (out / "checkpoints" / "checkpoint-2.pt").exists() and (out / "img-2.jpg").exists()

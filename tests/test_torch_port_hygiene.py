@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax():
                 "cli.train_omgsr_s", "utils.tree", "ops.conv3x3", "tools.check_conv3x3",
                 "inference.tiled_vae", "inference.vae_routing", "convert.safetensors_io", "convert.hf_config",
                 "convert.porters", "lora.adapter_io", "models.clip_text", "models.clip_tokenizer", "cli.prompts",
-                "inference.batch_runner", "cli.infer_omgsr_s", "tools.sd_checkpoint"):
+                "inference.batch_runner", "cli.infer_omgsr_s", "tools.sd_checkpoint", "data.kernels",
+                "data.degradation", "data.dataset", "data.imgdec_native", "ops.filters", "ops.resize", "ops.noise",
+                "ops.diffjpeg", "diffusion.calibration", "cli.mid_timestep_sd"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -76,7 +78,8 @@ def _no_cuda():
 
 def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
-    from omgsr_tpu_torch.cli import infer_omgsr_s, serve, train_omgsr_s
+    from omgsr_tpu_torch.cli import infer_omgsr_s, mid_timestep_sd, serve, train_omgsr_s
+    from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
     from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
     from omgsr_tpu_torch.config import TrainConfig
     from omgsr_tpu_torch.convert import porters
@@ -132,6 +135,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "build_frozen_s": lambda: train_omgsr_s.build_frozen_s(TrainConfig(sd_path=str(tmp_path)), torch.float32),
         "encode_fixed_prompt": lambda: train_omgsr_s.encode_fixed_prompt(
             TrainConfig(sd_path=str(tmp_path)), torch.float32),
+        # the data path and the calibration: each raises before it reads a file
+        "PairedLoader": lambda: PairedLoader(PairedDataset([], 64), 1),
+        "build_loader": lambda: train_omgsr_s.build_loader(TrainConfig()),
+        "mid_timestep_sd.main": lambda: mid_timestep_sd.main(
+            ["--dataset_txt_or_dir_paths", str(tmp_path), "--sd_path", str(tmp_path)]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -412,7 +412,8 @@ def test_unported_training_inputs_raise_naming_their_slice(tmp_path):
     # the load path is ported: without a frozen bundle the checkpoint directory must be named
     with pytest.raises(ValueError, match="sd_path"):
         TCLI.run_training(_cfg(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="data slice"):
+    # the data path is ported: without images the dataset option is named
+    with pytest.raises(ValueError, match="dataset_txt_or_dir_paths"):
         import omgsr_tpu_torch.convert.params as P
 
         TCLI.run_training(_cfg(tmp_path), frozen=_frozen_from_seed(), device="cpu",

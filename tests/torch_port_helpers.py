@@ -1,6 +1,7 @@
 """Shared helpers of the tests/test_torch_port_*.py files: tiny configs on
 both sides and the weight bridge from a JAX parameter tree."""
 
+import contextlib
 import json
 
 import jax
@@ -40,6 +41,45 @@ def jax_once(fn, *args):
     """``fn(*args)`` as one jax.jit compiled at optimisation level 0; static
     arguments go into ``fn`` as a closure."""
     return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
+
+
+@contextlib.contextmanager
+def _recording_draws(recorded):
+    """While a function is traced, each ``jax.random.uniform`` / ``normal`` /
+    ``poisson`` call made through the public module appends its result to
+    ``recorded`` (jax's own internals call their private functions)."""
+    saved = {name: getattr(jax.random, name) for name in ("uniform", "normal", "poisson")}
+
+    def wrap(fn):
+        def draw(*a, **k):
+            out = fn(*a, **k)
+            recorded.append(out)
+            return out
+
+        return draw
+
+    for name, fn in saved.items():
+        setattr(jax.random, name, wrap(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(jax.random, name, fn)
+
+
+def jax_with_draws(fn, *args):
+    """``fn(*args)`` as one jit at optimisation level 0 -> (its output, every
+    draw it took from ``jax.random`` in call order as f32 numpy arrays): what
+    the port's ``ops.noise.ReplayDraws`` hands to its side."""
+
+    def traced(*a):
+        recorded = []
+        with _recording_draws(recorded):
+            out = fn(*a)
+        return out, [r.astype(jax.numpy.float32) for r in recorded]
+
+    out, draws = jax_once(traced, *args)
+    return out, [np.asarray(d) for d in draws]
 
 
 def to_numpy_tree(tree):
