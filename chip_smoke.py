@@ -64,9 +64,31 @@ them. Phases, each of which must pass:
            directory (2 optimizer steps at accumulation 2) with its launches,
            the loader's wait and the micro-step beside the train phase's;
            mid_timestep_sd.main on the same folder (4 samples, f32 VAE) with
-           its launches; the shapes at which the two CLIs launched K1 and
-           K3a/K3b that the earlier phases did not, held against the plain
-           versions
+           its launches
+  serve-f  OMGSR-F one-step serving at FLUX.1-dev's full width and depth (the
+           11.9B DiT and the FLUX VAE, bf16, random weights from seeds, a
+           synthetic 512-token prompt): a server built by build_server
+           --pipeline f answers three 1024x1024 requests (one latent tile of
+           4608 tokens each) and one 2048x2048 request (nine tiles); launch
+           counts against the structure's (57 flash launches per tile
+           forward); one request repeated with the kernels routed to their
+           plain versions; one dual and one single block at full width on
+           the kernels against the plain flash attention (the attention's
+           output and the block's); request p50, the encode / DiT / decode
+           split, peak memory, and the DiT stage at 9, 16 and 13 tiles, one
+           tile a forward and a larger batch in turns (with --profile also
+           the stages' idle share and kernel time by name)
+  load-f   OMGSR-F from a checkpoint directory on disk: the DiT at full width
+           and 2 + 2 blocks, the VAE and a prompt .npz written in FLUX.1-dev's
+           layout (tools/flux_checkpoint.py) with rank-64 adapters, ported back;
+           cli.infer_omgsr_f.main on four images against the in-memory pipeline
+           on the same merged weights, one serve --pipeline f --flux_path
+           request, and mid_timestep_flux.main on the data phase's folder at
+           1024 px
+
+Every phase that serves, trains or runs a CLI records the shapes at which K1
+and K3a/K3b launched and holds each shape that the kernels phase does not list
+(and no earlier phase held) against its plain version.
 
 Where the VAE mid block's 512-wide head is timed, it is also timed on the
 route it took before the flash kernels took head dim 512 (explicit matmul
@@ -81,6 +103,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -98,27 +121,34 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from omgsr_tpu_torch.cli import infer_omgsr_f as infer_f_cli
 from omgsr_tpu_torch.cli import infer_omgsr_s as infer_cli
+from omgsr_tpu_torch.cli import mid_timestep_flux as calib_f_cli
 from omgsr_tpu_torch.cli import mid_timestep_sd as calib_cli
 from omgsr_tpu_torch.cli import serve as serve_cli
 from omgsr_tpu_torch.cli import train_omgsr_s as train_cli
 from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
 from omgsr_tpu_torch.config import TrainConfig
 from omgsr_tpu_torch.convert import porters
-from omgsr_tpu_torch.convert.params import init_convnext, init_unet, init_vae, to_hf_state_dict
+from omgsr_tpu_torch.convert.hf_config import flux_config_from_json, vae_config_from_json
+from omgsr_tpu_torch.convert.params import init_convnext, init_flux, init_unet, init_vae, to_hf_state_dict
 from omgsr_tpu_torch.data import degradation as DEG
 from omgsr_tpu_torch.data import imgdec_native
 from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
 from omgsr_tpu_torch.data.kernels import KernelSynthesisConfig, random_kernels
+from omgsr_tpu_torch.diffusion.packing import latent_image_ids
 from omgsr_tpu_torch.diffusion.tiling import tile_grid_2d
 from omgsr_tpu_torch.inference import tiled_vae as TTV
+from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline, flux_tile_batch
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
 from omgsr_tpu_torch.inference.tiled import auto_tile_batch
-from omgsr_tpu_torch.lora import merge_lora
+from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES, init_lora_tree, merge_lora
+from omgsr_tpu_torch.lora.adapter_io import save_adapter
 from omgsr_tpu_torch.losses.dists import init_dists
 from omgsr_tpu_torch.models.clip_text import clip_text_apply, init_clip_text
 from omgsr_tpu_torch.models.clip_tokenizer import CLIPTokenizer
-from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, SD21_CLIP, SD21_UNET, SD21_VAE
+from omgsr_tpu_torch.models import flux as FLUXM
+from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, FLUX_DEV, FLUX_VAE, SD21_CLIP, SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.models.layers import count_params
 from omgsr_tpu_torch.ops import attention as ATT
 from omgsr_tpu_torch.ops import conv3x3 as C3
@@ -131,6 +161,7 @@ from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.tools import check_group_norm as K3
+from omgsr_tpu_torch.tools.flux_checkpoint import write_flux_checkpoint
 from omgsr_tpu_torch.tools.sd_checkpoint import synthetic_bpe, write_sd_checkpoint
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
@@ -817,17 +848,10 @@ def vae_resnet_channels(cfg):
     return enc, dec
 
 
-def structure_counts(vae_cfg, unet_cfg):
-    """Kernel launches of one encode, one UNet call and one decode at batch 1,
-    read off the model's structure: {stage: {counter name: launches}}."""
-    n_down = len(unet_cfg.down_block_types)
-    attn_down = sum("CrossAttn" in t for t in unet_cfg.down_block_types) * unet_cfg.layers_per_block
-    attn_up = sum("CrossAttn" in t for t in unet_cfg.up_block_types) * (unet_cfg.layers_per_block + 1)
-    blocks = (attn_down + 1 + attn_up) * unet_cfg.transformer_layers_per_block
-    resnets = n_down * unet_cfg.layers_per_block + 2 + n_down * (unet_cfg.layers_per_block + 1)
-    head_dims = {c // h for c, h in zip(unet_cfg.block_out_channels, unet_cfg.num_attention_heads)}
-    head_dims.add(vae_cfg.block_out_channels[-1])  # the VAE mid block's single head
-    assert all(FA.supports(d, torch.bfloat16) for d in head_dims), head_dims
+def vae_structure_counts(vae_cfg):
+    """Kernel launches of one VAE encode and one decode at batch 1, read off
+    the VAE's structure: {"encode" / "decode": {counter name: launches}}."""
+    assert FA.supports(vae_cfg.block_out_channels[-1], torch.bfloat16)  # the mid block's single head
 
     def vae_stage(channels):
         # a fused resnet: one stats launch for GroupNorm 1 and two fused convs; any other: two
@@ -842,14 +866,36 @@ def structure_counts(vae_cfg, unet_cfg):
 
     enc, dec = vae_resnet_channels(vae_cfg)
     assert len(enc) == len(vae_cfg.block_out_channels) * vae_cfg.layers_per_block + 2
+    return {"encode": vae_stage(enc), "decode": vae_stage(dec)}
+
+
+def structure_counts(vae_cfg, unet_cfg):
+    """Kernel launches of one encode, one UNet call and one decode at batch 1,
+    read off the model's structure: {stage: {counter name: launches}}."""
+    n_down = len(unet_cfg.down_block_types)
+    attn_down = sum("CrossAttn" in t for t in unet_cfg.down_block_types) * unet_cfg.layers_per_block
+    attn_up = sum("CrossAttn" in t for t in unet_cfg.up_block_types) * (unet_cfg.layers_per_block + 1)
+    blocks = (attn_down + 1 + attn_up) * unet_cfg.transformer_layers_per_block
+    resnets = n_down * unet_cfg.layers_per_block + 2 + n_down * (unet_cfg.layers_per_block + 1)
+    head_dims = {c // h for c, h in zip(unet_cfg.block_out_channels, unet_cfg.num_attention_heads)}
+    assert all(FA.supports(d, torch.bfloat16) for d in head_dims), head_dims
     return {
         # self + cross attention per block; 2 GroupNorm+SiLU per resnet + the output norm
         "unet": {"flash_attention_fwd": 2 * blocks, "flash_attention_fwd_merge": 0,
                  "group_norm_stats": 2 * resnets + 1, "group_norm_apply": 2 * resnets + 1,
                  "conv3x3_gn_fused": 0, "conv3x3_fold_sums": 0},
-        "encode": vae_stage(enc),
-        "decode": vae_stage(dec),
+        **vae_structure_counts(vae_cfg),
     }
+
+
+def flux_structure_counts(vae_cfg, flux_cfg):
+    """As structure_counts for OMGSR-F: one joint attention per dual and per
+    single block of a DiT forward (head dim 128), no GroupNorm in the DiT."""
+    assert FA.supports(flux_cfg.attention_head_dim, torch.bfloat16)
+    return {"dit": {"flash_attention_fwd": flux_cfg.num_layers + flux_cfg.num_single_layers,
+                    "flash_attention_fwd_merge": 0, "group_norm_stats": 0, "group_norm_apply": 0,
+                    "conv3x3_gn_fused": 0, "conv3x3_fold_sums": 0},
+            **vae_structure_counts(vae_cfg)}
 
 
 def mid_head_merges(tokens):
@@ -860,24 +906,32 @@ def mid_head_merges(tokens):
 
 def expected_launches(sizes, per, tile, overlap, downscale):
     """Launches the structure predicts for one request of each (H, W)."""
-    total = dict.fromkeys(per["unet"], 0)
+    denoiser = "dit" if "dit" in per else "unet"
+    total = dict.fromkeys(per[denoiser], 0)
     for h, w in sizes:
-        calls = unet_calls(h, w, tile, overlap, downscale)
+        calls = denoiser_calls(h, w, tile, overlap, downscale)
         for name in total:
-            total[name] += per["encode"][name] + calls * per["unet"][name] + per["decode"][name]
+            total[name] += per["encode"][name] + calls * per[denoiser][name] + per["decode"][name]
         heads = per["encode"]["flash_attention_fwd"] + per["decode"]["flash_attention_fwd"]
         total["flash_attention_fwd_merge"] += heads * mid_head_merges((h // downscale) * (w // downscale))
     return total
 
 
-def unet_calls(h_px, w_px, tile, overlap, downscale):
+def latent_tiles(h_px, w_px, tile, overlap, downscale):
+    """Latent tiles of one request (1 where the tile covers the latent)."""
     h, w = h_px // downscale, w_px // downscale
     if h * w <= tile * tile:
         return 1
     t = min(tile, h, w)
-    n = len(tile_grid_2d(h, w, t, min(overlap, t // 2)))
-    tb = auto_tile_batch(n)
-    return -(-n // tb)
+    return len(tile_grid_2d(h, w, t, min(overlap, t // 2)))
+
+
+def denoiser_calls(h_px, w_px, tile, overlap, downscale):
+    """UNet or DiT calls of one request: its tiles in batches of
+    tiled.auto_tile_batch's size (the -S pipeline's default; the -F one's,
+    pipeline_f.flux_tile_batch, agrees at every size this script serves)."""
+    n = latent_tiles(h_px, w_px, tile, overlap, downscale)
+    return -(-n // auto_tile_batch(n))
 
 
 def run_clients(server, jobs):
@@ -934,7 +988,8 @@ def phase_serve(card, vae_params, unet_params, profile=False):
         expect = expected_launches([img.shape[:2] for img, _ in jobs], per, tile, overlap, SD21_VAE.downscale)
         reset_counts()
         t0 = time.perf_counter()
-        outs = run_clients(server, jobs)
+        with launch_shapes() as seen:
+            outs = run_clients(server, jobs)
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts().items() if k in expect}
         print(f"serve: 5 requests answered in {wall:.2f} s; launches {counts}; structure predicts "
@@ -942,6 +997,8 @@ def phase_serve(card, vae_params, unet_params, profile=False):
               f"{expected_launches([(512, 512)], per, tile, overlap, SD21_VAE.downscale)})", flush=True)
         assert counts == expect and expect["flash_attention_fwd"] > 0 and expect["group_norm_stats"] > 0, counts
         assert expect["group_norm_stats"] == expect["group_norm_apply"] and expect["conv3x3_gn_fused"] == 0
+        n_seen = report_launch_shapes("serve", "the requests", seen, 8000)
+        assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
 
         for (img, _), out in zip(jobs, outs):
             assert out.shape == img.shape and out.dtype == np.uint8, (out.shape, out.dtype)
@@ -1157,16 +1214,19 @@ def phase_serve_fused(card, vae_params, unet_params, profile=False):
         expect = expected_launches([img.shape[:2] for img, _ in jobs], per, tile, overlap, SD21_VAE.downscale)
         n_resnets = sum(len(c) for c in vae_resnet_channels(fused_cfg))
         assert one["conv3x3_gn_fused"] == 2 * n_resnets == 48, one  # every SD2.1 VAE resnet is eligible
-        assert unet_calls(1024, 1024, tile, overlap, SD21_VAE.downscale) > 1
+        assert denoiser_calls(1024, 1024, tile, overlap, SD21_VAE.downscale) > 1
 
         reset_counts()
         t0 = time.perf_counter()
-        outs = run_clients(servers["fused"], jobs)
+        with launch_shapes() as seen:
+            outs = run_clients(servers["fused"], jobs)
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts().items() if k in expect}
         print(f"serve-fused: 5 requests (four 512x512, one 1024x1024) answered in {wall:.2f} s; launches "
               f"{counts}; structure predicts {expect} (one 512x512 request: {one})", flush=True)
         assert counts == expect, (counts, expect)
+        n_seen = report_launch_shapes("serve-fused", "the requests", seen, 8500)
+        assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
         for (img, _), out in zip(jobs, outs):
             assert out.shape == img.shape and out.dtype == np.uint8, (out.shape, out.dtype)
             assert out.std() > 1.0, "constant output"
@@ -1381,7 +1441,8 @@ def phase_train(card, vae_params, unet_params, work_dir, profile=False):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
+    with launch_shapes() as seen:
+        trainer = train_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1409,6 +1470,8 @@ def phase_train(card, vae_params, unet_params, work_dir, profile=False):
     assert (expect["flash_attention_fwd"], expect["flash_attention_bwd_dq"]) == (35, 34), expect
     for name, n in expect.items():
         assert counts[name] == 4 * n, (name, counts[name], 4 * n)
+    n_seen = report_launch_shapes("train", "run_training", seen, 9000)
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
 
     # the accumulation boundary: nothing moves on the first micro-step of a window
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1545,21 +1608,14 @@ def tiled_stage_flash_launches(size, tile, pad, stats):
     return 1 + math.ceil(size / tile) ** 2
 
 
-@contextlib.contextmanager
-def count_mid_head_tokens(counts):
-    """Counts the flash forward launches at head dim 512 by sequence length."""
-    real = FA._forward
-
-    def spy(q, k, v, scale):
-        if q.is_cuda and q.shape[-1] == 512:
-            counts[q.shape[1]] = counts.get(q.shape[1], 0) + 1
-        return real(q, k, v, scale)
-
-    FA._forward = spy
-    try:
-        yield counts
-    finally:
-        FA._forward = real
+def mid_head_tokens(seen):
+    """{tokens: launches} of the flash forward at head dim 512 (the VAE mid
+    block's head) in a launch_shapes record."""
+    counts = {}
+    for (shape, _, _), n in seen["flash_n"].items():
+        if shape[-1] == 512:
+            counts[shape[1]] = counts.get(shape[1], 0) + n
+    return counts
 
 
 def phase_serve_tiled(card, vae_params, unet_params):
@@ -1575,11 +1631,12 @@ def phase_serve_tiled(card, vae_params, unet_params):
               "--latent", "mean", "--port", "0", "--vae_tile", str(vae_tile)]
     tile, overlap = 512 // 8, 512 // 16
     per = structure_counts(SD21_VAE, SD21_UNET)
-    calls = unet_calls(2048, 2048, tile, overlap, SD21_VAE.downscale)
+    calls = denoiser_calls(2048, 2048, tile, overlap, SD21_VAE.downscale)
     lat = {}
     counts = {}
     timings = {}
     outs = {}
+    seen = {"flash": set(), "flash_n": {}, "gn": {}}
     for stats, jobs in (("fast", imgs), ("exact", imgs[:1])):
         args = serve_cli.parse_args(common + ["--vae_stats", stats])
         server = serve_cli.build_server(args, params=(vae_params, unet_params), prompt_embeds=prompt)
@@ -1593,14 +1650,15 @@ def phase_serve_tiled(card, vae_params, unet_params):
             else:  # the hooked VAE launches no K3
                 expect["flash_attention_fwd"] += len(jobs) * vae_k1
             reset_counts()
-            tokens = {}
             torch.cuda.reset_peak_memory_stats()
             lat[stats], outs[stats] = [], []
-            with count_mid_head_tokens(tokens):
+            with launch_shapes() as seen_route:
                 for img in jobs:
                     t0 = time.perf_counter()
                     outs[stats].append(server.process_array(img, "adain"))
                     lat[stats].append((time.perf_counter() - t0) * 1e3)
+            merge_seen(seen, seen_route)
+            tokens = mid_head_tokens(seen_route)
             peak = torch.cuda.max_memory_allocated()
             # a mid head whose kv loop is split adds one merge: read off the heads' token counts
             expect["flash_attention_fwd_merge"] = sum(n * mid_head_merges(t) for t, n in tokens.items())
@@ -1622,6 +1680,8 @@ def phase_serve_tiled(card, vae_params, unet_params):
             timings[f"tiled_{stats}_request_peak_memory_GiB"] = peak / 2**30
         finally:
             server.shutdown()
+    n_seen = report_launch_shapes("serve-tiled", "the requests", seen, 9500)
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
     d = np.abs(outs["fast"][0].astype(int) - outs["exact"][0].astype(int))
     print(f"serve-tiled: the first image, fast route vs exact route (uint8 steps): mean {d.mean():.4f}, "
           f"max {d.max()}", flush=True)
@@ -1713,14 +1773,17 @@ def ported_component(name, fn, path, written, **kw):
 @contextlib.contextmanager
 def launch_shapes():
     """The shapes at which K1 (its kv split and merge included) and K3a/K3b
-    launch inside the block: {"flash": {(shape, Skv, dtype)}, "gn": {(shape,
-    groups, dtype): the affine dtype}}."""
-    seen = {"flash": set(), "gn": {}}
+    launch inside the block: {"flash": {(shape, Skv, dtype)}, "flash_n":
+    {(shape, Skv, dtype): launches}, "gn": {(shape, groups, dtype): the affine
+    dtype}}."""
+    seen = {"flash": set(), "flash_n": {}, "gn": {}}
     forward, stats, apply = FA._forward, GN._launch_stats, GN._launch_apply
 
     def seen_forward(q, k, v, scale):
         if q.is_cuda:
-            seen["flash"].add((tuple(q.shape), k.shape[1], q.dtype))
+            key = (tuple(q.shape), k.shape[1], q.dtype)
+            seen["flash"].add(key)
+            seen["flash_n"][key] = seen["flash_n"].get(key, 0) + 1
         return forward(q, k, v, scale)
 
     def seen_stats(x, geo, groups):
@@ -1738,20 +1801,51 @@ def launch_shapes():
         FA._forward, GN._launch_stats, GN._launch_apply = forward, stats, apply
 
 
+def merge_seen(into, seen):
+    into["flash"] |= seen["flash"]
+    for key, n in seen["flash_n"].items():
+        into["flash_n"][key] = into["flash_n"].get(key, 0) + n
+    into["gn"].update(seen["gn"])
+    return into
+
+
+# the launch shapes an earlier phase of this run held against the plain versions: each is held once
+HELD = {"flash": set(), "gn": set()}
+
+
 def hold_launch_shapes(seen, seed):
     """K1 and K3a/K3b against their plain versions (the kernels phase's checks,
     untimed) at each shape in ``seen`` that FLASH_SHAPES and GN_SHAPES do not
-    list -> ({kernel: shapes launched}, [(kernel, row) of each shape held])."""
+    list and no earlier phase held -> ({kernel: shapes launched}, [(kernel,
+    row) of each shape held])."""
     listed_flash = {(shape, skv, dtype) for shape, skv, dtype, _, _ in FLASH_SHAPES}
     listed_gn = {(shape, groups, dtype) for shape, groups, dtype, _ in GN_SHAPES}
     held = []
-    for i, (shape, skv, dtype) in enumerate(sorted(seen["flash"] - listed_flash, key=str)):
+    flash = sorted(seen["flash"] - listed_flash - HELD["flash"], key=str)
+    for i, (shape, skv, dtype) in enumerate(flash):
         held.append(("flash_attention_fwd", check_flash(shape, skv, dtype, seed + 10 * i, timed=False)))
-    extra = sorted(((k, a) for k, a in seen["gn"].items() if k not in listed_gn or a != k[2]), key=str)
+    HELD["flash"] |= set(flash)
+    extra = sorted(((k, a) for k, a in seen["gn"].items()
+                    if (k not in listed_gn or a != k[2]) and (k, a) not in HELD["gn"]), key=str)
     for i, ((shape, groups, dtype), affine) in enumerate(extra):
         s, a = check_group_norm(shape, groups, dtype, seed + 5000 + 10 * i, affine, timed=False)
         held += [("group_norm_stats", s), ("group_norm_apply", a)]
+    HELD["gn"] |= set(extra)
     return {"flash_attention_fwd": len(seen["flash"]), "group_norm": len(seen["gn"])}, held
+
+
+def report_launch_shapes(phase, what, seen, seed):
+    """hold_launch_shapes with its report; returns the number of shapes
+    launched per kernel."""
+    n_seen, held = hold_launch_shapes(seen, seed)
+    for name, r in held:
+        print(f"{phase}: {name} {r['shape']} (launched by {what}, not listed by the kernels phase): err "
+              f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
+    n_held = sum(name == "flash_attention_fwd" for name, _ in held)
+    print(f"{phase}: {what} launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
+          f"{n_seen['group_norm']}; those that neither the kernels phase lists nor an earlier phase held "
+          f"({n_held} and {(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
+    return n_seen
 
 
 def phase_load(card, vae_params, unet_params, export, work_dir):
@@ -1846,15 +1940,8 @@ def phase_load(card, vae_params, unet_params, export, work_dir):
           flush=True)
     assert counts == expect and expect["flash_attention_fwd"] > 0 and expect["group_norm_stats"] > 0, counts
     # every shape the CLI launched the kernels at, held against the plain versions (after the count)
-    n_seen, held = hold_launch_shapes(seen, 3000)
+    n_seen = report_launch_shapes("load", "the CLI", seen, 3000)
     assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
-    for name, r in held:
-        print(f"load: {name} {r['shape']} (launched by the CLI, not listed by the kernels phase): err "
-              f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
-    n_held = sum(name == "flash_attention_fwd" for name, _ in held)
-    print(f"load: the CLI launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
-          f"{n_seen['group_norm']}; those the kernels phase does not list ({n_held} and "
-          f"{(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
 
     # the in-memory pipeline on the same merged weights and embeddings, with the CLI's noise (seed = index)
     lora = {part: unflatten_dict(flat) for part, flat in export["lora"].items()}
@@ -1920,7 +2007,7 @@ def phase_load(card, vae_params, unet_params, export, work_dir):
     return counts, {"load_write_s": write_s, "load_port_vae_s": vae_s, "load_port_unet_s": unet_s,
                     "load_port_text_encoder_s": clip_s, "load_text_encode_ms": encode_ms,
                     "load_cli_s_per_image": s_per_image, "load_peak_memory_GiB": peak / 2**30}, \
-        {"sd_path": root, "dinov3_weights_path": pth, "seen": seen}
+        {"sd_path": root, "dinov3_weights_path": pth}
 
 
 # ----------------------------------------------------------------------------
@@ -2197,19 +2284,8 @@ def phase_data(card, work_dir, ckpt, train_metrics):
     print(f"timings: calibration {statistics.median(periods):.4f} s a batch (median of {len(periods)}, two f32 "
           f"encodes and the sweep) [{card}]", flush=True)
 
-    # every shape at which the two CLIs launched K1 and K3a/K3b and the load phase did not, held against
-    # the plain versions
-    seen = {"flash": (seen_train["flash"] | seen_calib["flash"]) - ckpt["seen"]["flash"],
-            "gn": {k: a for k, a in {**seen_train["gn"], **seen_calib["gn"]}.items()
-                   if ckpt["seen"]["gn"].get(k) != a}}
-    n_seen, held = hold_launch_shapes(seen, 7000)
-    n_held = sum(name == "flash_attention_fwd" for name, _ in held)
-    for name, r in held:
-        print(f"data: {name} {r['shape']} (launched by the CLIs, not listed by the kernels phase): err "
-              f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
-    print(f"data: the CLIs launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
-          f"{n_seen['group_norm']} that the load phase did not; those the kernels phase does not list either "
-          f"({n_held} and {(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
+    # every shape at which the two CLIs launched K1 and K3a/K3b, held against the plain versions
+    report_launch_shapes("data", "the CLIs", merge_seen(seen_train, seen_calib), 7000)
     counts = {k: train_counts[k] + calib_counts[k] for k in train_counts}
     return counts, {"data_degrade_ms": deg_ms, "data_degrade_host_ms": enqueue_ms,
                     "data_dispatch_ms": dispatch_ms, "data_dispatch_host_ms": dispatch_host_ms,
@@ -2218,6 +2294,439 @@ def phase_data(card, work_dir, ckpt, train_metrics):
                     "data_train_micro_step_s": s_per_micro, "data_train_loader_wait_ms": wait / DATA_ACCUM * 1e3,
                     "data_train_loader_wait_share": wait / window, "train_in_memory_micro_step_s": s_per_micro_mem,
                     "data_calibration_s_per_batch": statistics.median(periods), "data_decoder": decoder}
+
+
+# ----------------------------------------------------------------------------
+# phase: serve-f
+# ----------------------------------------------------------------------------
+
+FLUX_TXT_TOKENS = 512  # FLUX.1-dev's T5 prompt length
+# the DiT stage timed at one tile a forward (the JAX package's rule from 4096 tokens a tile, measured on
+# a TPU v5e) and at a larger batch in turns, on latents (H, W) in 128-tiles of 4608 tokens:
+# 9 tiles (the 2048-px request) at 3 and 16 tiles at 8, the default's batches (pipeline_f.flux_tile_batch);
+# 13 tiles at 7, tiled.auto_tile_batch's batch with one padded tile, where the default takes one
+F_TILE_TURNS = {(256, 256): 3, (320, 320): 8, (128, 896): 7}
+# one FLUX block at full width on the kernels against the same block with the flash attention on its
+# plain version, identical bf16 inputs, ||kernel - plain|| / ||plain||: of the attention's output
+# (captured inside the block; the two differ by bf16 roundings, a wrong attention reads about 1) and of
+# the block's output (the residual sum dilutes the attention's share: the reading with the attention
+# zeroed is printed beside it)
+MAX_ATTN_REL_L2 = 0.01
+MAX_BLOCK_REL_L2 = 0.01
+
+
+def init_flux_dev(dtype):
+    """FLUX.1-dev's DiT at full width and depth and the FLUX VAE, from seeds."""
+    t0 = time.perf_counter()
+    flux_params = init_flux(8, FLUX_DEV, dtype, "cuda")
+    vae_params = init_vae(9, FLUX_VAE, dtype, "cuda")
+    torch.cuda.synchronize()
+    n_dit, n_vae = count_params(flux_params), count_params(vae_params)
+    print(f"serve-f: FLUX.1-dev DiT {n_dit / 1e9:.3f}B parameters ({FLUX_DEV.num_layers} dual + "
+          f"{FLUX_DEV.num_single_layers} single blocks, inner width {FLUX_DEV.inner_dim}, "
+          f"{FLUX_DEV.num_attention_heads} heads of {FLUX_DEV.attention_head_dim}) + FLUX VAE {n_vae / 1e6:.1f}M, "
+          f"bf16 ({(n_dit + n_vae) * 2 / 1e9:.2f} GB), from seeds, in {time.perf_counter() - t0:.1f} s", flush=True)
+    assert n_dit == 11_901_408_320, n_dit
+    return vae_params, flux_params
+
+
+def flux_prompt(seed):
+    """A synthetic prompt at FLUX.1-dev's shapes: T5 embeddings (1, 512, 4096),
+    the pooled CLIP embedding (1, 768)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((1, FLUX_TXT_TOKENS, FLUX_DEV.joint_attention_dim)).astype(np.float32),
+            rng.standard_normal((1, FLUX_DEV.pooled_projection_dim)).astype(np.float32))
+
+
+@contextlib.contextmanager
+def captured_attention(zero=False):
+    """Inside, every attention output of models.flux is appended, in f32, to
+    the list this yields; with ``zero`` the blocks get zeros in its place."""
+    outs, inner = [], FLUXM.dot_product_attention
+
+    def capture(*args, **kwargs):
+        o = inner(*args, **kwargs)
+        outs.append(o.float())
+        return torch.zeros_like(o) if zero else o
+
+    FLUXM.dot_product_attention = capture
+    try:
+        yield outs
+    finally:
+        FLUXM.dot_product_attention = inner
+
+
+def rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def hold_flux_blocks(flux_params, card):
+    """Dual block 0 and single block 0 at full width over 4608 tokens (a
+    128x128-latent tile and 512 text tokens) on the kernels against the same
+    block on the plain flash attention, at the attention's output and the
+    block's; each block's device ms."""
+    dtype, cfg = torch.bfloat16, FLUX_DEV
+    g = torch.Generator(device="cuda").manual_seed(13)
+    img = torch.randn((1, 4096, cfg.inner_dim), generator=g, device="cuda").to(dtype)
+    txt = torch.randn((1, FLUX_TXT_TOKENS, cfg.inner_dim), generator=g, device="cuda").to(dtype)
+    temb = torch.randn((1, cfg.inner_dim), generator=g, device="cuda").to(dtype)
+    ids = torch.cat([torch.zeros((FLUX_TXT_TOKENS, 3), device="cuda"), latent_image_ids(64, 64, device="cuda")])
+    cos, sin = FLUXM.rope_cos_sin(ids, cfg.axes_dims_rope, cfg.rope_theta)
+    dual, single = flux_params["transformer_blocks"]["0"], flux_params["single_transformer_blocks"]["0"]
+    blocks = {"dual": lambda: torch.cat(FLUXM._dual_block(dual, cfg, img, txt, temb, cos, sin)[::-1], dim=1),
+              "single": lambda: FLUXM._single_block(single, cfg, torch.cat([txt, img], dim=1), temb, cos, sin)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in blocks.items():
+            with captured_attention() as attn:
+                a = fn().float()
+            a2 = fn().float()
+            with route_kernels_to_plain(), captured_attention() as attn_plain:
+                b = fn().float()
+            with route_kernels_to_plain(), captured_attention(zero=True):
+                b0 = fn().float()
+            assert len(attn) == len(attn_plain) == 1, (len(attn), len(attn_plain))
+            rel_attn, rel, rel0 = rel_l2(attn[0], attn_plain[0]), rel_l2(a, b), rel_l2(b0, b)
+            ms = time_ms(fn, iters=10, warmup=2)
+            print(f"serve-f: {name} block 0 at full width, 4608 tokens, kernels vs the plain flash attention: rel "
+                  f"L2 of the attention's output {rel_attn:.3g} (bound {MAX_ATTN_REL_L2}), of the block's "
+                  f"{rel:.3g} (bound {MAX_BLOCK_REL_L2}; {rel0:.3g} with the attention zeroed); twice with the "
+                  f"kernels: {'the same bits' if torch.equal(a, a2) else 'rel L2 %.3g' % rel_l2(a2, a)}"
+                  f"; {ms:.3f} ms on the device [{card}]", flush=True)
+            assert torch.isfinite(a).all() and rel_attn <= MAX_ATTN_REL_L2 and rel <= MAX_BLOCK_REL_L2, (
+                name, rel_attn, rel)
+            out[f"f_{name}_block_ms"] = ms
+    return out
+
+
+def phase_serve_f(card, vae_params, flux_params, profile=False):
+    """OMGSR-F one-step serving at FLUX.1-dev's full width and depth: an
+    SRServer built by cli.serve.build_server --pipeline f answers three
+    1024x1024 requests (one tile each) and one 2048x2048 request (nine tiles);
+    then the stages, and the DiT stage at the tile batches of F_TILE_TURNS."""
+    dtype = torch.bfloat16
+    prompt, pooled = flux_prompt(12)
+    args = serve_cli.parse_args(["--pipeline", "f", "--weight_dtype", "bf16", "--latent", "mean", "--port", "0"])
+    assert (args.process_size, args.mid_timestep) == (1024, 244)
+    server = serve_cli.build_server(args, params=(vae_params, flux_params), prompt_embeds=(prompt, pooled))
+    tile, overlap = args.process_size // 8, args.process_size // 16
+    ds = FLUX_VAE.downscale
+    rng = np.random.default_rng(13)
+    up4 = np.ones((4, 4, 1), np.uint8)
+    imgs1024 = [np.kron(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8), up4) for _ in range(3)]
+    img2048 = np.kron(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8), up4)  # 256 / 512 px inputs, x4
+    jobs = [(imgs1024[0], "nofix"), (imgs1024[1], "adain"), (imgs1024[2], "wavelet"), (img2048, "adain")]
+    per = flux_structure_counts(FLUX_VAE, FLUX_DEV)
+    n_blocks = per["dit"]["flash_attention_fwd"]
+    assert n_blocks == 57
+    heads, dh = FLUX_DEV.num_attention_heads, FLUX_DEV.attention_head_dim
+    tile_key = {b: ((b, 4608, heads, dh), 4608, dtype) for b in (1, 3)}  # 64 x 64 tokens + 512 text
+    timings = {}
+    try:
+        sizes = [img.shape[:2] for img, _ in jobs]
+        expect = expected_launches(sizes, per, tile, overlap, ds)
+        assert [latent_tiles(h, w, tile, overlap, ds) for h, w in sizes] == [1, 1, 1, 9]
+        assert denoiser_calls(2048, 2048, tile, overlap, ds) == 3
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with launch_shapes() as seen:
+            outs = run_clients(server, jobs)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tokens = mid_head_tokens(seen)
+        expect["flash_attention_fwd_merge"] = sum(n * mid_head_merges(t) for t, n in tokens.items())
+        counts = {k: v for k, v in read_counts().items() if k in expect}
+        at_tile = {b: seen["flash_n"].get(key, 0) for b, key in tile_key.items()}
+        print(f"serve-f: 4 requests (three 1024x1024, one 2048x2048) answered in {wall:.2f} s; launches {counts}; "
+              f"structure predicts {expect}; K1 at q(1,4608,24,128) {at_tile[1]} launches (three one-tile "
+              f"forwards), at q(3,4608,24,128) {at_tile[3]} (the nine tiles in three forwards), {n_blocks} per "
+              f"forward; VAE mid heads by tokens {dict(sorted(tokens.items()))}; peak memory allocated "
+              f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+        assert counts == expect and counts["flash_attention_fwd"] > 0 and counts["group_norm_stats"] > 0, counts
+        assert at_tile == {1: 3 * n_blocks, 3: 3 * n_blocks}, seen["flash_n"]
+        assert tokens == {128 * 128: 3 * 2, 256 * 256: 2}, tokens
+        for (img, _), out in zip(jobs, outs):
+            # process_array raises on non-finite values before it quantises
+            assert out.shape == img.shape and out.dtype == np.uint8 and out.std() > 1.0, (out.shape, out.std())
+        assert np.abs(outs[0].astype(int) - outs[1].astype(int)).mean() > 1.0, "distinct inputs, one output"
+        m = server.metrics()
+        assert m["requests"] == 4 and m["errors"] == 0, m
+        timings["f_peak_memory_GiB"] = peak / 2**30
+
+        # the same 1024-px request with every kernel wrapper routed to its plain version
+        again = server.process_array(imgs1024[0], "nofix")
+        with route_kernels_to_plain():
+            plain = server.process_array(imgs1024[0], "nofix")
+        mean, mx, share = mean_steps(again, plain)
+        print(f"serve-f: kernels vs plain versions on one 1024x1024 request (uint8 steps): mean {mean:.4f}, max "
+              f"{mx}, share within 16 steps {share:.4f} (bounds: mean {MAX_MEAN_STEPS}, share 0.95); the same "
+              f"request twice with kernels: max {np.abs(again.astype(int) - outs[0].astype(int)).max()}", flush=True)
+        assert mean <= MAX_MEAN_STEPS and share >= 0.95, (mean, share)
+
+        # request latency at 1024 px
+        lat = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            server.process_array(imgs1024[i % 3], "adain")
+            lat.append((time.perf_counter() - t0) * 1e3)
+        timings["f_latency_ms_p50_1024"] = statistics.median(lat[1:])
+        print(f"timings: -F 1024x1024 request latency p50 {timings['f_latency_ms_p50_1024']:.2f} ms over "
+              f"{len(lat) - 1} requests (first excluded: {lat[0]:.2f} ms) [{card}]", flush=True)
+        lat = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            server.process_array(img2048, "adain")
+            lat.append((time.perf_counter() - t0) * 1e3)
+        timings["f_latency_ms_2048"] = statistics.mean(lat)
+        print(f"timings: -F 2048x2048 request latency mean {timings['f_latency_ms_2048']:.1f} ms over 3 requests "
+              f"({', '.join(f'{x:.1f}' for x in lat)}) [{card}]", flush=True)
+    finally:
+        server.shutdown()
+    n_seen = report_launch_shapes("serve-f", "the requests", seen, 10000)
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
+
+    timings.update(hold_flux_blocks(flux_params, card))
+
+    # the stages at 1024 px, finite at each, on the device and on the host's clock
+    pipe = OMGSRFPipeline(vae_params, flux_params, FLUX_VAE, FLUX_DEV, 244, device="cuda")
+    lq = torch.from_numpy(imgs1024[0].astype(np.float32) / 127.5 - 1.0)[None].to("cuda", dtype)
+    ctx, pl = (torch.from_numpy(a).to("cuda", dtype) for a in (prompt, pooled))
+    with torch.inference_mode():
+        z = pipe.encode(lq, sample_latent=False)
+        z0 = pipe.latent_mid(z, ctx, pl, tile, overlap)
+        img = pipe.decode(z0)
+        for name, v in (("latent", z), ("x0 latent", z0), ("image", img)):
+            assert torch.isfinite(v.float()).all(), name
+        assert z.shape == (1, 128, 128, 16) and img.shape == (1, 1024, 1024, 3)
+        staged = {"vae_encode": lambda: pipe.encode(lq, sample_latent=False),
+                  "dit": lambda: pipe.latent_mid(z, ctx, pl, tile, overlap),
+                  "vae_decode": lambda: pipe.decode(z0)}
+        stages = {name: time_ms(fn, iters=5, warmup=1) for name, fn in staged.items()}
+        enqueue = {}
+        for name, fn in staged.items():
+            samples = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            enqueue[name] = statistics.median(samples)
+        for name, ms in stages.items():
+            timings[f"f_{name}_1024_ms"] = ms
+            timings[f"f_{name}_1024_host_enqueue_ms"] = enqueue[name]
+            print(f"timings: -F 1024x1024 {name} {ms:.2f} ms on the device, host enqueue {enqueue[name]:.2f} ms "
+                  f"[{card}]", flush=True)
+        if profile:
+            profile_stages(staged, stages, card, "-F 1024x1024")
+        timings.update(dit_tile_batch_turns(pipe, ctx, pl, tile, overlap, card))
+    return counts, timings
+
+
+def dit_tile_batch_turns(pipe, ctx, pooled, tile, overlap, card):
+    """The DiT stage's device ms on each latent of F_TILE_TURNS at one tile a
+    forward and at its batch, in turns (1, b, b, 1), each warmed once."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    ds = FLUX_VAE.downscale
+    for (h, w), tb in F_TILE_TURNS.items():
+        n = latent_tiles(h * ds, w * ds, tile, overlap, ds)
+        default = flux_tile_batch(n, (tile // 2) ** 2 + FLUX_TXT_TOKENS)
+        z = torch.randn((1, h, w, FLUX_VAE.latent_channels), generator=g, device="cuda").to(ctx.dtype)
+        for b in (1, tb):
+            pipe.tile_batch = b
+            assert torch.isfinite(pipe.latent_mid(z, ctx, pooled, tile, overlap).float()).all(), (h, w, b)
+        ms = {1: [], tb: []}
+        for b in (1, tb, tb, 1):
+            pipe.tile_batch = b
+            ms[b].append(time_ms(lambda: pipe.latent_mid(z, ctx, pooled, tile, overlap), iters=1, warmup=0))
+        pipe.tile_batch = None
+        for b, v in ms.items():
+            out[f"f_dit_{n}_tiles_tile_batch_{b}_ms"] = statistics.mean(v)
+        print(f"timings: -F DiT stage, {n} tiles of 4608 tokens (a {h}x{w} latent), on the device in turns "
+              f"(1, {tb}, {tb}, 1): " + "; ".join(
+                  f"tile batch {b} {statistics.mean(v):.1f} ms ({', '.join(f'{x:.1f}' for x in v)})"
+                  for b, v in ms.items()) + f"; the default takes {default} [{card}]", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase: load-f
+# ----------------------------------------------------------------------------
+
+# (W, H) of the -F CLI's inputs: three 1024x1024 outputs and one 1224x1024 (the min-side guard takes
+# 200 px to 1024; the 64 px size bucket pads to 1280x1024, a 128x160 latent in two 128-tiles, one forward)
+F_LOAD_INPUTS = [(256, 256)] * 3 + [(240, 200)]
+# the DiT written at full width and 2 dual + 2 single blocks (the full 23.8 GB is not written)
+F_LOAD_DEPTH = (2, 2)
+F_LORA_RANK = 64  # omgsr_tpu/configs/omgsr_f_1024.yml: vae_lora_rank, flux_transformer_lora_rank
+
+
+def phase_load_f(card, vae_params, flux_params, work_dir):
+    """OMGSR-F from a checkpoint directory on disk: a FLUX.1-dev-layout
+    directory (the DiT at full width and reduced depth, the serve-f VAE, a
+    prompt .npz, rank-64 adapters) written by tools/flux_checkpoint.py, ported
+    back, then cli.infer_omgsr_f.main, cli.serve --pipeline f --flux_path and
+    cli.mid_timestep_flux.main on it."""
+    from PIL import Image
+
+    dtype = torch.bfloat16
+    root = os.path.join(work_dir, "flux1-dev")
+    cfg = dataclasses.replace(FLUX_DEV, num_layers=F_LOAD_DEPTH[0], num_single_layers=F_LOAD_DEPTH[1])
+    dit = {**flux_params,
+           "transformer_blocks": {str(i): flux_params["transformer_blocks"][str(i)] for i in range(cfg.num_layers)},
+           "single_transformer_blocks": {str(i): flux_params["single_transformer_blocks"][str(i)]
+                                         for i in range(cfg.num_single_layers)}}
+    prompt, pooled = flux_prompt(14)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = write_flux_checkpoint(root, vae_params, FLUX_VAE, dit, cfg, dtype, transformer_shards=2,
+                                    prompt=(prompt, pooled))
+    write_s = time.perf_counter() - t0
+    files = sorted(os.listdir(os.path.join(root, "transformer")))
+    assert files == ["config.json", "diffusion_pytorch_model-00001-of-00002.safetensors",
+                     "diffusion_pytorch_model-00002-of-00002.safetensors",
+                     "diffusion_pytorch_model.safetensors.index.json"], files
+    # the adapters, with B drawn small (B = 0 at init would leave the merge untested)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    lora = {"flux": init_lora_tree(gen, dit, FLUX_TARGET_MODULES, F_LORA_RANK),
+            "vae": init_lora_tree(gen, vae_params["encoder"], SD_TARGET_MODULES, F_LORA_RANK)}
+    for tree in lora.values():
+        for path, v in flatten_dict(tree).items():
+            if path[-1] == "lora_B":
+                v.copy_(torch.randn(v.shape, generator=gen, device="cuda") * 1e-3)
+    lora_dir = os.path.join(root, "lora")
+    save_adapter(lora["flux"], os.path.join(lora_dir, "flux_adapter"), rank=F_LORA_RANK, targets=FLUX_TARGET_MODULES)
+    save_adapter(lora["vae"], os.path.join(lora_dir, "vae_encoder_adapter"), rank=F_LORA_RANK,
+                 targets=SD_TARGET_MODULES)
+    print(f"load-f: FLUX.1-dev-layout checkpoint written in bf16 in {write_s:.2f} s (DiT {count_params(dit) / 1e9:.3f}B "
+          f"at full width, {cfg.num_layers} dual + {cfg.num_single_layers} single blocks): "
+          + ", ".join(f"{k} {b / 1e9:.3f} GB in {t:.2f} s" for k, (t, b) in written.items())
+          + f"; rank-{F_LORA_RANK} adapters {sum(v.numel() for v in flatten_dict(lora).values()) / 1e6:.1f}M "
+          f"[{card}]", flush=True)
+    assert flux_config_from_json(os.path.join(root, "transformer")) == cfg
+    assert vae_config_from_json(os.path.join(root, "vae")) == FLUX_VAE
+
+    dit_p, dit_s = ported_component("transformer (index + 2 shards)", porters.port_flux_transformer,
+                                    os.path.join(root, "transformer"), written["transformer"], cfg=cfg, dtype=dtype)
+    vae_p, vae_s = ported_component("vae", porters.port_diffusers_vae, os.path.join(root, "vae"), written["vae"],
+                                    cfg=FLUX_VAE, dtype=dtype)
+    assert same_tree(dit, dit_p, dtype) and same_tree(vae_params, vae_p, dtype)
+    del dit_p, vae_p
+
+    # the inference CLI in-process
+    rng = np.random.default_rng(16)
+    img_dir, out_dir = os.path.join(work_dir, "load_f_inputs"), os.path.join(work_dir, "load_f_outputs")
+    os.makedirs(img_dir)
+    names = []
+    for i, (w, h) in enumerate(F_LOAD_INPUTS):
+        names.append(os.path.join(img_dir, f"img{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(names[-1])
+    prepared = [preprocess_sr_input(load_image_rgb(n), 1024, 4, 64) for n in names]
+    sizes = [item[0].shape[1:3] for item in prepared]
+    assert sizes[-1] == (1024, 1280) and prepared[-1][4] == (1024, 1224), (sizes, prepared[-1][4])
+    tile, overlap = 1024 // 8, 1024 // 16
+    ds = FLUX_VAE.downscale
+    assert [latent_tiles(h, w, tile, overlap, ds) for h, w in sizes] == [1, 1, 1, 2]
+    expect = expected_launches(sizes, flux_structure_counts(FLUX_VAE, cfg), tile, overlap, ds)
+    args = infer_f_cli.parse_args(["--input_image", img_dir, "--output_dir", out_dir, "--flux_path", root,
+                                   "--lora_path", lora_dir, "--prompt_npz", os.path.join(root, "prompt.npz"),
+                                   "--weight_dtype", "bf16"])
+    log = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with launch_shapes() as seen, contextlib.redirect_stdout(log):
+        infer_f_cli.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    expect["flash_attention_fwd_merge"] = sum(n * mid_head_merges(t) for t, n in mid_head_tokens(seen).items())
+    cli_counts = {k: v for k, v in read_counts().items() if k in expect}
+    per_image = [float(v) for v in re.findall(r"Inference time per image: (\S+)s", log.getvalue())]
+    assert len(per_image) == len(names), log.getvalue()
+    print(f"load-f: infer_omgsr_f.main answered {len(names)} images "
+          f"({', '.join(f'{w}x{h}' for w, h in F_LOAD_INPUTS)}) in {cli_s:.2f} s with the checkpoint's load; "
+          f"launches {cli_counts}; the structure predicts {expect}", flush=True)
+    assert cli_counts == expect and expect["flash_attention_fwd"] > 0, cli_counts
+
+    # the in-memory pipeline on the same merged weights and embeddings, with the CLI's noise (seed = index)
+    vae_m = {**vae_params, "encoder": merge_lora(vae_params["encoder"], lora["vae"])}
+    pipe = OMGSRFPipeline(vae_m, merge_lora(dit, lora["flux"]), FLUX_VAE, cfg, 244, device="cuda")
+    ctx, pl = (torch.from_numpy(a).to("cuda", dtype) for a in (prompt, pooled))
+    cli_out = []
+    for i, (name, (lq, src01, resize_flag, orig, true_hw)) in enumerate(zip(names, prepared)):
+        with torch.inference_mode():
+            out = pipe(torch.from_numpy(lq).to("cuda", dtype), ctx, pl, tile, overlap,
+                       generator=torch.Generator(device="cuda").manual_seed(i), sample_latent=True)
+            ref = np.asarray(postprocess_sr_output(out, src01, true_hw, adain_color_fix, resize_flag, orig, 4))
+        got = np.asarray(Image.open(os.path.join(out_dir, os.path.basename(name))))
+        cli_out.append(got)
+        d = np.abs(got.astype(int) - ref.astype(int))
+        w, h = F_LOAD_INPUTS[i]
+        assert got.shape == ref.shape == (4 * h, 4 * w, 3) and got.std() > 1.0, (got.shape, ref.shape)
+        assert d.max() <= 1, (name, d.max(), d.mean())
+    print(f"load-f: the CLI's {len(names)} PNGs against the in-memory pipeline on the same merged weights and "
+          f"prompt embeddings: within 1 uint8 step", flush=True)
+    del pipe, vae_m
+
+    # a server from --flux_path: its first request (index 1) draws the noise of the CLI's second image
+    sargs = serve_cli.parse_args(["--pipeline", "f", "--flux_path", root, "--lora_path", lora_dir, "--prompt_npz",
+                                  os.path.join(root, "prompt.npz"), "--weight_dtype", "bf16", "--port", "0"])
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(sargs)
+    build_s = time.perf_counter() - t0
+    try:
+        with open(names[1], "rb") as f:
+            body = f.read()
+        with launch_shapes() as seen_serve:
+            reply = np.asarray(Image.open(io.BytesIO(server.process_image(body, "adain"))))
+    finally:
+        server.shutdown()
+    d = np.abs(reply.astype(int) - cli_out[1].astype(int))
+    print(f"load-f: serve --pipeline f --flux_path built in {build_s:.2f} s; one request against the CLI's image: "
+          f"max {d.max()} uint8 steps", flush=True)
+    assert reply.shape == cli_out[1].shape and d.max() <= 1, d.max()
+
+    # mid_timestep_flux.main on the data phase's folder at 1024 px (f32 VAE, as the JAX CLI)
+    sources = [os.path.join(work_dir, "data", "hq"), os.path.join(work_dir, "data", "listed.txt")]
+    argv = ["--dataset_txt_or_dir_paths", *sources, "--flux_path", root, "--resolution", "1024",
+            "--max_samples", str(DATA_CALIB_SAMPLES)]
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), timed_loader() as batches, \
+            launch_shapes() as seen_calib, contextlib.chdir(work_dir), contextlib.redirect_stdout(log):
+        t_best, avg = calib_f_cli.main(argv)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_counts = read_counts()
+    encodes = 2 * DATA_CALIB_SAMPLES
+    per_encode = vae_structure_counts(FLUX_VAE)["encode"]  # f32: K1's kv loop is not split
+    print(f"load-f: mid_timestep_flux.main on {DATA_CALIB_SAMPLES} samples at 1024 px in {calib_s:.2f} s with the "
+          f"VAE's load: " + log.getvalue().strip().replace("\n", "; ") + f"; launches {calib_counts}; {encodes} "
+          f"encodes x {per_encode}", flush=True)
+    assert 0 <= t_best <= 999 and avg.shape == (1000,) and np.isfinite(avg).all(), (t_best, avg)
+    for name, n_one in per_encode.items():
+        assert calib_counts[name] == encodes * n_one, (name, calib_counts[name], encodes * n_one)
+    periods = np.diff(batches["at"])
+    peak = torch.cuda.max_memory_allocated()
+
+    n_seen = report_launch_shapes("load-f", "the CLIs", merge_seen(merge_seen(seen, seen_serve), seen_calib), 11000)
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
+    s_per_image = statistics.mean(per_image[1:])
+    gbps = written["transformer"][1] / 1e9 / dit_s
+    print(f"timings: load-f phase: checkpoint written in {write_s:.2f} s; ported transformer {dit_s:.3f} s "
+          f"({gbps:.2f} GB/s), vae {vae_s:.3f} s; CLI {s_per_image:.4f} s per image (first image excluded: "
+          f"{per_image[0]:.4f} s); serve --flux_path built in {build_s:.2f} s; calibration "
+          f"{statistics.median(periods):.4f} s a batch (two f32 encodes at 1024 px); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+    counts = {k: cli_counts.get(k, 0) + calib_counts[k] for k in calib_counts}
+    return counts, {"f_load_write_s": write_s, "f_load_port_transformer_s": dit_s,
+                    "f_load_port_transformer_GBps": gbps, "f_load_port_vae_s": vae_s,
+                    "f_load_cli_s_per_image": s_per_image, "f_load_serve_build_s": build_s,
+                    "f_calibration_s_per_batch": statistics.median(periods), "f_load_peak_memory_GiB": peak / 2**30}
 
 
 def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
@@ -2343,11 +2852,15 @@ def main():
         tiled_counts, tiled_timings = phase_serve_tiled(card, vae_params, unet_params)
         load_counts, load_timings, ckpt = phase_load(card, vae_params, unet_params, export, work_dir)
         data_counts, data_timings = phase_data(card, work_dir, ckpt, os.path.join(work_dir, "train", "metrics.jsonl"))
-    timings.update(fused_timings)
-    timings.update(train_timings)
-    timings.update(tiled_timings)
-    timings.update(load_timings)
-    timings.update(data_timings)
+        flux_vae, flux_params = init_flux_dev(torch.bfloat16)
+        serve_f_counts, serve_f_timings = phase_serve_f(card, flux_vae, flux_params, args.profile)
+        load_f_counts, load_f_timings = phase_load_f(card, flux_vae, flux_params, work_dir)
+        del flux_vae, flux_params  # the -F weights: 23.8 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+    for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
+                 load_f_timings):
+        timings.update(more)
 
     kernels = []
     for name, source, replaces, cuda_kernels in KERNELS:
@@ -2357,22 +2870,27 @@ def main():
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
         launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
-        launches = launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
+        launches_serve_f, launches_load_f = serve_f_counts.get(name, 0), load_f_counts.get(name, 0)
+        launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
+                    + launches_serve_f + launches_load_f)
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
+            assert launches_serve_f == launches_load_f == 0, name
         elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
             assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
+        elif "bwd" in name:  # training only
+            assert launches_train > 0 and launches_data > 0 and launches_serve_f == launches_load_f == 0, name
         else:
-            assert launches_train > 0 and launches_data > 0 and ("bwd" in name or (
-                launches_serve > 0 and launches_fused > 0 and launches_load > 0)), name
+            assert min(launches_train, launches_data, launches_serve, launches_fused, launches_load,
+                       launches_serve_f, launches_load_f) > 0, name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
             "launches_train": launches_train, "launches_serve_tiled": launches_tiled, "launches_load": launches_load,
-            "launches_data": launches_data,
+            "launches_data": launches_data, "launches_serve_f": launches_serve_f, "launches_load_f": launches_load_f,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -2,9 +2,10 @@
 
 The tokenizer reads its files from the checkpoint directory
 (``models/clip_tokenizer.py``) and the text tower is the port's own, fed by
-the porters. Both CLIs also accept pre-computed embeddings (.npz), the
+the porters. The CLIs also accept pre-computed embeddings (.npz), the
 reference's fixed_prompt_path escape hatch (train/train_omgsr_s.py:200-201).
-FLUX's prompt encoders arrive with the -F slice.
+FLUX's prompt encoders (T5-XXL, CLIP-L) are not ported yet: the -F CLIs take
+the .npz only.
 """
 
 from __future__ import annotations

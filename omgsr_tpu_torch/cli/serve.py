@@ -1,19 +1,25 @@
-"""OMGSR serving daemon: a long-lived HTTP process around the -S pipeline.
+"""OMGSR serving daemon: a long-lived HTTP process around the -S or the -F
+pipeline.
 
     python -m omgsr_tpu_torch.cli.serve --pipeline s \
         --sd_path /ckpts/sd21 --lora_path /ckpts/omgsr_s --port 8000 --warmup 128x128
+    python -m omgsr_tpu_torch.cli.serve --pipeline f \
+        --flux_path /ckpts/FLUX.1-dev --lora_path /ckpts/omgsr_f --prompt_npz prompt.npz
 
     curl -X POST --data-binary @lq.png \
         "http://localhost:8000/v1/sr?align=adain" -o sr.png
 
 The pipeline is built as the inference CLI builds it
-(``cli/infer_omgsr_s.build_pipeline``: configs and weights from ``--sd_path``,
-the adapters of ``--lora_path`` merged), and the prompt embeddings come from
-``--prompt_npz`` or from ``--prompt`` through the checkpoint's text encoder.
-``build_server`` also takes the parameters and the embeddings in memory from
-its caller. Dispatch defaults to serial batch-1 with opt-in fixed-size
-micro-batching. ``--vae_tile N`` sends the VAE stages of images larger than N
-pixels through the tiled VAE, with ``--vae_stats fast|exact|auto`` (see
+(``cli/infer_omgsr_s.build_pipeline`` from ``--sd_path``,
+``cli/infer_omgsr_f.build_pipeline`` from ``--flux_path``; the adapters of
+``--lora_path`` merged). -S's prompt embeddings come from ``--prompt_npz`` or
+from ``--prompt`` through the checkpoint's text encoder, -F's from
+``--prompt_npz``. ``build_server`` also takes the parameters and the
+embeddings in memory from its caller. ``--process_size`` and
+``--mid_timestep`` default to 512 / 273 for -S and 1024 / 244 for -F.
+Dispatch defaults to serial batch-1 with opt-in fixed-size micro-batching.
+``--vae_tile N`` sends the VAE stages of images larger than N pixels through
+the tiled VAE, with ``--vae_stats fast|exact|auto`` (see
 ``inference/pipeline_s.py``).
 """
 
@@ -23,12 +29,50 @@ import argparse
 
 import torch
 
-from omgsr_tpu_torch.cli.infer_omgsr_s import build_pipeline, prompt_embeddings
-from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
-from omgsr_tpu_torch.models.configs import SD21_UNET, SD21_VAE
+from omgsr_tpu_torch.models.configs import FLUX_DEV, FLUX_VAE, SD21_UNET, SD21_VAE
 from omgsr_tpu_torch.serving.server import ServeOptions, SRServer, make_fused_infer
 from omgsr_tpu_torch.utils.devices import resolve_device
 from omgsr_tpu_torch.utils.dtypes import resolve_dtype
+
+
+def _pipeline_s(args, dtype, device, params, configs, prompt_embeds):
+    from omgsr_tpu_torch.cli.infer_omgsr_s import build_pipeline, prompt_embeddings
+    from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
+
+    if params is None and not args.sd_path:
+        raise ValueError("build_server needs --sd_path or an in-memory (vae_params, unet_params) pair")
+    if prompt_embeds is None:
+        if not (args.prompt_npz or args.sd_path):
+            raise ValueError("build_server needs --prompt_npz, --sd_path (whose text encoder encodes "
+                             "--prompt) or in-memory prompt embeddings")
+        prompt_embeds = prompt_embeddings(args, dtype, device)
+    embeds = (torch.as_tensor(prompt_embeds).to(device=device, dtype=dtype),)
+    if params is None:
+        return build_pipeline(args, dtype, device), embeds
+    vae_cfg, unet_cfg = configs or (SD21_VAE, SD21_UNET)
+    return OMGSRSPipeline(
+        *params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep, vae_tile=args.vae_tile,
+        vae_stats=args.vae_stats, device=device,
+    ), embeds
+
+
+def _pipeline_f(args, dtype, device, params, configs, prompt_embeds):
+    from omgsr_tpu_torch.cli.infer_omgsr_f import build_pipeline, prompt_embeddings
+    from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline
+
+    if params is None and not args.flux_path:
+        raise ValueError("build_server --pipeline f needs --flux_path or an in-memory (vae_params, flux_params) "
+                         "pair")
+    if prompt_embeds is None:
+        prompt_embeds = prompt_embeddings(args, dtype, device)
+    embeds = tuple(torch.as_tensor(e).to(device=device, dtype=dtype) for e in prompt_embeds)
+    if params is None:
+        return build_pipeline(args, dtype, device), embeds
+    vae_cfg, flux_cfg = configs or (FLUX_VAE, FLUX_DEV)
+    return OMGSRFPipeline(
+        *params, vae_cfg, flux_cfg, mid_timestep=args.mid_timestep, guidance_scale=args.guidance_scale,
+        vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
+    ), embeds
 
 
 def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
@@ -39,25 +83,8 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     runs on the handler thread after the SR step."""
     tile_size = args.process_size // 8
     tile_overlap = tile_size // 2
-
-    if params is None and not args.sd_path:
-        raise ValueError("build_server needs --sd_path or an in-memory (vae_params, unet_params) pair")
-    if prompt_embeds is None:
-        if not (args.prompt_npz or args.sd_path):
-            raise ValueError("build_server needs --prompt_npz, --sd_path (whose text encoder encodes "
-                             "--prompt) or in-memory prompt embeddings")
-        prompt_embeds = prompt_embeddings(args, dtype, device)
-    prompt_embeds = torch.as_tensor(prompt_embeds).to(device=device, dtype=dtype)
-
-    if params is None:
-        pipe = build_pipeline(args, dtype, device)
-    else:
-        vae_params, unet_params = params
-        vae_cfg, unet_cfg = configs
-        pipe = OMGSRSPipeline(
-            vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep,
-            vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
-        )
+    build = _pipeline_f if args.pipeline == "f" else _pipeline_s
+    pipe, embeds = build(args, dtype, device, params, configs, prompt_embeds)
     sample = args.latent == "sample"
 
     def pipe_call(lq, i):
@@ -65,7 +92,7 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
         if sample:
             gen = torch.Generator(device=device)
             gen.manual_seed(int(i))
-        return pipe(lq, prompt_embeds, tile_size, tile_overlap, generator=gen, sample_latent=sample)
+        return pipe(lq, *embeds, tile_size, tile_overlap, generator=gen, sample_latent=sample)
 
     def infer_fn(lq, i):
         return pipe_call(torch.as_tensor(lq).to(device=device, dtype=dtype), i)
@@ -75,10 +102,13 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     return infer_fn, make_fused_infer(pipe_call, dtype, device)
 
 
-def build_server(args, params=None, configs=(SD21_VAE, SD21_UNET), prompt_embeds=None) -> SRServer:
-    """``params``: an in-memory ``(vae_params, unet_params)`` pair in the
-    port's layout, with their ``configs``, in place of ``--sd_path``.
-    ``prompt_embeds`` (1, S, C) overrides ``--prompt_npz`` and ``--prompt``."""
+def build_server(args, params=None, configs=None, prompt_embeds=None) -> SRServer:
+    """``params``: an in-memory ``(vae_params, unet_params)`` pair (-S) or
+    ``(vae_params, flux_params)`` pair (-F) in the port's layout, with their
+    ``configs`` (default: SD2.1's or FLUX.1-dev's), in place of ``--sd_path``
+    / ``--flux_path``. ``prompt_embeds`` overrides ``--prompt_npz`` and
+    ``--prompt``: (1, S, C) for -S, a (prompt_embeds, pooled_prompt_embeds)
+    pair for -F."""
     dtype = resolve_dtype(args.weight_dtype)
     device = resolve_device(args.device)
     warmup = tuple(tuple(int(v) for v in s.split("x")) for s in (args.warmup or []))
@@ -120,16 +150,17 @@ def main(args=None, serve_forever: bool = True, **build_kwargs):
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="OMGSR serving daemon (PyTorch/CUDA)")
-    parser.add_argument("--pipeline", type=str, default="s", choices=["s"],
-                        help="only the -S pipeline is ported")
-    parser.add_argument("--sd_path", type=str, default=None, help="SD2.1 dir (HF layout)")
+    parser.add_argument("--pipeline", type=str, default="s", choices=["s", "f"])
+    parser.add_argument("--sd_path", type=str, default=None, help="SD2.1 dir (HF layout), -S")
+    parser.add_argument("--flux_path", type=str, default=None, help="FLUX.1-dev dir (HF layout), -F")
     parser.add_argument("--lora_path", type=str, default=None,
-                        help="dir holding vae_encoder_lora_adapter/ and unet_lora_adapter/")
+                        help="dir holding vae_encoder_lora_adapter/ and unet_lora_adapter/ (-S) or "
+                        "flux_adapter/ and vae_encoder_adapter/ (-F)")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cuda' raises when no CUDA device is present")
-    parser.add_argument("--process_size", type=int, default=512)
+    parser.add_argument("--process_size", type=int, default=None, help="default: 512 (-S), 1024 (-F)")
     parser.add_argument("--upscale", type=int, default=4)
     parser.add_argument("--align_method", type=str, default="adain",
                         choices=["wavelet", "adain", "nofix"])
@@ -138,7 +169,8 @@ def parse_args(argv=None):
                         help="the CUDA kernels take bf16 and f32")
     parser.add_argument("--prompt", type=str, nargs="*", default="")
     parser.add_argument("--prompt_npz", type=str, default=None)
-    parser.add_argument("--mid_timestep", type=int, default=273)
+    parser.add_argument("--mid_timestep", type=int, default=None, help="default: 273 (-S), 244 (-F)")
+    parser.add_argument("--guidance_scale", type=float, default=1.0, help="-F only")
     parser.add_argument("--vae_tile", type=int, default=None,
                         help="tile the VAE stages of images whose larger side exceeds this many pixels")
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],
@@ -152,7 +184,12 @@ def parse_args(argv=None):
                         help="mean = deterministic output per input (no per-request noise draw)")
     parser.add_argument("--warmup", type=str, nargs="*", default=None,
                         metavar="HxW", help="input sizes to run once at startup, e.g. 128x128")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.process_size is None:
+        args.process_size = 512 if args.pipeline == "s" else 1024
+    if args.mid_timestep is None:
+        args.mid_timestep = 273 if args.pipeline == "s" else 244
+    return args
 
 
 if __name__ == "__main__":

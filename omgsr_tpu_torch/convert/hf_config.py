@@ -2,8 +2,7 @@
 
 Mirrors diffusers/transformers from_pretrained config handling, with the
 same defaults as the JAX package's readers, so a checkpoint directory fully
-determines the architecture. The FLUX transformer's and T5's readers arrive
-with the -F slice.
+determines the architecture. T5's reader arrives with FLUX's prompt encoders.
 """
 
 from __future__ import annotations
@@ -11,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 
-from omgsr_tpu_torch.models.configs import CLIPTextConfig, UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import CLIPTextConfig, FluxConfig, UNetConfig, VAEConfig
 
 
 def _read(path: str) -> dict:
@@ -56,6 +55,21 @@ def unet_config_from_json(path: str) -> UNetConfig:
         use_linear_projection=c.get("use_linear_projection", True),
         flip_sin_to_cos=c.get("flip_sin_to_cos", True),
         freq_shift=c.get("freq_shift", 0),
+    )
+
+
+def flux_config_from_json(path: str) -> FluxConfig:
+    c = _read(path)
+    return FluxConfig(
+        in_channels=c.get("in_channels", 64),
+        num_layers=c.get("num_layers", 19),
+        num_single_layers=c.get("num_single_layers", 38),
+        attention_head_dim=c.get("attention_head_dim", 128),
+        num_attention_heads=c.get("num_attention_heads", 24),
+        joint_attention_dim=c.get("joint_attention_dim", 4096),
+        pooled_projection_dim=c.get("pooled_projection_dim", 768),
+        guidance_embeds=c.get("guidance_embeds", True),
+        axes_dims_rope=tuple(c.get("axes_dims_rope", (16, 56, 56))),
     )
 
 

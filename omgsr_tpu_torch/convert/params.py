@@ -9,10 +9,11 @@ rule: conv ``lora_A`` (kh,kw,in,r) -> (r,in,kh,kw), ``lora_B`` (1,1,r,out) ->
 (out,r,1,1), dense ``lora_A`` (in,r) -> (r,in), ``lora_B`` (r,out) -> (out,r);
 a depthwise kernel (kh,kw,1,C) becomes (C,1,kh,kw). ``from_jax_tree`` converts
 a tree of numpy arrays and ``to_jax_tree`` goes back (torch -> numpy in the
-JAX layout); ``init_vae`` / ``init_unet`` / ``init_convnext`` /
+JAX layout); ``init_vae`` / ``init_unet`` / ``init_flux`` / ``init_convnext`` /
 ``init_discriminator`` build trees of the same structure from a seed
-(torch's default Linear/Conv2d distribution; the values differ from the JAX
-initialisers', so parity tests always carry the JAX weights across the
+(torch's default Linear/Conv2d distribution, and for the FLUX DiT the JAX
+package's wider weight bound; the values differ from the JAX initialisers',
+so parity tests always carry the JAX weights across the
 bridge). On the ``meta`` device they allocate and draw nothing: the porters
 take the expected structure from them that way. ``to_hf_state_dict`` flattens
 a tree into the diffusers/HF state dict (dotted keys, contiguous tensors),
@@ -26,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from omgsr_tpu_torch.models.configs import ConvNeXtConfig, UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, UNetConfig, VAEConfig
 from omgsr_tpu_torch.utils.devices import resolve_device
 
 
@@ -34,9 +35,24 @@ def _conv_weight(w: torch.Tensor) -> torch.Tensor:
     return w.contiguous(memory_format=torch.channels_last)
 
 
+def _unstacked(stacked):
+    """A scan-stacked subtree (every leaf with a leading block axis, the JAX
+    package's ``stack_block_params``) -> {"0": ..., "N-1": ...}."""
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+
+    def take(node, i):
+        return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
+
+    return {str(i): take(stacked, i) for i in range(int(np.shape(leaf)[0]))}
+
+
 def from_jax_tree(tree, dtype=None, device="cuda"):
     """Nested dict of numpy arrays in the JAX package's layout -> nested dict
-    of tensors in the port's layout, same key paths."""
+    of tensors in the port's layout, same key paths. A scan-stacked block
+    group (``{"stacked": ...}``, as under the FLUX DiT's
+    ``transformer_blocks``) is unstacked along axis 0 into "0".."N-1"."""
     device = resolve_device(device)
 
     def leaf(key, arr):
@@ -61,7 +77,7 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
         out = {}
         for k, v in node.items():
             if isinstance(v, dict):
-                out[k] = walk(v)
+                out[k] = walk(_unstacked(v["stacked"]) if set(v) == {"stacked"} else v)
             else:
                 nk, t = leaf(k, v)
                 out[nk] = t
@@ -351,6 +367,76 @@ def init_unet(seed: int, cfg: UNetConfig, dtype=torch.float32, device="cuda"):
     params["conv_norm_out"] = it.norm(bo[0])
     params["conv_out"] = it.conv(3, 3, bo[0], cfg.out_channels)
     return params
+
+
+def _flux_dense(it: _Init, in_dim, out_dim):
+    # the JAX package's init_dense: weight U(+-sqrt(3 / fan_in)), bias U(+-1 / sqrt(fan_in))
+    return {"weight": it._uniform((out_dim, in_dim), math.sqrt(3.0 / in_dim)),
+            "bias": it._uniform((out_dim,), 1.0 / math.sqrt(in_dim))}
+
+
+def _flux_mlp_embedder(it: _Init, in_dim, dim):
+    return {"linear_1": _flux_dense(it, in_dim, dim), "linear_2": _flux_dense(it, dim, dim)}
+
+
+def _flux_rms(it: _Init, dim):
+    return {"weight": torch.ones(dim, dtype=it.dtype, device=it.device)}
+
+
+def _flux_ff(it: _Init, dim, mlp):
+    return {"net": {"0": {"proj": _flux_dense(it, dim, mlp)}, "2": _flux_dense(it, mlp, dim)}}
+
+
+def _flux_dual_block(it: _Init, cfg: FluxConfig):
+    dim, hd = cfg.inner_dim, cfg.attention_head_dim
+    mlp = int(dim * cfg.mlp_ratio)
+    return {
+        "norm1": {"linear": _flux_dense(it, dim, 6 * dim)},
+        "norm1_context": {"linear": _flux_dense(it, dim, 6 * dim)},
+        "attn": {
+            **{name: _flux_dense(it, dim, dim)
+               for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj")},
+            **{name: _flux_rms(it, hd) for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k")},
+            "to_out": {"0": _flux_dense(it, dim, dim)},
+            "to_add_out": _flux_dense(it, dim, dim),
+        },
+        "ff": _flux_ff(it, dim, mlp),
+        "ff_context": _flux_ff(it, dim, mlp),
+    }
+
+
+def _flux_single_block(it: _Init, cfg: FluxConfig):
+    dim, hd = cfg.inner_dim, cfg.attention_head_dim
+    mlp = int(dim * cfg.mlp_ratio)
+    return {
+        "norm": {"linear": _flux_dense(it, dim, 3 * dim)},
+        "attn": {**{name: _flux_dense(it, dim, dim) for name in ("to_q", "to_k", "to_v")},
+                 "norm_q": _flux_rms(it, hd), "norm_k": _flux_rms(it, hd)},
+        "proj_mlp": _flux_dense(it, dim, mlp),
+        "proj_out": _flux_dense(it, dim + mlp, dim),
+    }
+
+
+def init_flux(seed, cfg: FluxConfig, dtype=torch.float32, device="cuda"):
+    """Random FluxTransformer2DModel parameters with the HF tree structure and
+    the JAX package's init family (``omgsr_tpu/models/flux.py init_flux``).
+    Each tensor is drawn in f32 on ``device`` and cast to ``dtype`` before the
+    next is drawn, so the full-size tree in bf16 never exists in f32."""
+    it = _Init(seed, dtype, device)
+    dim = cfg.inner_dim
+    tte = {"timestep_embedder": _flux_mlp_embedder(it, 256, dim),
+           "text_embedder": _flux_mlp_embedder(it, cfg.pooled_projection_dim, dim)}
+    if cfg.guidance_embeds:
+        tte["guidance_embedder"] = _flux_mlp_embedder(it, 256, dim)
+    return {
+        "x_embedder": _flux_dense(it, cfg.in_channels, dim),
+        "context_embedder": _flux_dense(it, cfg.joint_attention_dim, dim),
+        "time_text_embed": tte,
+        "transformer_blocks": {str(i): _flux_dual_block(it, cfg) for i in range(cfg.num_layers)},
+        "single_transformer_blocks": {str(i): _flux_single_block(it, cfg) for i in range(cfg.num_single_layers)},
+        "norm_out": {"linear": _flux_dense(it, dim, 2 * dim)},
+        "proj_out": _flux_dense(it, dim, cfg.in_channels),
+    }
 
 
 def _convnext_block(it: _Init, dim, ls_init):

@@ -12,8 +12,8 @@ conversion is the identity on the key paths, with conv weights kept in
 ``channels_last`` memory. Each porter checks the leaf paths and shapes
 against the structure of the port's own ``init_*`` for the config, built on
 the ``meta`` device (nothing is allocated), so a missing or mistyped key
-fails loudly. The FLUX transformer, T5 and CLIP-vision porters, and the
-DINOv3 ViT's, arrive with the -F, eval and DINOv3 slices.
+fails loudly. The T5 and CLIP-vision porters, and the DINOv3 ViT's, arrive
+with FLUX's prompt encoders and the eval and DINOv3 slices.
 """
 
 from __future__ import annotations
@@ -116,6 +116,20 @@ def port_diffusers_unet(path: str, cfg=None, dtype=torch.float32, validate: bool
     params = _convert(load_safetensors_dir(path), dtype=dtype, device=device)
     if validate:
         _validate_against(params, init_unet(0, cfg, dtype, "meta"), "unet")
+    return params
+
+
+def port_flux_transformer(path: str, cfg=None, dtype=torch.bfloat16, validate: bool = True, device="cuda"):
+    """<flux_path>/transformer -> FLUX DiT parameter tree (bf16 by default:
+    the published 12B model is 23.8 GB in bf16 and twice that in f32)."""
+    from omgsr_tpu_torch.convert.params import init_flux
+    from omgsr_tpu_torch.models.configs import FLUX_DEV
+
+    device = resolve_device(device)
+    cfg = cfg or FLUX_DEV
+    params = _convert(load_safetensors_dir(path), dtype=dtype, device=device)
+    if validate:
+        _validate_against(params, init_flux(0, cfg, dtype, "meta"), "flux")
     return params
 
 

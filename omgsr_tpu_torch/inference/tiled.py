@@ -40,7 +40,8 @@ def tiled_denoise(
     by extending the tile list across the image batch (the batch index is a
     third tile coordinate), so the denoiser always sees full
     tile_batch-sized batches. tile_batch=None picks a padding-free divisor
-    of the tile count (auto_tile_batch)."""
+    of the tile count (auto_tile_batch); a function of the tile count picks
+    the batch itself."""
     b, h, w, c = latent.shape
     t = min(tile_size, h, w)
     if h * w <= tile_size * tile_size:
@@ -54,6 +55,8 @@ def tiled_denoise(
     n = len(triples)
     if tile_batch is None:
         tile_batch = auto_tile_batch(n)
+    elif callable(tile_batch):
+        tile_batch = tile_batch(n)
     # the last tile is repeated to fill the final batch; the repeats are
     # denoised and then dropped (zero stitch weight)
     pad = (-n) % tile_batch

@@ -1,4 +1,5 @@
 from omgsr_tpu_torch.lora.lora import (
+    FLUX_TARGET_MODULES,
     SD_TARGET_MODULES,
     attach_lora,
     init_lora_tree,
@@ -9,6 +10,7 @@ from omgsr_tpu_torch.lora.lora import (
 )
 
 __all__ = [
+    "FLUX_TARGET_MODULES",
     "SD_TARGET_MODULES",
     "attach_lora",
     "init_lora_tree",

@@ -19,8 +19,9 @@ with {"lora_A","lora_B"} leaves, in torch layout like every leaf of the port
 a combined tree the model apply-fns consume: ``layers.dense`` /
 ``layers.conv2d`` add the low-rank delta whenever those keys are present.
 Training differentiates w.r.t. the LoRA tree only; ``attach_lora`` is pure
-tree surgery and copies no tensor. The scan-stacked and quantized-base
-layouts and the FLUX target list of the JAX package arrive with the -F slice.
+tree surgery and copies no tensor. The FLUX DiT's blocks are a dict per
+block here (no scan-stacked layout; ``convert/params.from_jax_tree`` unstacks
+a JAX tree); the quantized-base layouts of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +42,23 @@ SD_TARGET_MODULES = (
     "to_q",
     "to_v",
     "to_out.0",
+)
+
+# train/train_omgsr_f.py:154-169
+FLUX_TARGET_MODULES = (
+    "x_embedder",
+    "attn.to_k",
+    "attn.to_q",
+    "attn.to_v",
+    "attn.to_out.0",
+    "attn.add_k_proj",
+    "attn.add_q_proj",
+    "attn.add_v_proj",
+    "attn.to_add_out",
+    "ff.net.0.proj",
+    "ff.net.2",
+    "ff_context.net.0.proj",
+    "ff_context.net.2",
 )
 
 

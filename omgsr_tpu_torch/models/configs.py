@@ -1,10 +1,11 @@
 """Model architecture configs of the ported slices (SD2.1 VAE, UNet and CLIP
-text encoder, DINOv3 ConvNeXt).
+text encoder, the FLUX.1-dev VAE and DiT, DINOv3 ConvNeXt).
 
 Values mirror the HF checkpoint configs of
-stabilityai/stable-diffusion-2-1-base (vae/unet/text_encoder). The port keeps
-its own copy of these dataclasses; the FLUX configs (and FLUX's CLIP-L) arrive
-with the -F slice. ConvNeXt sizes follow dinov3/models/convnext.py:309-326.
+stabilityai/stable-diffusion-2-1-base (vae/unet/text_encoder) and
+black-forest-labs/FLUX.1-dev (vae/transformer). The port keeps its own copy of
+these dataclasses; FLUX's prompt encoders (T5-XXL, CLIP-L) are not ported yet.
+ConvNeXt sizes follow dinov3/models/convnext.py:309-326.
 """
 
 from __future__ import annotations
@@ -36,6 +37,15 @@ class VAEConfig:
 
 
 SD21_VAE = VAEConfig()
+
+# black-forest-labs/FLUX.1-dev vae/: 16 latent channels, a shift, no quant convs
+FLUX_VAE = VAEConfig(
+    latent_channels=16,
+    scaling_factor=0.3611,
+    shift_factor=0.1159,
+    use_quant_conv=False,
+    use_post_quant_conv=False,
+)
 
 
 @dataclass(frozen=True)
@@ -70,6 +80,30 @@ class UNetConfig:
 
 
 SD21_UNET = UNetConfig()
+
+
+@dataclass(frozen=True)
+class FluxConfig:
+    """FluxTransformer2DModel (FLUX.1-dev)."""
+
+    in_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = True
+    axes_dims_rope: Sequence[int] = (16, 56, 56)
+    rope_theta: int = 10000
+    mlp_ratio: float = 4.0
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+FLUX_DEV = FluxConfig()
 
 
 @dataclass(frozen=True)

@@ -104,6 +104,13 @@ def layer_norm(p, x, eps: float = 1e-5):
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
 
 
+def rms_norm(p, x, eps: float = 1e-6):
+    """RMSNorm over the last axis: statistics in fp32, a scale (``weight``)
+    only, result in x's dtype."""
+    x32 = x.float()
+    return (x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps) * p["weight"].float()).to(x.dtype)
+
+
 def silu(x):
     return F.silu(x)
 

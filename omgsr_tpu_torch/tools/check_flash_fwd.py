@@ -72,7 +72,7 @@ K1_SHAPES = [
     ((1, 4096, 5, 64), 77, True, False),
     ((1, 1024, 10, 64), 1024, True, False),
     ((1, 64, 20, 64), 64, True, False),
-    ((1, 4608, 24, 128), 4608, False, False),  # the -F DiT's joint attention
+    ((1, 4608, 24, 128), 4608, True, False),  # the -F DiT's joint attention (a 128x128-latent tile)
     # ragged Sq and Skv, read by strides (TMA tensor maps)
     ((2, 300, 3, 64), 300, False, True),
     ((2, 300, 3, 128), 300, False, True),

@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax():
                 "convert.porters", "lora.adapter_io", "models.clip_text", "models.clip_tokenizer", "cli.prompts",
                 "inference.batch_runner", "cli.infer_omgsr_s", "tools.sd_checkpoint", "data.kernels",
                 "data.degradation", "data.dataset", "data.imgdec_native", "ops.filters", "ops.resize", "ops.noise",
-                "ops.diffjpeg", "diffusion.calibration", "cli.mid_timestep_sd"):
+                "ops.diffjpeg", "diffusion.calibration", "cli.mid_timestep_sd", "models.flux",
+                "diffusion.packing", "inference.pipeline_f", "cli.infer_omgsr_f", "cli.mid_timestep_flux",
+                "tools.flux_checkpoint"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -78,7 +80,8 @@ def _no_cuda():
 
 def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
-    from omgsr_tpu_torch.cli import infer_omgsr_s, mid_timestep_sd, serve, train_omgsr_s
+    from omgsr_tpu_torch.cli import infer_omgsr_f, infer_omgsr_s, mid_timestep_flux, mid_timestep_sd, serve, \
+        train_omgsr_s
     from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
     from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
     from omgsr_tpu_torch.config import TrainConfig
@@ -90,11 +93,13 @@ def test_entry_points_raise_without_cuda(tmp_path):
         from_jax_tree,
         init_convnext,
         init_discriminator,
+        init_flux,
         init_unet,
         init_vae,
     )
+    from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline
     from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
-    from omgsr_tpu_torch.models.configs import ConvNeXtConfig, UNetConfig, VAEConfig
+    from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, UNetConfig, VAEConfig
     from omgsr_tpu_torch.serving import SRServer
     from omgsr_tpu_torch.serving.server import make_fused_infer
 
@@ -102,6 +107,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
     uc = UNetConfig(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
                     cross_attention_dim=16, norm_num_groups=4)
     vp, up = init_vae(0, vc, device="cpu"), init_unet(1, uc, device="cpu")
+    fc = FluxConfig(num_layers=1, num_single_layers=1, attention_head_dim=8, num_attention_heads=2,
+                    joint_attention_dim=16, pooled_projection_dim=8, axes_dims_rope=(2, 4, 2))
+    fp = init_flux(2, fc, device="cpu")
     calls = {
         "init_vae": lambda: init_vae(0, vc),
         "init_unet": lambda: init_unet(0, uc),
@@ -140,12 +148,26 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "build_loader": lambda: train_omgsr_s.build_loader(TrainConfig()),
         "mid_timestep_sd.main": lambda: mid_timestep_sd.main(
             ["--dataset_txt_or_dir_paths", str(tmp_path), "--sd_path", str(tmp_path)]),
+        # the -F slice: each raises before it reads a file
+        "init_flux": lambda: init_flux(0, fc),
+        "pipeline f": lambda: OMGSRFPipeline(vp, fp, vc, fc),
+        "build_server --pipeline f": lambda: serve.build_server(
+            serve.parse_args(["--pipeline", "f"]), params=(vp, fp), configs=(vc, fc),
+            prompt_embeds=(np.zeros((1, 5, 16), np.float32), np.zeros((1, 8), np.float32))),
+        "build_server --flux_path": lambda: serve.build_server(
+            serve.parse_args(["--pipeline", "f", "--flux_path", str(tmp_path)])),
+        "infer_omgsr_f.main": lambda: infer_omgsr_f.main(infer_omgsr_f.parse_args(
+            ["--input_image", str(tmp_path), "--output_dir", str(tmp_path), "--flux_path", str(tmp_path)])),
+        "port_flux_transformer": lambda: porters.port_flux_transformer(str(tmp_path)),
+        "mid_timestep_flux.main": lambda: mid_timestep_flux.main(
+            ["--dataset_txt_or_dir_paths", str(tmp_path), "--flux_path", str(tmp_path)]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     # and the same calls work when the CPU is asked for
     OMGSRSPipeline(vp, up, vc, uc, device="cpu")
+    OMGSRFPipeline(vp, fp, vc, fc, device="cpu")
 
 
 def test_unported_options_raise_naming_their_slice():
@@ -183,8 +205,13 @@ def test_unported_options_raise_naming_their_slice():
         infer_omgsr_s.build_pipeline(infer_omgsr_s.parse_args(
             ["--input_image", "x", "--output_dir", "x", "--sd_path", "/nowhere", "--shard", "tiles"]), torch.float32,
             "cpu")
+    # -F serving is ported: its defaults are -F's, and it needs a checkpoint or parameters in memory
+    args = serve.parse_args(["--pipeline", "f", "--device", "cpu", "--prompt_npz", "/nowhere/p.npz"])
+    assert (args.process_size, args.mid_timestep) == (1024, 244)
+    with pytest.raises(ValueError, match="--flux_path"):
+        serve.build_server(args)
     with pytest.raises(SystemExit):
-        serve.parse_args(["--pipeline", "f"])
+        serve.parse_args(["--pipeline", "x"])
 
 
 def test_backward_kernels_hold_no_atomics_and_no_library_calls():

@@ -269,3 +269,73 @@ def write_tiny_checkpoint(root, seed=0):
     np.savez(root / "prompt.npz",
              prompt_embeds=np.random.default_rng(seed).normal(size=(1, 7, 16)).astype(np.float32))
     return trees
+
+
+# ----------------------------------------------------------------------------
+# a tiny FLUX.1-dev-layout checkpoint directory that both packages' porters read
+# ----------------------------------------------------------------------------
+
+# the FLUX VAE's 16 latent channels, shift and no quant convs at the tiny VAE's widths
+_TINY_FLUX_VAE = dict(_TINY_VAE, latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                      use_quant_conv=False, use_post_quant_conv=False)
+# tests/test_models.py's TINY_FLUX: head dim 8, so its attention takes the matmul route
+_TINY_FLUX = dict(num_layers=2, num_single_layers=2, attention_head_dim=8, num_attention_heads=4,
+                  joint_attention_dim=16, pooled_projection_dim=8, axes_dims_rope=(2, 4, 2))
+
+
+def tiny_flux_configs():
+    """(JAX VAE, port VAE, JAX FLUX, port FLUX) tiny configs."""
+    from omgsr_tpu.models.configs import FluxConfig as JFluxConfig
+    from omgsr_tpu_torch.models.configs import FluxConfig
+
+    return (JVAEConfig(**_TINY_FLUX_VAE), VAEConfig(**_TINY_FLUX_VAE), JFluxConfig(**_TINY_FLUX),
+            FluxConfig(**_TINY_FLUX))
+
+
+def write_tiny_flux_checkpoint(root, seed=0):
+    """Write, under ``root`` (a pathlib.Path), a FLUX.1-dev-layout checkpoint of
+    the tiny configs from numpy draws with the ``safetensors`` package, as
+    tests/test_e2e_cli.make_fake_flux_checkpoint does, and the adapters with the
+    JAX package's writer:
+
+        vae/ (one file), transformer/ (two shards + index), lora/{flux_adapter,
+        vae_encoder_adapter}/ (rank 2), prompt.npz (prompt_embeds (1, 5, 16),
+        pooled_prompt_embeds (1, 8))
+
+    Returns the JAX-layout trees written: vae, flux, lora_flux, lora_vae."""
+    from safetensors.numpy import save_file
+
+    from omgsr_tpu.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES
+    from omgsr_tpu.lora import save_adapter as jax_save_adapter
+    from omgsr_tpu.models import flux as JF
+    from omgsr_tpu.models import vae as JV
+
+    jvae, _, jflux, _ = tiny_flux_configs()
+    trees = {"vae": jax_init(JV.init_vae, seed, jvae), "flux": jax_init(JF.init_flux, seed + 1, jflux)}
+    trees["lora_flux"] = jax_lora_tree(trees["flux"], 2, seed + 2, FLUX_TARGET_MODULES)
+    trees["lora_vae"] = jax_lora_tree(trees["vae"]["encoder"], 2, seed + 3)
+    trees = {k: to_numpy_tree(v) for k, v in trees.items()}
+
+    for sub in ("vae", "transformer"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    save_file(torch_layout(trees["vae"]), str(root / "vae" / "diffusion_pytorch_model.safetensors"))
+    flux = torch_layout(trees["flux"])
+    keys = sorted(flux)
+    shards = {"diffusion_pytorch_model-00001-of-00002.safetensors": keys[: len(keys) // 2],
+              "diffusion_pytorch_model-00002-of-00002.safetensors": keys[len(keys) // 2:]}
+    for name, ks in shards.items():
+        save_file({k: flux[k] for k in ks}, str(root / "transformer" / name))
+    (root / "transformer" / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": {k: name for name, ks in shards.items() for k in ks}}))
+    (root / "vae" / "config.json").write_text(json.dumps(
+        {"block_out_channels": [8, 16], "norm_num_groups": 4, "latent_channels": 16, "layers_per_block": 1,
+         "scaling_factor": 0.3611, "shift_factor": 0.1159, "use_quant_conv": False, "use_post_quant_conv": False}))
+    (root / "transformer" / "config.json").write_text(json.dumps(
+        {**_TINY_FLUX, "axes_dims_rope": list(_TINY_FLUX["axes_dims_rope"]), "in_channels": 64}))
+    jax_save_adapter(trees["lora_flux"], str(root / "lora" / "flux_adapter"), rank=2, targets=FLUX_TARGET_MODULES)
+    jax_save_adapter(trees["lora_vae"], str(root / "lora" / "vae_encoder_adapter"), rank=2,
+                     targets=SD_TARGET_MODULES)
+    rng = np.random.default_rng(seed)
+    np.savez(root / "prompt.npz", prompt_embeds=rng.normal(size=(1, 5, 16)).astype(np.float32),
+             pooled_prompt_embeds=rng.normal(size=(1, 8)).astype(np.float32))
+    return trees
