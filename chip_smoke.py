@@ -58,8 +58,10 @@ them. Phases, each of which must pass:
            seed (PNG and JPEG, 2040x1356 down to 400x600, an FFHQ face, two
            named in a .txt list); the host's decode + crop per image and the
            decoder that ran; the card's Real-ESRGAN degrade against the CPU's
-           on the same draws (uint8 steps; with cuDNN's TF32 on and off) and
-           its device ms and peak memory per 512-px batch;
+           on the same draws for every image, stage by stage on the card's
+           own input to each stage (a JPEG stage in its halves, before and
+           after rounding its coefficients), the composed outputs' uint8
+           steps shown, with cuDNN's TF32 on and off; the degrade's device ms and peak memory per 512-px batch;
            train_omgsr_s.main --config at full width from the load phase's
            directory (2 optimizer steps at accumulation 2) with its launches,
            the loader's wait and the micro-step beside the train phase's;
@@ -78,17 +80,34 @@ them. Phases, each of which must pass:
            split, peak memory, and the DiT stage at 9, 16 and 13 tiles, one
            tile a forward and a larger batch in turns (with --profile also
            the stages' idle share and kernel time by name)
-  load-f   OMGSR-F from a checkpoint directory on disk: the DiT at full width
-           and 2 + 2 blocks, the VAE and a prompt .npz written in FLUX.1-dev's
-           layout (tools/flux_checkpoint.py) with rank-64 adapters, ported back;
-           cli.infer_omgsr_f.main on four images against the in-memory pipeline
-           on the same merged weights, one serve --pipeline f --flux_path
-           request, and mid_timestep_flux.main on the data phase's folder at
-           1024 px
+  train-f  OMGSR-F LoRA-GAN training at FLUX.1-dev's full width and depth
+           (the serve-f DiT and VAE, the train phase's ConvNeXt-L, 1024x1024,
+           batch 1, LoRA ranks 64/64, gradient checkpointing with per-block
+           recompute, bf16): cli.train_omgsr_f.run_training takes 2 optimizer
+           steps at gradient accumulation 2; metrics, launch counts against the
+           structure's (57 K2a/K2b at q(1,4608,24,128) and 2 at
+           q(1,16384,1,512) a micro-step), the accumulation boundary and the
+           frozen weights are checked, one micro-step is repeated with the
+           kernels routed to their plain versions, and one is timed stage by
+           stage with its peak memory; the -F adapters are exported
+  load-f   OMGSR-F from a checkpoint directory on disk: FLUX.1-dev's T5-XXL at
+           full width and depth from a seed encodes the empty prompt and one
+           past 512 tokens (timed, then freed); the DiT at full width and 2 + 2
+           blocks, the VAE, CLIP-L at full width and T5 at full width and 2 of
+           24 layers with synthetic tokenizers at the published sizes, written
+           in FLUX.1-dev's layout (tools/flux_checkpoint.py) and ported back;
+           encode_prompt_flux on it against the in-memory encoders; with the
+           train-f adapters cut to that depth, cli.infer_omgsr_f.main --prompt
+           on four images against the in-memory pipeline on the same merged
+           weights, one serve --pipeline f --flux_path request,
+           mid_timestep_flux.main on the data phase's folder at 1024 px, and
+           train_omgsr_f.main --config (the package's omgsr_f_1024.yml, the
+           fixed prompt "" through the directory's encoders, 2 optimizer steps
+           at 1024 px from the data phase's folder)
 
-Every phase that serves, trains or runs a CLI records the shapes at which K1
-and K3a/K3b launched and holds each shape that the kernels phase does not list
-(and no earlier phase held) against its plain version.
+Every phase that serves, trains or runs a CLI records the shapes at which K1,
+K2a/K2b and K3a/K3b launched and holds each shape that the kernels phase does
+not list (and no earlier phase held) against its plain version.
 
 Where the VAE mid block's 512-wide head is timed, it is also timed on the
 route it took before the flash kernels took head dim 512 (explicit matmul
@@ -126,12 +145,20 @@ from omgsr_tpu_torch.cli import infer_omgsr_s as infer_cli
 from omgsr_tpu_torch.cli import mid_timestep_flux as calib_f_cli
 from omgsr_tpu_torch.cli import mid_timestep_sd as calib_cli
 from omgsr_tpu_torch.cli import serve as serve_cli
+from omgsr_tpu_torch.cli import train_omgsr_f as train_f_cli
 from omgsr_tpu_torch.cli import train_omgsr_s as train_cli
-from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
+from omgsr_tpu_torch.cli.prompts import encode_prompt_flux, encode_prompt_sd
 from omgsr_tpu_torch.config import TrainConfig
 from omgsr_tpu_torch.convert import porters
 from omgsr_tpu_torch.convert.hf_config import flux_config_from_json, vae_config_from_json
-from omgsr_tpu_torch.convert.params import init_convnext, init_flux, init_unet, init_vae, to_hf_state_dict
+from omgsr_tpu_torch.convert.params import (
+    init_convnext,
+    init_flux,
+    init_t5_encoder,
+    init_unet,
+    init_vae,
+    to_hf_state_dict,
+)
 from omgsr_tpu_torch.data import degradation as DEG
 from omgsr_tpu_torch.data import imgdec_native
 from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
@@ -142,26 +169,38 @@ from omgsr_tpu_torch.inference import tiled_vae as TTV
 from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline, flux_tile_batch
 from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
 from omgsr_tpu_torch.inference.tiled import auto_tile_batch
-from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES, init_lora_tree, merge_lora
-from omgsr_tpu_torch.lora.adapter_io import save_adapter
+from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, merge_lora
+from omgsr_tpu_torch.lora.adapter_io import load_adapter, save_adapter
 from omgsr_tpu_torch.losses.dists import init_dists
 from omgsr_tpu_torch.models.clip_text import clip_text_apply, init_clip_text
 from omgsr_tpu_torch.models.clip_tokenizer import CLIPTokenizer
 from omgsr_tpu_torch.models import flux as FLUXM
-from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES, FLUX_DEV, FLUX_VAE, SD21_CLIP, SD21_UNET, SD21_VAE
+from omgsr_tpu_torch.models.configs import (
+    CONVNEXT_SIZES,
+    FLUX_CLIP_L,
+    FLUX_DEV,
+    FLUX_T5_XXL,
+    FLUX_VAE,
+    SD21_CLIP,
+    SD21_UNET,
+    SD21_VAE,
+)
 from omgsr_tpu_torch.models.layers import count_params
+from omgsr_tpu_torch.models.t5 import t5_encode
+from omgsr_tpu_torch.models.t5_tokenizer import T5Tokenizer
 from omgsr_tpu_torch.ops import attention as ATT
 from omgsr_tpu_torch.ops import conv3x3 as C3
+from omgsr_tpu_torch.ops import diffjpeg as DJ
 from omgsr_tpu_torch.ops import flash_attention as FA
 from omgsr_tpu_torch.ops import fused_groupnorm as GN
 from omgsr_tpu_torch.ops.color import adain_color_fix
-from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, route_kernels_to_plain
+from omgsr_tpu_torch.ops.kernel_build import build_kernels, kernel_sources, plain_route_active, route_kernels_to_plain
 from omgsr_tpu_torch.ops.noise import GeneratorDraws, ReplayDraws
 from omgsr_tpu_torch.tools import check_conv3x3 as K45
 from omgsr_tpu_torch.tools import check_flash_bwd as K2
 from omgsr_tpu_torch.tools import check_flash_fwd as K1
 from omgsr_tpu_torch.tools import check_group_norm as K3
-from omgsr_tpu_torch.tools.flux_checkpoint import write_flux_checkpoint
+from omgsr_tpu_torch.tools.flux_checkpoint import synthetic_text_tokenizers, t5_tokenizer_json, write_flux_checkpoint
 from omgsr_tpu_torch.tools.sd_checkpoint import synthetic_bpe, write_sd_checkpoint
 from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
@@ -1636,7 +1675,7 @@ def phase_serve_tiled(card, vae_params, unet_params):
     counts = {}
     timings = {}
     outs = {}
-    seen = {"flash": set(), "flash_n": {}, "gn": {}}
+    seen = {"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}
     for stats, jobs in (("fast", imgs), ("exact", imgs[:1])):
         args = serve_cli.parse_args(common + ["--vae_stats", stats])
         server = serve_cli.build_server(args, params=(vae_params, unet_params), prompt_embeds=prompt)
@@ -1772,12 +1811,12 @@ def ported_component(name, fn, path, written, **kw):
 
 @contextlib.contextmanager
 def launch_shapes():
-    """The shapes at which K1 (its kv split and merge included) and K3a/K3b
-    launch inside the block: {"flash": {(shape, Skv, dtype)}, "flash_n":
-    {(shape, Skv, dtype): launches}, "gn": {(shape, groups, dtype): the affine
-    dtype}}."""
-    seen = {"flash": set(), "flash_n": {}, "gn": {}}
-    forward, stats, apply = FA._forward, GN._launch_stats, GN._launch_apply
+    """The shapes at which K1 (its kv split and merge included), K2a/K2b and
+    K3a/K3b launch inside the block: {"flash": {(shape, Skv, dtype)},
+    "flash_n": {(shape, Skv, dtype): launches}, "bwd_n": the same for the
+    backward pair, "gn": {(shape, groups, dtype): the affine dtype}}."""
+    seen = {"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}
+    forward, backward, stats, apply = FA._forward, FA.flash_attention_bwd, GN._launch_stats, GN._launch_apply
 
     def seen_forward(q, k, v, scale):
         if q.is_cuda:
@@ -1785,6 +1824,12 @@ def launch_shapes():
             seen["flash"].add(key)
             seen["flash_n"][key] = seen["flash_n"].get(key, 0) + 1
         return forward(q, k, v, scale)
+
+    def seen_backward(q, k, v, *a, **kw):
+        if q.is_cuda and not plain_route_active():
+            key = (tuple(q.shape), k.shape[1], q.dtype)
+            seen["bwd_n"][key] = seen["bwd_n"].get(key, 0) + 1
+        return backward(q, k, v, *a, **kw)
 
     def seen_stats(x, geo, groups):
         seen["gn"].setdefault((tuple(x.shape), groups, x.dtype), x.dtype)
@@ -1794,23 +1839,25 @@ def launch_shapes():
         seen["gn"][(tuple(x.shape), a[2], x.dtype)] = weight.dtype
         return apply(x, partial, weight, *a)
 
-    FA._forward, GN._launch_stats, GN._launch_apply = seen_forward, seen_stats, seen_apply
+    FA._forward, FA.flash_attention_bwd, GN._launch_stats, GN._launch_apply = (
+        seen_forward, seen_backward, seen_stats, seen_apply)
     try:
         yield seen
     finally:
-        FA._forward, GN._launch_stats, GN._launch_apply = forward, stats, apply
+        FA._forward, FA.flash_attention_bwd, GN._launch_stats, GN._launch_apply = forward, backward, stats, apply
 
 
 def merge_seen(into, seen):
     into["flash"] |= seen["flash"]
-    for key, n in seen["flash_n"].items():
-        into["flash_n"][key] = into["flash_n"].get(key, 0) + n
+    for counts in ("flash_n", "bwd_n"):
+        for key, n in seen[counts].items():
+            into[counts][key] = into[counts].get(key, 0) + n
     into["gn"].update(seen["gn"])
     return into
 
 
 # the launch shapes an earlier phase of this run held against the plain versions: each is held once
-HELD = {"flash": set(), "gn": set()}
+HELD = {"flash": set(), "bwd": set(), "gn": set()}
 
 
 def hold_launch_shapes(seen, seed):
@@ -1831,7 +1878,13 @@ def hold_launch_shapes(seen, seed):
         s, a = check_group_norm(shape, groups, dtype, seed + 5000 + 10 * i, affine, timed=False)
         held += [("group_norm_stats", s), ("group_norm_apply", a)]
     HELD["gn"] |= set(extra)
-    return {"flash_attention_fwd": len(seen["flash"]), "group_norm": len(seen["gn"])}, held
+    listed_bwd = {(shape, skv, dtype) for shape, skv, dtype, _, _ in BWD_SHAPES}
+    bwd = sorted(set(seen["bwd_n"]) - listed_bwd - HELD["bwd"], key=str)
+    for i, (shape, skv, dtype) in enumerate(bwd):
+        held += list(check_flash_bwd(shape, skv, dtype, seed + 8000 + 10 * i).items())
+    HELD["bwd"] |= set(bwd)
+    return {"flash_attention_fwd": len(seen["flash"]), "flash_attention_bwd": len(seen["bwd_n"]),
+            "group_norm": len(seen["gn"])}, held
 
 
 def report_launch_shapes(phase, what, seen, seed):
@@ -1842,9 +1895,11 @@ def report_launch_shapes(phase, what, seen, seed):
         print(f"{phase}: {name} {r['shape']} (launched by {what}, not listed by the kernels phase): err "
               f"{r['max_abs_err']:.3g}, two runs bit-identical", flush=True)
     n_held = sum(name == "flash_attention_fwd" for name, _ in held)
-    print(f"{phase}: {what} launched K1 at {n_seen['flash_attention_fwd']} shapes and K3a/K3b at "
-          f"{n_seen['group_norm']}; those that neither the kernels phase lists nor an earlier phase held "
-          f"({n_held} and {(len(held) - n_held) // 2}) were held against the plain versions here", flush=True)
+    n_bwd = sum(name == "flash_attention_bwd_dq" for name, _ in held)
+    print(f"{phase}: {what} launched K1 at {n_seen['flash_attention_fwd']} shapes, K2a/K2b at "
+          f"{n_seen['flash_attention_bwd']} and K3a/K3b at {n_seen['group_norm']}; those that neither the kernels "
+          f"phase lists nor an earlier phase held ({n_held}, {n_bwd} and {(len(held) - n_held - 2 * n_bwd) // 2}) "
+          f"were held against the plain versions here", flush=True)
     return n_seen
 
 
@@ -2023,9 +2078,19 @@ DATA_IMAGES = [("hq/div2k_0801.png", (2040, 1356)), ("hq/div2k_0802.jpg", (2040,
                ("hq/portrait.png", (400, 600)), ("hq/ffhq_00042.png", (1024, 1024))]
 DATA_TRAIN_STEPS, DATA_ACCUM = 2, 2
 DATA_CALIB_SAMPLES = 4
-# the card's degrade against the CPU's on the same draws, in uint8 steps: the last operation
-# rounds x*255, so a pixel within a few f32 ulps of a .5 boundary lands one step apart
-MAX_DEGRADE_STEPS = 1
+# the card's degrade against the CPU's, stage by stage: each operation that DEG.degrade calls is run
+# again on the CPU on the card's own input to it (its draws copied across) and must agree within
+# DEGRADE_STAGE_ATOL (images in [0,1]; a uint8 step is 1/255); a JPEG stage is held in its two halves,
+# the DCT coefficients before rounding within DEGRADE_COEF_ATOL quantization steps, and the decode of
+# the card's rounded coefficients within DEGRADE_STAGE_ATOL; the final x*255 round of the card's last
+# stage output must give the card's uint8 levels. The composed pipelines are not held to each other: the JPEG
+# stages round every coefficient, so an f32 difference at a .5 boundary moves one coefficient a whole
+# step and its 8x8 block (16x16 in chroma) by up to a quarter of its table entry, some uint8 steps,
+# which the later stages carry on
+DEGRADE_STAGE_ATOL = 1e-5
+DEGRADE_COEF_ATOL = 2e-3
+DEGRADE_STAGES = ("filter2d", "resize", "add_gaussian_noise", "add_poisson_noise", "diffjpeg", "rgb_to_gray",
+                  "_color_jitter")
 
 
 def write_data_images(root, seed):
@@ -2100,10 +2165,69 @@ class RecordedDraws(GeneratorDraws):
         return self.recorded[-1]
 
 
+@contextlib.contextmanager
+def degrade_stages(draws):
+    """Each operation of DEGRADE_STAGES that DEG.degrade calls (not those
+    they call in turn), kept as (name, args, kwargs, output, the draws it took)."""
+    calls, depth = [], [0]
+    saved = {name: getattr(DEG, name) for name in DEGRADE_STAGES}
+
+    def wrap(name, fn):
+        def stage(*args, **kwargs):
+            start = len(draws.recorded)
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                calls.append((name, args, kwargs, out, draws.recorded[start:]))
+            return out
+        return stage
+
+    for name, fn in saved.items():
+        setattr(DEG, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(DEG, name, fn)
+
+
+def stage_on_cpu(name, args, kwargs, out, taken):
+    """One recorded stage of the card's degrade run again on the CPU on the
+    card's input and draws -> (max abs error against the card's output, and
+    for a JPEG stage the coefficients' max abs error in quantization steps
+    and how many coefficients round to another step)."""
+    def cpu(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    replay = ReplayDraws([d.cpu() for d in taken], "cpu")
+    cargs = [replay if isinstance(a, RecordedDraws) else cpu(a) for a in args]
+    ckwargs = {k: cpu(v) for k, v in kwargs.items()}
+    if name != "diffjpeg":
+        got = getattr(DEG, name)(*cargs, **ckwargs)
+        assert replay.left() == 0 and got.shape == out.shape, (name, replay.left())
+        return (got - out.cpu()).abs().max().item(), None, None
+    assert not taken and not kwargs, name
+    (img, q), (h, w) = cargs, args[0].shape[1:3]
+    card_coefs, card_tables = DJ.jpeg_coefficients(*args)
+    card_q = [torch.round(c) for c in card_coefs]
+    assert torch.equal(DJ.jpeg_decode(*card_q, card_tables, h, w, args[0].dtype), out), "diffjpeg != its halves"
+    coefs, tables = DJ.jpeg_coefficients(img, q)
+    coef_err = max((a.cpu() - c).abs().max().item() for a, c in zip(card_coefs, coefs))
+    moved = sum(int((a.cpu() != torch.round(c)).sum()) for a, c in zip(card_q, coefs))
+    got = DJ.jpeg_decode(*(a.cpu() for a in card_q), tables, h, w, img.dtype)
+    return (got - out.cpu()).abs().max().item(), coef_err, moved
+
+
 def degrade_against_cpu(opt, hq, seed):
-    """One 512-px batch through the card's degrade (its draws recorded) and
-    the CPU's (the same kernels, plan and draws) -> (uint8-step histogram, the
-    card's output under cudnn.allow_tf32 True equal to it under False?)."""
+    """One 512-px batch through the card's degrade (its draws and each
+    stage's input and output recorded), each stage again on the CPU
+    (``stage_on_cpu``), and the whole degrade on the CPU on the same
+    kernels, plan and draws -> (plan, stage errors, the composed outputs'
+    uint8-step histogram, the card's output under cudnn.allow_tf32 True
+    equal to it under False?)."""
     rng = np.random.default_rng(seed)
     kcfg = KernelSynthesisConfig.from_opt(opt, 512)
     ks = [random_kernels(rng, kcfg) for _ in range(hq.shape[0])]
@@ -2111,18 +2235,29 @@ def degrade_against_cpu(opt, hq, seed):
     full = {**opt, "scale": 4}
     plan = DEG.draw_plan(rng, full, 512, 512, 4, True, 16)
     draws = RecordedDraws(torch.Generator(device="cuda").manual_seed(seed))
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), degrade_stages(draws) as calls:
         card = DEG.degrade(hq.cuda(), tuple(torch.from_numpy(k).cuda() for k in kernels), draws, plan, full)
     recorded = [d.cpu() for d in draws.recorded]
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         card_f32 = DEG.degrade(hq.cuda(), tuple(torch.from_numpy(k).cuda() for k in kernels),
                                ReplayDraws(recorded, "cuda"), plan, full)
+    errs = {"stages": [name for name, *_ in calls], "max_abs_err": 0.0, "coef_err": 0.0, "coefs_moved": 0}
+    for call in calls:
+        err, coef_err, moved = stage_on_cpu(*call)
+        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        if coef_err is not None:
+            errs["coef_err"] = max(errs["coef_err"], coef_err)
+            errs["coefs_moved"] += moved
+    # in uint8 levels: the card divides by 255 as a product with its reciprocal, one ulp off the CPU's quotient
+    last = calls[-1][3].cpu().expand(card.shape)
+    errs["final_round_equal"] = torch.equal(torch.clamp(torch.round(last * 255.0), 0, 255),
+                                            torch.round(card.cpu() * 255.0))
     replay = ReplayDraws(recorded, "cpu")
     cpu = DEG.degrade(hq, tuple(torch.from_numpy(k) for k in kernels), replay, plan, full)
     assert replay.left() == 0 and card.shape == cpu.shape == hq.shape
     steps = (torch.round(card.cpu() * 255) - torch.round(cpu * 255)).abs()
     hist = {int(v): int((steps == v).sum()) for v in steps.unique()}
-    return plan, hist, torch.equal(card, card_f32)
+    return plan, errs, hist, torch.equal(card, card_f32)
 
 
 def phase_data(card, work_dir, ckpt, train_metrics):
@@ -2152,15 +2287,22 @@ def phase_data(card, work_dir, ckpt, train_metrics):
     print("data: host decode + crop per image, ms: " + ", ".join(f"{k} {v:.2f}" for k, v in host_ms.items())
           + f"; decoders {dict(ds.decoders)} [{card}]", flush=True)
 
-    # the card's degrade against the CPU's, the draws copied across
+    # the card's degrade against the CPU's stage by stage, the draws copied across: every image, each in
+    # its own 512-px crop, in the order of their paths (not the directory's listing order)
     opt = DEG.load_degradation_params()
-    for seed in range(4):
-        hq = torch.from_numpy(np.stack([ds[seed]]))
-        plan, hist, tf32_same = degrade_against_cpu(opt, hq, 100 + seed)
-        print(f"data: degrade, card against CPU on the same draws, 512x512 batch {seed}: uint8-step histogram "
-              f"{hist}; the card's output with cudnn.allow_tf32 on equal to off: {tf32_same}; plan {plan}",
-              flush=True)
-        assert max(hist) <= MAX_DEGRADE_STEPS and tf32_same, (hist, tf32_same)
+    crops = PairedDataset(sources, 512, seed=0)
+    crops.gt_list.sort()
+    for i, path in enumerate(crops.gt_list):
+        hq = torch.from_numpy(np.stack([crops[i]]))
+        plan, errs, hist, tf32_same = degrade_against_cpu(opt, hq, 100 + i)
+        print(f"data: degrade, card against CPU on the same draws, 512x512 {os.path.basename(path)} (seed {100 + i}): "
+              f"stages {'/'.join(errs['stages'])}, max abs err {errs['max_abs_err']:.3e} "
+              f"(atol {DEGRADE_STAGE_ATOL:g}), JPEG coefficients {errs['coef_err']:.3e} steps "
+              f"(atol {DEGRADE_COEF_ATOL:g}), {errs['coefs_moved']} rounded to another step; final round "
+              f"equal: {errs['final_round_equal']}; the composed outputs' uint8-step histogram {hist}; the card's "
+              f"output with cudnn.allow_tf32 on equal to off: {tf32_same}; plan {plan}", flush=True)
+        assert (errs["max_abs_err"] <= DEGRADE_STAGE_ATOL and errs["coef_err"] <= DEGRADE_COEF_ATOL
+                and errs["final_round_equal"] and tf32_same), (path, errs, tf32_same)
 
     # the degrader's device time per 512-px batch, and the loader's dispatch of a pinned host batch (copy,
     # degrade, scale to [-1,1]): two calls at a time are enqueued while the device sleeps, so the events
@@ -2558,17 +2700,68 @@ def dit_tile_batch_turns(pipe, ctx, pooled, tile, overlap, card):
 # (W, H) of the -F CLI's inputs: three 1024x1024 outputs and one 1224x1024 (the min-side guard takes
 # 200 px to 1024; the 64 px size bucket pads to 1280x1024, a 128x160 latent in two 128-tiles, one forward)
 F_LOAD_INPUTS = [(256, 256)] * 3 + [(240, 200)]
-# the DiT written at full width and 2 dual + 2 single blocks (the full 23.8 GB is not written)
+# the DiT written at full width and 2 dual + 2 single blocks (the full 23.8 GB is not written); the T5
+# encoder at full width and 2 of its 24 layers
 F_LOAD_DEPTH = (2, 2)
+F_LOAD_T5_LAYERS = 2
 F_LORA_RANK = 64  # omgsr_tpu/configs/omgsr_f_1024.yml: vae_lora_rank, flux_transformer_lora_rank
+# the prompt the -F CLIs encode with the written T5 and CLIP-L; and a prompt past T5's 512 tokens
+F_PROMPT = "a high resolution photo of a red fox in the snow, ｓｈａｒｐ　details"
+F_LONG_PROMPT = " ".join(["a detailed photo of a mountain lake at dawn with mist over the water"] * 60)
 
 
-def phase_load_f(card, vae_params, flux_params, work_dir):
+def t5_xxl_encode_ms(t5_tok, card):
+    """FLUX.1-dev's T5-XXL at full width and depth (4.76B, bf16) from a seed
+    on the card: the empty prompt and one past 512 tokens, each tokenized on
+    the host and encoded; device ms of an encode. The encoder is freed."""
+    dtype = torch.bfloat16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t5 = init_t5_encoder(19, FLUX_T5_XXL, dtype, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = count_params(t5)
+    assert n == 4_762_310_656, n
+    out = {}
+    for name, prompt in (("empty", ""), ("long", F_LONG_PROMPT)):
+        t0 = time.perf_counter()
+        ids = t5_tok(prompt, max_length=512).to("cuda")
+        tok_ms = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            emb = t5_encode(t5, FLUX_T5_XXL, ids)
+            ms = time_ms(lambda: t5_encode(t5, FLUX_T5_XXL, ids), iters=5, warmup=1)
+        assert emb.shape == (1, 512, FLUX_T5_XXL.d_model) and torch.isfinite(emb.float()).all(), name
+        n_tokens = int((ids != t5_tok.pad_token_id).sum())
+        out[f"t5_xxl_encode_{name}_ms"], out[f"t5_xxl_tokenize_{name}_ms"] = ms, tok_ms
+        print(f"load-f: T5-XXL ({n / 1e9:.3f}B parameters, {FLUX_T5_XXL.num_layers} layers, bf16, "
+              f"{n * 2 / 1e9:.2f} GB, from a seed in {init_s:.3f} s) encodes the {name} prompt ({n_tokens} tokens "
+              f"before the padding to 512; tokenized on the host in {tok_ms:.2f} ms) in {ms:.3f} ms on the device "
+              f"[{card}]", flush=True)
+    del t5, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cut_flux_lora(lora, cfg):
+    """The DiT LoRA tree of the first cfg.num_layers dual and
+    cfg.num_single_layers single blocks (and x_embedder's)."""
+    out = dict(lora)
+    for group, n in (("transformer_blocks", cfg.num_layers), ("single_transformer_blocks", cfg.num_single_layers)):
+        out[group] = {str(i): lora[group][str(i)] for i in range(n)}
+    return out
+
+
+def phase_load_f(card, vae_params, flux_params, work_dir, export):
     """OMGSR-F from a checkpoint directory on disk: a FLUX.1-dev-layout
-    directory (the DiT at full width and reduced depth, the serve-f VAE, a
-    prompt .npz, rank-64 adapters) written by tools/flux_checkpoint.py, ported
-    back, then cli.infer_omgsr_f.main, cli.serve --pipeline f --flux_path and
-    cli.mid_timestep_flux.main on it."""
+    directory (the DiT at full width and reduced depth, the serve-f VAE,
+    CLIP-L at full width, T5 at full width and reduced depth, both synthetic
+    tokenizers at the published sizes) written by tools/flux_checkpoint.py,
+    ported back; the full T5-XXL timed in memory; encode_prompt_flux on the
+    directory against the in-memory encoders; then, with the adapters the
+    train-f phase exported (cut to the written depth), cli.infer_omgsr_f.main
+    --prompt, cli.serve --pipeline f --flux_path, cli.mid_timestep_flux.main
+    and cli.train_omgsr_f.main --config on it."""
     from PIL import Image
 
     dtype = torch.bfloat16
@@ -2578,34 +2771,45 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
            "transformer_blocks": {str(i): flux_params["transformer_blocks"][str(i)] for i in range(cfg.num_layers)},
            "single_transformer_blocks": {str(i): flux_params["single_transformer_blocks"][str(i)]
                                          for i in range(cfg.num_single_layers)}}
-    prompt, pooled = flux_prompt(14)
+    t0 = time.perf_counter()
+    (vocab, merges), (pieces, charsmap) = tokenizers = synthetic_text_tokenizers(seed=20)
+    clip_tok = CLIPTokenizer(vocab, merges, pad_token="<|endoftext|>")
+    t5_tok = T5Tokenizer(t5_tokenizer_json(pieces, charsmap))
+    print(f"load-f: synthetic vocabularies: CLIP-L {len(vocab):,} entries ({len(merges):,} merges), T5 "
+          f"{len(pieces):,} Unigram pieces + 100 extra ids, charsmap {len(charsmap):,} bytes, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    assert len(vocab) == 49_408 and len(pieces) == 32_000
+    timings = t5_xxl_encode_ms(t5_tok, card)
+    t5_cfg = dataclasses.replace(FLUX_T5_XXL, num_layers=F_LOAD_T5_LAYERS)
+    t5 = init_t5_encoder(21, t5_cfg, dtype, "cuda")
+    clip = init_clip_text(22, FLUX_CLIP_L, torch.float32, "cuda")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     written = write_flux_checkpoint(root, vae_params, FLUX_VAE, dit, cfg, dtype, transformer_shards=2,
-                                    prompt=(prompt, pooled))
+                                    clip=clip, clip_cfg=FLUX_CLIP_L, t5=t5, t5_cfg=t5_cfg, tokenizers=tokenizers)
     write_s = time.perf_counter() - t0
     files = sorted(os.listdir(os.path.join(root, "transformer")))
     assert files == ["config.json", "diffusion_pytorch_model-00001-of-00002.safetensors",
                      "diffusion_pytorch_model-00002-of-00002.safetensors",
                      "diffusion_pytorch_model.safetensors.index.json"], files
-    # the adapters, with B drawn small (B = 0 at init would leave the merge untested)
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    lora = {"flux": init_lora_tree(gen, dit, FLUX_TARGET_MODULES, F_LORA_RANK),
-            "vae": init_lora_tree(gen, vae_params["encoder"], SD_TARGET_MODULES, F_LORA_RANK)}
-    for tree in lora.values():
-        for path, v in flatten_dict(tree).items():
-            if path[-1] == "lora_B":
-                v.copy_(torch.randn(v.shape, generator=gen, device="cuda") * 1e-3)
+    assert sorted(os.listdir(os.path.join(root, "text_encoder_2"))) == [
+        "config.json", "model-00001-of-00002.safetensors", "model-00002-of-00002.safetensors",
+        "model.safetensors.index.json"]
+    # the adapters the train-f phase exported, cut to the written depth
+    lora = {"flux": cut_flux_lora(load_adapter(os.path.join(export, "flux_adapter"))[0], cfg),
+            "vae": load_adapter(os.path.join(export, "vae_encoder_adapter"))[0]}
     lora_dir = os.path.join(root, "lora")
     save_adapter(lora["flux"], os.path.join(lora_dir, "flux_adapter"), rank=F_LORA_RANK, targets=FLUX_TARGET_MODULES)
-    save_adapter(lora["vae"], os.path.join(lora_dir, "vae_encoder_adapter"), rank=F_LORA_RANK,
-                 targets=SD_TARGET_MODULES)
-    print(f"load-f: FLUX.1-dev-layout checkpoint written in bf16 in {write_s:.2f} s (DiT {count_params(dit) / 1e9:.3f}B "
-          f"at full width, {cfg.num_layers} dual + {cfg.num_single_layers} single blocks): "
+    shutil.copytree(os.path.join(export, "vae_encoder_adapter"), os.path.join(lora_dir, "vae_encoder_adapter"))
+    assert any(v.abs().max() > 0 for p, v in flatten_dict(lora["flux"]).items() if p[-1] == "lora_B")
+    print(f"load-f: FLUX.1-dev-layout checkpoint written in {write_s:.2f} s (DiT {count_params(dit) / 1e9:.3f}B "
+          f"at full width, {cfg.num_layers} dual + {cfg.num_single_layers} single blocks, bf16; CLIP-L "
+          f"{count_params(clip) / 1e6:.1f}M f32; T5 {count_params(t5) / 1e6:.1f}M at full width, {t5_cfg.num_layers} of "
+          f"{FLUX_T5_XXL.num_layers} layers, bf16): "
           + ", ".join(f"{k} {b / 1e9:.3f} GB in {t:.2f} s" for k, (t, b) in written.items())
-          + f"; rank-{F_LORA_RANK} adapters {sum(v.numel() for v in flatten_dict(lora).values()) / 1e6:.1f}M "
-          f"[{card}]", flush=True)
+          + f"; the train-f phase's rank-{F_LORA_RANK} adapters cut to the written depth "
+          f"{sum(v.numel() for v in flatten_dict(lora).values()) / 1e6:.1f}M [{card}]", flush=True)
     assert flux_config_from_json(os.path.join(root, "transformer")) == cfg
     assert vae_config_from_json(os.path.join(root, "vae")) == FLUX_VAE
 
@@ -2613,8 +2817,31 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
                                     os.path.join(root, "transformer"), written["transformer"], cfg=cfg, dtype=dtype)
     vae_p, vae_s = ported_component("vae", porters.port_diffusers_vae, os.path.join(root, "vae"), written["vae"],
                                     cfg=FLUX_VAE, dtype=dtype)
-    assert same_tree(dit, dit_p, dtype) and same_tree(vae_params, vae_p, dtype)
-    del dit_p, vae_p
+    t5_p, t5_s = ported_component("text_encoder_2 (index + 2 shards)", porters.port_t5_encoder,
+                                  os.path.join(root, "text_encoder_2"), written["text_encoder_2"], cfg=t5_cfg)
+    assert same_tree(dit, dit_p, dtype) and same_tree(vae_params, vae_p, dtype) and same_tree(t5, t5_p)
+    del dit_p, vae_p, t5_p
+
+    # the prompt through the directory's encoders, against the in-memory ones on the same ids
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds, pooled_e, txt_ids = encode_prompt_flux(root, F_PROMPT, dtype=dtype)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = t5_encode(t5, t5_cfg, t5_tok(F_PROMPT, max_length=512).to("cuda")).to(dtype)
+        _, ref_pooled = clip_text_apply(clip, FLUX_CLIP_L, clip_tok(F_PROMPT).to("cuda"))
+    assert embeds.shape == (1, 512, 4096) and pooled_e.shape == (1, 768) and txt_ids.shape == (512, 3)
+    d_emb = (embeds.float() - ref.float()).abs().max().item()
+    d_pool = (pooled_e.float() - ref_pooled.to(dtype).float()).abs().max().item()
+    print(f"load-f: encode_prompt_flux on the directory (tokenizers, CLIP-L and T5 read from disk, both encoded) in "
+          f"{encode_s:.2f} s; against the in-memory encoders on the same ids: max |difference| {d_emb:.3g} "
+          f"(T5, bf16), {d_pool:.3g} (pooled CLIP-L) [{card}]", flush=True)
+    assert d_emb <= 2.0**-7 * ref.float().abs().max().item() and d_pool <= 2.0**-7 * ref_pooled.abs().max().item()
+    np.savez(os.path.join(root, "prompt.npz"), prompt_embeds=embeds.float().cpu().numpy(),
+             pooled_prompt_embeds=pooled_e.float().cpu().numpy())
+    timings.update({"f_encode_prompt_from_disk_s": encode_s, "f_load_port_t5_s": t5_s})
+    del t5, clip
 
     # the inference CLI in-process
     rng = np.random.default_rng(16)
@@ -2632,8 +2859,7 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
     assert [latent_tiles(h, w, tile, overlap, ds) for h, w in sizes] == [1, 1, 1, 2]
     expect = expected_launches(sizes, flux_structure_counts(FLUX_VAE, cfg), tile, overlap, ds)
     args = infer_f_cli.parse_args(["--input_image", img_dir, "--output_dir", out_dir, "--flux_path", root,
-                                   "--lora_path", lora_dir, "--prompt_npz", os.path.join(root, "prompt.npz"),
-                                   "--weight_dtype", "bf16"])
+                                   "--lora_path", lora_dir, "--prompt", *F_PROMPT.split(" "), "--weight_dtype", "bf16"])
     log = io.StringIO()
     reset_counts()
     torch.cuda.synchronize()
@@ -2646,7 +2872,7 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
     cli_counts = {k: v for k, v in read_counts().items() if k in expect}
     per_image = [float(v) for v in re.findall(r"Inference time per image: (\S+)s", log.getvalue())]
     assert len(per_image) == len(names), log.getvalue()
-    print(f"load-f: infer_omgsr_f.main answered {len(names)} images "
+    print(f"load-f: infer_omgsr_f.main --prompt answered {len(names)} images "
           f"({', '.join(f'{w}x{h}' for w, h in F_LOAD_INPUTS)}) in {cli_s:.2f} s with the checkpoint's load; "
           f"launches {cli_counts}; the structure predicts {expect}", flush=True)
     assert cli_counts == expect and expect["flash_attention_fwd"] > 0, cli_counts
@@ -2654,7 +2880,7 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
     # the in-memory pipeline on the same merged weights and embeddings, with the CLI's noise (seed = index)
     vae_m = {**vae_params, "encoder": merge_lora(vae_params["encoder"], lora["vae"])}
     pipe = OMGSRFPipeline(vae_m, merge_lora(dit, lora["flux"]), FLUX_VAE, cfg, 244, device="cuda")
-    ctx, pl = (torch.from_numpy(a).to("cuda", dtype) for a in (prompt, pooled))
+    ctx, pl = embeds, pooled_e
     cli_out = []
     for i, (name, (lq, src01, resize_flag, orig, true_hw)) in enumerate(zip(names, prepared)):
         with torch.inference_mode():
@@ -2668,7 +2894,7 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
         assert got.shape == ref.shape == (4 * h, 4 * w, 3) and got.std() > 1.0, (got.shape, ref.shape)
         assert d.max() <= 1, (name, d.max(), d.mean())
     print(f"load-f: the CLI's {len(names)} PNGs against the in-memory pipeline on the same merged weights and "
-          f"prompt embeddings: within 1 uint8 step", flush=True)
+          f"the prompt's embeddings: within 1 uint8 step", flush=True)
     del pipe, vae_m
 
     # a server from --flux_path: its first request (index 1) draws the noise of the CLI's second image
@@ -2713,8 +2939,44 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
     periods = np.diff(batches["at"])
     peak = torch.cuda.max_memory_allocated()
 
-    n_seen = report_launch_shapes("load-f", "the CLIs", merge_seen(merge_seen(seen, seen_serve), seen_calib), 11000)
-    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
+    # train_omgsr_f.main --config: the package's omgsr_f_1024.yml, the directory (its text encoders encode the
+    # fixed prompt ""), the data phase's folder, 2 optimizer steps at accumulation 2
+    out_dir = os.path.join(work_dir, "load_f_train")
+    argv = ["--config", train_f_cli.DEFAULT_CONFIG, f"flux_path={root}",
+            f"dataset_txt_or_dir_paths=[{sources[0]}, {sources[1]}]", f"output_dir={out_dir}", "max_train_steps=2",
+            "gradient_accumulation_steps=2", "checkpointing_steps=1000", "save_img_steps=1000",
+            f"metrics_jsonl={out_dir}/metrics.jsonl"]
+    expect = f_micro_step_counts(FLUX_VAE, cfg, F_TRAIN_RES)
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), timed_loader() as waits, \
+            launch_shapes() as seen_train:
+        trainer = train_f_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    lines = [json.loads(l) for l in open(os.path.join(out_dir, "metrics.jsonl"))]
+    assert [l["step"] for l in lines] == [1, 2], lines
+    for l in lines:
+        print(f"load-f: train_omgsr_f.main from disk, optimizer step {l['step']}: "
+              + " ".join(f"{k}={l[k]:.4f}" for k in METRICS), flush=True)
+        assert all(math.isfinite(l[k]) for k in METRICS), l
+    assert trainer.cfg.resolution == F_TRAIN_RES and trainer.cfg.gradient_checkpointing
+    assert trainer.frozen["prompt_embeds"].shape == (1, 512, 4096) and trainer.frozen["flux_cfg"] == cfg
+    assert sorted(os.listdir(os.path.join(out_dir, "weight-2"))) == ["flux_adapter", "vae_encoder_adapter"]
+    assert len(waits["wait"]) == 4, waits
+    s_train = statistics.median(np.diff(waits["at"]))
+    del trainer
+    print(f"load-f: train_omgsr_f.main --config (omgsr_f_1024.yml, fixed prompt \"\" through the directory's "
+          f"encoders, {cfg.num_layers} + {cfg.num_single_layers} DiT blocks) took 2 optimizer steps (4 micro-steps) at "
+          f"{F_TRAIN_RES} px from the data phase's folder in {train_s:.2f} s with the load; launches {train_counts}; "
+          f"4 x the structure's {expect}; {s_train:.3f} s a micro-step [{card}]", flush=True)
+    for name, n_one in expect.items():
+        assert train_counts[name] == 4 * n_one, (name, train_counts[name], 4 * n_one)
+
+    seen_all = merge_seen(merge_seen(merge_seen(seen, seen_serve), seen_calib), seen_train)
+    n_seen = report_launch_shapes("load-f", "the CLIs", seen_all, 11000)
+    assert n_seen["flash_attention_fwd"] and n_seen["flash_attention_bwd"] and n_seen["group_norm"], n_seen
     s_per_image = statistics.mean(per_image[1:])
     gbps = written["transformer"][1] / 1e9 / dit_s
     print(f"timings: load-f phase: checkpoint written in {write_s:.2f} s; ported transformer {dit_s:.3f} s "
@@ -2722,14 +2984,226 @@ def phase_load_f(card, vae_params, flux_params, work_dir):
           f"{per_image[0]:.4f} s); serve --flux_path built in {build_s:.2f} s; calibration "
           f"{statistics.median(periods):.4f} s a batch (two f32 encodes at 1024 px); peak memory allocated "
           f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
-    counts = {k: cli_counts.get(k, 0) + calib_counts[k] for k in calib_counts}
-    return counts, {"f_load_write_s": write_s, "f_load_port_transformer_s": dit_s,
+    counts = {k: cli_counts.get(k, 0) + calib_counts[k] + train_counts[k] for k in calib_counts}
+    timings.update({"f_load_write_s": write_s, "f_load_port_transformer_s": dit_s,
                     "f_load_port_transformer_GBps": gbps, "f_load_port_vae_s": vae_s,
                     "f_load_cli_s_per_image": s_per_image, "f_load_serve_build_s": build_s,
-                    "f_calibration_s_per_batch": statistics.median(periods), "f_load_peak_memory_GiB": peak / 2**30}
+                    "f_calibration_s_per_batch": statistics.median(periods), "f_load_peak_memory_GiB": peak / 2**30,
+                    "f_load_train_main_s": train_s, "f_load_train_main_micro_step_s": s_train})
+    return counts, timings
 
 
-def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
+# ----------------------------------------------------------------------------
+# phase: train-f
+# ----------------------------------------------------------------------------
+
+F_TRAIN_RES = 1024  # omgsr_tpu/configs/omgsr_f_1024.yml: resolution, ranks 64 / 64, gradient checkpointing
+
+
+def f_micro_step_counts(vae_cfg, flux_cfg, size):
+    """Kernel launches of one OMGSR-F training micro-step at size x size px
+    under gradient checkpointing, read off the structure: the hq encode once
+    (no grad); the LoRA encode and the decode forward, again in their
+    recompute, and every resnet of theirs a third time in its own recompute;
+    each DiT block forward and again in its recompute; one dQ and one dK/dV
+    launch per attention under autograd (the mid heads of the LoRA encode and
+    of the decode, one joint attention per block)."""
+    per = flux_structure_counts(vae_cfg, flux_cfg)
+    enc, dec, dit = per["encode"], per["decode"], per["dit"]
+    k1 = "flash_attention_fwd"
+    out = {name: 3 * enc[name] + 2 * dit[name] + 2 * dec[name] for name in enc}
+    resnets = sum(len(c) for c in vae_resnet_channels(vae_cfg))
+    out["group_norm_stats"] += 2 * resnets
+    out["group_norm_apply"] += 2 * resnets
+    out["flash_attention_fwd_merge"] = (3 * enc[k1] + 2 * dec[k1]) * mid_head_merges((size // vae_cfg.downscale) ** 2)
+    out["flash_attention_bwd_dq"] = out["flash_attention_bwd_dkv"] = enc[k1] + dit[k1] + dec[k1]
+    out["conv3x3"] = 0
+    return out
+
+
+def digest(tree):
+    """Per leaf, the sum and the sum of squares of its 16-bit words as
+    integers: any change of a bit changes them but for a vanishing chance (a
+    copy of the 23.8 GB DiT does not fit beside the train step)."""
+    out = {}
+    for p, v in flatten_dict(tree).items():
+        words = v.detach().reshape(-1).view(torch.int16).long()
+        out[p] = (int(words.sum()), int((words * words).sum()))
+    return out
+
+
+def f_pair(seed, size=F_TRAIN_RES):
+    r = np.random.default_rng(seed)
+    hq = np.tanh(r.standard_normal((1, size, size, 3))).astype(np.float32)
+    lq = np.clip(hq + 0.2 * r.standard_normal(hq.shape).astype(np.float32), -1, 1)
+    return {"lq": lq, "hq": hq}
+
+
+def phase_train_f(card, vae_params, flux_params, work_dir, profile=False):
+    """OMGSR-F LoRA-GAN training at FLUX.1-dev's full width and depth (the
+    serve-f DiT and VAE, the train phase's ConvNeXt-L from its seed, bf16,
+    1024x1024, batch 1, ranks 64 / 64, gradient checkpointing):
+    cli.train_omgsr_f.run_training takes 2 optimizer steps at gradient
+    accumulation 2; metrics, launch counts (K2 at q(1,4608,24,128) 57 a
+    micro-step), the accumulation boundary and the frozen weights are checked;
+    one micro-step is repeated with the kernels routed to their plain
+    versions, and one is timed stage by stage."""
+    dtype = torch.bfloat16
+    cn_cfg = CONVNEXT_SIZES["large"]
+    backbone = init_convnext(2, cn_cfg, dtype, "cuda")  # the train phase's, from its seed
+    prompt, pooled = flux_prompt(17)
+    frozen = {"vae": vae_params, "vae_cfg": FLUX_VAE, "flux": flux_params, "flux_cfg": FLUX_DEV,
+              "backbone": backbone, "dists": init_dists(backbone, cn_cfg.dims),
+              "prompt_embeds": torch.from_numpy(prompt).to("cuda", dtype),
+              "pooled_prompt_embeds": torch.from_numpy(pooled).to("cuda", dtype)}
+    t0 = time.perf_counter()
+    before = {k: digest(frozen[k]) for k in ("vae", "flux", "backbone")}
+    digest_s = time.perf_counter() - t0
+    loader = [f_pair(30 + i) for i in range(4)]
+    out_dir = os.path.join(work_dir, "train_f")
+    cfg = TrainConfig(
+        model="omgsr_f_1024", output_dir=out_dir, resolution=F_TRAIN_RES, train_batch_size=1, vae_lora_rank=64,
+        flux_transformer_lora_rank=64, mixed_precision="bf16", gradient_accumulation_steps=2, max_train_steps=2,
+        gradient_checkpointing=True, mid_timestep=244, lr_warmup_steps=0, checkpointing_steps=1000,
+        save_img_steps=1000, seed=123,
+        extra={"disc_channels": list(cn_cfg.dims[:3]), "metrics_jsonl": f"{out_dir}/metrics.jsonl"},
+    )
+    expect = f_micro_step_counts(FLUX_VAE, FLUX_DEV, F_TRAIN_RES)
+    assert (expect["flash_attention_fwd"], expect["flash_attention_bwd_dq"]) == (119, 59), expect
+    joint = ((1, 4608, FLUX_DEV.num_attention_heads, FLUX_DEV.attention_head_dim), 4608, dtype)
+    head = ((1, 128 * 128, 1, 512), 128 * 128, dtype)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launch_shapes() as seen:
+        trainer = train_f_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lines = [json.loads(l) for l in open(f"{out_dir}/metrics.jsonl")]
+    export = os.path.join(out_dir, "weight-2")
+    for name in ("vae_encoder_adapter", "flux_adapter"):
+        assert sorted(os.listdir(os.path.join(export, name))) == ["adapter_config.json",
+                                                                   "adapter_model.safetensors"], name
+    n_dit_lora = sum(v.numel() for v in flatten_dict(trainer.state["gen"]["lora"]["denoiser"]).values())
+    n_vae_lora = sum(v.numel() for v in flatten_dict(trainer.state["gen"]["lora"]["vae_encoder"]).values())
+    n_heads = sum(v.numel() for v in flatten_dict(trainer.state["disc"]["params"]).values())
+    print(f"train-f: run_training took 2 optimizer steps (4 micro-steps) at {F_TRAIN_RES}x{F_TRAIN_RES} in "
+          f"{wall:.2f} s; trainable DiT LoRA {n_dit_lora:,} + VAE-encoder LoRA {n_vae_lora:,} + heads {n_heads:,}; "
+          f"launches {counts}; one micro-step's structure predicts {expect}; K2 at "
+          f"{ {k[0]: n for k, n in seen['bwd_n'].items()} }; peak memory allocated {peak / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    # 7.08M a dual block x 19, 1.18M a single block x 38, 0.2M on x_embedder at rank 64
+    assert n_dit_lora == 179_507_200, n_dit_lora
+    assert trainer.state["step"] == 4 and trainer.state["gen"]["opt"]["count"] == 2
+    assert [l["step"] for l in lines] == [1, 2], lines
+    for l in lines:
+        print(f"train-f: optimizer step {l['step']}: " + " ".join(f"{k}={l[k]:.4f}" for k in METRICS), flush=True)
+        assert all(math.isfinite(l[k]) for k in METRICS), l
+    for name, n in expect.items():
+        assert counts[name] == 4 * n, (name, counts[name], 4 * n)
+    assert seen["bwd_n"] == {joint: 4 * 57, head: 4 * 2}, seen["bwd_n"]
+    # K1: each block forward and again in its recompute; the mid head in the hq encode, twice in the LoRA encode
+    # and twice in the decode
+    assert {k: seen["flash_n"][k] for k in (joint, head)} == {joint: 4 * 2 * 57, head: 4 * 5}, seen["flash_n"]
+    n_seen = report_launch_shapes("train-f", "run_training", seen, 12000)
+    assert n_seen["flash_attention_fwd"] and n_seen["flash_attention_bwd"] and n_seen["group_norm"], n_seen
+
+    # the accumulation boundary: nothing moves on the first micro-step of a window
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batches = [{k: torch.from_numpy(v).to("cuda", dtype) for k, v in b.items()} for b in loader]
+    latent_shape = (1, F_TRAIN_RES // 8, F_TRAIN_RES // 8, FLUX_VAE.latent_channels)
+
+    def noise():
+        return draw_step_noise(gen, (1, F_TRAIN_RES, F_TRAIN_RES, 3), latent_shape, "cuda", dtype)
+
+    lora0, heads0 = snapshot(trainer.state["gen"]["lora"]), snapshot(trainer.state["disc"]["params"])
+    u0 = snapshot(trainer.state["disc"]["sn"])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m1, pred = trainer.train_step(batches[0], noise())
+    torch.cuda.synchronize()
+    step_s = [time.perf_counter() - t0]
+    one = read_counts()
+    peak_step = torch.cuda.max_memory_allocated()
+    assert one == expect, (one, expect)
+    assert pred.shape == (1, F_TRAIN_RES, F_TRAIN_RES, 3) and torch.isfinite(pred.float()).all()
+    assert pred.float().std() > 1e-3
+    assert not moved(trainer.state["gen"]["lora"], lora0), "LoRA leaves moved inside an accumulation window"
+    assert not moved(trainer.state["disc"]["params"], heads0), "heads moved inside an accumulation window"
+    assert moved(trainer.state["disc"]["sn"], u0), "spectral-norm u did not advance"
+    t0 = time.perf_counter()
+    m2, _ = trainer.train_step(batches[1], noise())
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t0)
+    assert moved(trainer.state["gen"]["lora"], lora0), "LoRA leaves did not move at the accumulation boundary"
+    assert moved(trainer.state["disc"]["params"], heads0), "heads did not move at the accumulation boundary"
+    for m in (m1, m2):
+        assert all(math.isfinite(float(m[k])) for k in METRICS), m
+    for k in ("vae", "flux", "backbone"):
+        assert digest(frozen[k]) == before[k], f"frozen {k} changed"
+        assert all(v.grad is None and not v.requires_grad for v in flatten_dict(frozen[k]).values())
+    print(f"train-f: micro-step launches {one}; the pred unclamped in [{pred.min().item():.3f}, "
+          f"{pred.max().item():.3f}]; LoRA and heads unchanged after the first micro-step of a window and changed "
+          f"after the second; u advanced; frozen VAE/DiT/ConvNeXt unchanged (word sums of every leaf, "
+          f"{digest_s:.2f} s) and without gradient", flush=True)
+    del pred
+
+    # one micro-step with the kernels against the same one with their plain versions
+    nz = noise()
+    with_kernels = evaluate_micro_step(trainer, batches[2], nz)
+    again = evaluate_micro_step(trainer, batches[2], nz)
+    torch.cuda.reset_peak_memory_stats()
+    with route_kernels_to_plain():
+        plain = evaluate_micro_step(trainer, batches[2], nz)
+    peak_plain = torch.cuda.max_memory_allocated()
+    rel = {k: abs(with_kernels[k] - plain[k]) / max(abs(plain[k]), 1e-6) for k in METRICS}
+    rerun = {k: abs(with_kernels[k] - again[k]) / max(abs(again[k]), 1e-6) for k in METRICS}
+    print("train-f: kernels vs plain versions, one micro-step, relative difference: "
+          + " ".join(f"{k}={rel[k]:.3g}" for k in METRICS)
+          + f" (bounds: losses {MAX_LOSS_REL}, grad_norm_G {MAX_GRAD_NORM_REL}); the same micro-step twice "
+          f"with kernels: max {max(rerun.values()):.3g}; peak memory of the plain micro-step (its backward holds "
+          f"(24, 4608, 4608) f32 scores a call) {peak_plain / 2**30:.2f} GiB [{card}]", flush=True)
+    for k in LOSSES:
+        assert rel[k] <= MAX_LOSS_REL, (k, with_kernels[k], plain[k])
+    assert rel["grad_norm_G"] <= MAX_GRAD_NORM_REL, (with_kernels["grad_norm_G"], plain["grad_norm_G"])
+
+    # timings
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batches[(3 + i) % 4], noise())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    # two consecutive micro-steps: the first of an accumulation window, then the one that applies the update
+    assert trainer.state["gen"]["opt"]["mini_step"] == 0
+    timed = [timed_micro_step(trainer, batches[i], noise()) for i in range(2)]
+    s_per = statistics.median(step_s[1:])
+    print(f"timings: -F training micro-step {s_per:.4f} s (median of {len(step_s) - 1}, host clock to synchronize; "
+          f"first after run_training {step_s[0]:.4f} s); peak memory allocated {peak / 2**30:.2f} GiB in "
+          f"run_training, {peak_step / 2**30:.2f} GiB in one micro-step, {peak_plain / 2**30:.2f} GiB in the plain "
+          f"one [{card}]", flush=True)
+    for what, (stages, host_ms, enqueue_ms) in zip(("accumulating", "applying the update"), timed):
+        g_ms = sum(v for k, v in stages.items() if k.startswith("G"))
+        d_ms = sum(v for k, v in stages.items() if k.startswith("D"))
+        print(f"timings: -F micro-step {what}, by stage, device ms (host enqueue ms): "
+              + ", ".join(f"{k} {v:.2f} ({host_ms[k]:.2f})" for k, v in stages.items())
+              + f"; G {g_ms:.2f} / D {d_ms:.2f}; host enqueue of the step {enqueue_ms:.2f} ms [{card}]",
+              flush=True)
+    if profile:
+        profile_micro_step(trainer, batches[1], noise(), sum(timed[0][0].values()), card, "train-f")
+    timings = {"train_f_micro_step_s": s_per, "train_f_G_ms": g_ms, "train_f_D_ms": d_ms,
+               "train_f_host_enqueue_ms": enqueue_ms, "train_f_peak_memory_GiB": peak / 2**30,
+               "train_f_micro_step_peak_memory_GiB": peak_step / 2**30,
+               "train_f_plain_micro_step_peak_memory_GiB": peak_plain / 2**30,
+               **{f"train_f_{k.replace(' ', '_')}_ms": v for k, v in stages.items()}}
+    return counts, timings, export
+
+
+def profile_micro_step(trainer, batch, noise, elapsed_ms, card, label="train"):
     """With --profile: kernel time by name over one micro-step, and the idle
     share of the step (1 - busy / elapsed without the profiler)."""
     from torch.autograd import DeviceType
@@ -2762,7 +3236,7 @@ def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
                 us = getattr(e, "device_time_total", None)
                 if us is None:
                     us = e.cuda_time_total
-                print(f"profile: train {e.key}: {e.count} calls, {us / 1e3:.3f} ms of device time in "
+                print(f"profile: {label} {e.key}: {e.count} calls, {us / 1e3:.3f} ms of device time in "
                       f"the kernels they launched", flush=True)
             continue
         if e.device_type != DeviceType.CUDA:
@@ -2773,20 +3247,20 @@ def profile_micro_step(trainer, batch, noise, elapsed_ms, card):
         busy_us += us
         by_kernel[e.key] = (e.count, us)
     if busy_us == 0.0:
-        print("profile: training micro-step: the profiler recorded no device time", flush=True)
+        print(f"profile: {label} micro-step: the profiler recorded no device time", flush=True)
         return
-    print(f"profile: training micro-step kernels busy {busy_us / 1e3:.3f} ms of {elapsed_ms:.3f} ms elapsed, "
+    print(f"profile: {label} micro-step kernels busy {busy_us / 1e3:.3f} ms of {elapsed_ms:.3f} ms elapsed, "
           f"idle share {1 - busy_us / 1e3 / elapsed_ms:.3f} [{card}]", flush=True)
     for key, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:16]:
-        print(f"profile: train {us / 1e3:8.3f} ms {us / busy_us:6.1%} {n:5d} x {key[:100]}", flush=True)
+        print(f"profile: {label} {us / 1e3:8.3f} ms {us / busy_us:6.1%} {n:5d} x {key[:100]}", flush=True)
     flash_bwd = [(n, us) for key, (n, us) in by_kernel.items() if "flash_bwd" in key]
     us = sum(u for _, u in flash_bwd)
-    print(f"profile: train flash backward kernels (K2a, K2b, the split reduction) {us / 1e3:.3f} ms over "
+    print(f"profile: {label} flash backward kernels (K2a, K2b, the split reduction) {us / 1e3:.3f} ms over "
           f"{sum(n for n, _ in flash_bwd)} launches, {us / busy_us:.3f} of kernel time [{card}]", flush=True)
     # the D = 512 pair (the VAE encoder's mid head) on its own: the kernels named "wide"
     wide = [(re.search(r"flash_bwd_\w+", key).group(0), n, u) for key, (n, u) in by_kernel.items()
             if "flash_bwd" in key and "wide" in key]
-    print("profile: train flash backward at D = 512 (K2a, K2b) "
+    print(f"profile: {label} flash backward at D = 512 (K2a, K2b) "
           + (", ".join(f"{name} {u / 1e3:.3f} ms over {n} launches" for name, n, u in wide) or "none")
           + f", {sum(u for *_, u in wide) / 1e3:.3f} ms, {sum(u for *_, u in wide) / busy_us:.4f} of kernel time "
           f"[{card}]", flush=True)
@@ -2854,12 +3328,17 @@ def main():
         data_counts, data_timings = phase_data(card, work_dir, ckpt, os.path.join(work_dir, "train", "metrics.jsonl"))
         flux_vae, flux_params = init_flux_dev(torch.bfloat16)
         serve_f_counts, serve_f_timings = phase_serve_f(card, flux_vae, flux_params, args.profile)
-        load_f_counts, load_f_timings = phase_load_f(card, flux_vae, flux_params, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_f_counts, train_f_timings, f_export = phase_train_f(card, flux_vae, flux_params, work_dir, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        load_f_counts, load_f_timings = phase_load_f(card, flux_vae, flux_params, work_dir, f_export)
         del flux_vae, flux_params  # the -F weights: 23.8 GB
         gc.collect()
         torch.cuda.empty_cache()
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
-                 load_f_timings):
+                 train_f_timings, load_f_timings):
         timings.update(more)
 
     kernels = []
@@ -2871,26 +3350,29 @@ def main():
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
         launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
         launches_serve_f, launches_load_f = serve_f_counts.get(name, 0), load_f_counts.get(name, 0)
+        launches_train_f = train_f_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
-                    + launches_serve_f + launches_load_f)
+                    + launches_serve_f + launches_train_f + launches_load_f)
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
-            assert launches_serve_f == launches_load_f == 0, name
+            assert launches_serve_f == launches_train_f == launches_load_f == 0, name
         elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
             assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
-        elif "bwd" in name:  # training only
-            assert launches_train > 0 and launches_data > 0 and launches_serve_f == launches_load_f == 0, name
+        elif "bwd" in name:  # training only: -S in train and data, -F in train-f and load-f's train_omgsr_f.main
+            assert min(launches_train, launches_data, launches_train_f, launches_load_f) > 0, name
+            assert launches_serve_f == 0, name
         else:
             assert min(launches_train, launches_data, launches_serve, launches_fused, launches_load,
-                       launches_serve_f, launches_load_f) > 0, name
+                       launches_serve_f, launches_train_f, launches_load_f) > 0, name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
             "launches_train": launches_train, "launches_serve_tiled": launches_tiled, "launches_load": launches_load,
-            "launches_data": launches_data, "launches_serve_f": launches_serve_f, "launches_load_f": launches_load_f,
+            "launches_data": launches_data, "launches_serve_f": launches_serve_f,
+            "launches_train_f": launches_train_f, "launches_load_f": launches_load_f,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -4,14 +4,15 @@
     python -m omgsr_tpu_torch.cli.infer_omgsr_f \\
         --input_image tests/imgs --output_dir out \\
         --flux_path /ckpts/FLUX.1-dev --lora_path /ckpts/omgsr_f \\
-        --prompt_npz prompt.npz --process_size 1024 --upscale 4 --mid_timestep 244
+        --prompt "" --process_size 1024 --upscale 4 --mid_timestep 244
 
 Runs on the CUDA device unless ``--device cpu`` is given (the plain PyTorch
 versions of the kernels then run on the host). The prompt embeddings come
 from ``--prompt_npz`` (``prompt_embeds`` (1, S, 4096) and
-``pooled_prompt_embeds`` (1, 768)): FLUX's prompt encoders (T5-XXL, CLIP-L)
-are not ported yet, and neither are ``--quantize`` nor ``--shard``. The VAE
-latent is sampled, its noise seeded by the image's index.
+``pooled_prompt_embeds`` (1, 768)), else from ``--prompt`` through the
+checkpoint's T5-XXL and CLIP-L (``cli/prompts.encode_prompt_flux``).
+``--quantize`` and ``--shard`` are not ported yet. The VAE latent is sampled,
+its noise seeded by the image's index.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 def _refuse_unported(args):
     if getattr(args, "quantize", "none") != "none":
         raise NotImplementedError(f"--quantize {args.quantize}: the quantised DiT is not ported yet "
-                                  "(it arrives with FLUX's prompt encoders)")
+                                  "(quantisation slice: int8 / w8a8 / int4)")
     if getattr(args, "shard", "none") != "none":
         raise NotImplementedError(f"--shard {args.shard}: multi-GPU -F serving is not ported yet "
                                   "(distribution slice)")
@@ -67,15 +68,19 @@ def build_pipeline(args, dtype, device="cuda"):
 
 
 def prompt_embeddings(args, dtype, device):
-    """(prompt_embeds, pooled_prompt_embeds) from ``--prompt_npz``."""
-    from omgsr_tpu_torch.cli.prompts import load_prompt_npz
+    """(prompt_embeds, pooled_prompt_embeds) from ``--prompt_npz``, else
+    ``--prompt`` through the text encoders of ``--flux_path``."""
+    from omgsr_tpu_torch.cli.prompts import encode_prompt_flux, load_prompt_npz
 
-    if not args.prompt_npz:
-        raise ValueError("OMGSR-F needs --prompt_npz (prompt_embeds and pooled_prompt_embeds): FLUX's prompt "
-                         "encoders (T5-XXL, CLIP-L) are not ported yet, so --prompt cannot be encoded")
-    d = load_prompt_npz(args.prompt_npz)
-    return (d["prompt_embeds"].to(device=device, dtype=dtype),
-            d["pooled_prompt_embeds"].to(device=device, dtype=dtype))
+    if args.prompt_npz:
+        d = load_prompt_npz(args.prompt_npz)
+        return (d["prompt_embeds"].to(device=device, dtype=dtype),
+                d["pooled_prompt_embeds"].to(device=device, dtype=dtype))
+    if not args.flux_path:
+        raise ValueError("OMGSR-F needs --prompt_npz or --flux_path (whose text encoders encode --prompt)")
+    prompt = " ".join(args.prompt) if isinstance(args.prompt, list) else args.prompt
+    embeds, pooled, _ = encode_prompt_flux(args.flux_path, prompt, dtype=dtype, device=device)
+    return embeds, pooled
 
 
 def main(args=None):
@@ -120,10 +125,10 @@ def parse_args(argv=None):
     parser.add_argument("--align_method", type=str, default="adain", choices=["wavelet", "adain", "nofix"])
     parser.add_argument("--weight_dtype", type=str, default="bf16", choices=["fp32", "bf16"],
                         help="the CUDA kernels take bf16 and f32")
-    # accepted for flag compatibility; without --prompt_npz the CLI raises (no prompt encoders yet)
+    # multi-word prompt parses; the words are joined into ONE prompt
     parser.add_argument("--prompt", type=str, nargs="*", default="")
     parser.add_argument("--prompt_npz", type=str, default=None,
-                        help="precomputed prompt_embeds and pooled_prompt_embeds (.npz); required")
+                        help="precomputed prompt_embeds and pooled_prompt_embeds (.npz); else --prompt is encoded")
     parser.add_argument("--mid_timestep", type=int, default=244)
     parser.add_argument("--guidance_scale", type=float, default=1.0)
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int8_w8a8", "int4"],

@@ -14,8 +14,9 @@ The pipeline is built as the inference CLI builds it
 ``cli/infer_omgsr_f.build_pipeline`` from ``--flux_path``; the adapters of
 ``--lora_path`` merged). -S's prompt embeddings come from ``--prompt_npz`` or
 from ``--prompt`` through the checkpoint's text encoder, -F's from
-``--prompt_npz``. ``build_server`` also takes the parameters and the
-embeddings in memory from its caller. ``--process_size`` and
+``--prompt_npz`` or from ``--prompt`` through its T5-XXL and CLIP-L.
+``build_server`` also takes the parameters and the embeddings in memory from
+its caller. ``--process_size`` and
 ``--mid_timestep`` default to 512 / 273 for -S and 1024 / 244 for -F.
 Dispatch defaults to serial batch-1 with opt-in fixed-size micro-batching.
 ``--vae_tile N`` sends the VAE stages of images larger than N pixels through

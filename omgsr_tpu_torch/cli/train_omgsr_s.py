@@ -148,13 +148,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     """
     from omgsr_tpu_torch.convert.params import init_discriminator
     from omgsr_tpu_torch.lora import SD_TARGET_MODULES, init_lora_tree
-    from omgsr_tpu_torch.training.checkpoint import (
-        export_adapters,
-        latest_checkpoint,
-        restore_train_state,
-        save_train_state,
-    )
-    from omgsr_tpu_torch.training.trainer import TrainerS, draw_step_noise
+    from omgsr_tpu_torch.training.trainer import TrainerS
     from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
     device = resolve_device(device)
@@ -185,6 +179,26 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
             disc_bundle = init_discriminator(generator, channels, cfg.resolution, dtype, device)
 
         trainer = TrainerS(cfg, frozen, gen_lora, disc_bundle)
+
+    adapter_names = {"vae_encoder": "vae_encoder_lora_adapter", "denoiser": "unet_lora_adapter"}
+    return train_loop(cfg, trainer, loader, generator, device, dtype, adapter_names)
+
+
+def train_loop(cfg: TrainConfig, trainer, loader, generator, device, dtype, adapter_names: dict):
+    """The loop both trainers share: resume (the full state) where the config
+    asks, then micro-steps until ``cfg.max_train_steps`` optimizer steps, with
+    metrics, triptychs, checkpoints and adapter exports (``adapter_names``:
+    {"vae_encoder": ..., "denoiser": ...}) at their configured steps, and a
+    last checkpoint and export at the end. Each step's noise is drawn from
+    ``generator``; ``loader`` None builds ``build_loader``'s. Returns the
+    trainer."""
+    from omgsr_tpu_torch.training.checkpoint import (
+        export_adapters,
+        latest_checkpoint,
+        restore_train_state,
+        save_train_state,
+    )
+    from omgsr_tpu_torch.training.trainer import draw_step_noise
 
     # resume (full state). state["step"] counts MICRO-steps (one per
     # train_step call, in lockstep with the optimizers' accumulation
@@ -221,7 +235,6 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     global_step = start_step
     t0 = time.time()
     metrics_jsonl = cfg.extra.get("metrics_jsonl")
-    adapter_names = {"vae_encoder": "vae_encoder_lora_adapter", "denoiser": "unet_lora_adapter"}
     while global_step < (cfg.max_train_steps or 0):
         for batch in loader:
             batch = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in batch.items()}

@@ -119,8 +119,13 @@ def load_config(path: str, overrides: Optional[list[str]] = None) -> TrainConfig
     for ov in overrides or []:
         key, _, value = ov.partition("=")
         raw[key.strip()] = _coerce(value)
-    known = {f.name for f in dataclasses.fields(TrainConfig)}
+    known = {f.name: str(f.type) for f in dataclasses.fields(TrainConfig)}
     kwargs = {k: v for k, v in raw.items() if k in known}
+    # YAML 1.1 reads 5e-5 as a string (omgsr_f_1024.yml's learning_rate): a numeric field takes
+    # the number, where the JAX package's loader hands the string to its optimizer
+    for k, v in kwargs.items():
+        if isinstance(v, str) and ("float" in known[k] or "int" in known[k]):
+            kwargs[k] = _coerce(v)
     extra = {k: v for k, v in raw.items() if k not in known}
     cfg = TrainConfig(**kwargs)
     cfg.extra = extra

@@ -2,7 +2,7 @@
 
 Mirrors diffusers/transformers from_pretrained config handling, with the
 same defaults as the JAX package's readers, so a checkpoint directory fully
-determines the architecture. T5's reader arrives with FLUX's prompt encoders.
+determines the architecture.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 
-from omgsr_tpu_torch.models.configs import CLIPTextConfig, FluxConfig, UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import CLIPTextConfig, FluxConfig, T5Config, UNetConfig, VAEConfig
 
 
 def _read(path: str) -> dict:
@@ -85,4 +85,19 @@ def clip_config_from_json(path: str) -> CLIPTextConfig:
         hidden_act=c.get("hidden_act", "gelu"),
         layer_norm_eps=c.get("layer_norm_eps", 1e-5),
         eos_token_id=c.get("eos_token_id", 49407),
+    )
+
+
+def t5_config_from_json(path: str) -> T5Config:
+    c = _read(path)
+    return T5Config(
+        vocab_size=c.get("vocab_size", 32128),
+        d_model=c.get("d_model", 4096),
+        d_kv=c.get("d_kv", 64),
+        d_ff=c.get("d_ff", 10240),
+        num_layers=c.get("num_layers", 24),
+        num_heads=c.get("num_heads", 64),
+        relative_attention_num_buckets=c.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=c.get("relative_attention_max_distance", 128),
+        layer_norm_epsilon=c.get("layer_norm_epsilon", 1e-6),
     )

@@ -10,7 +10,7 @@ rule: conv ``lora_A`` (kh,kw,in,r) -> (r,in,kh,kw), ``lora_B`` (1,1,r,out) ->
 a depthwise kernel (kh,kw,1,C) becomes (C,1,kh,kw). ``from_jax_tree`` converts
 a tree of numpy arrays and ``to_jax_tree`` goes back (torch -> numpy in the
 JAX layout); ``init_vae`` / ``init_unet`` / ``init_flux`` / ``init_convnext`` /
-``init_discriminator`` build trees of the same structure from a seed
+``init_discriminator`` / ``init_t5_encoder`` build trees of the same structure from a seed
 (torch's default Linear/Conv2d distribution, and for the FLUX DiT the JAX
 package's wider weight bound; the values differ from the JAX initialisers',
 so parity tests always carry the JAX weights across the
@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, T5Config, UNetConfig, VAEConfig
 from omgsr_tpu_torch.utils.devices import resolve_device
 
 
@@ -436,6 +436,43 @@ def init_flux(seed, cfg: FluxConfig, dtype=torch.float32, device="cuda"):
         "single_transformer_blocks": {str(i): _flux_single_block(it, cfg) for i in range(cfg.num_single_layers)},
         "norm_out": {"linear": _flux_dense(it, dim, 2 * dim)},
         "proj_out": _flux_dense(it, dim, cfg.in_channels),
+    }
+
+
+def _t5_block(it: _Init, cfg: T5Config, has_rel_bias: bool):
+    inner = cfg.num_heads * cfg.d_kv
+
+    def dense(i, o):
+        return it.dense(i, o, use_bias=False)
+
+    attn = {"q": dense(cfg.d_model, inner), "k": dense(cfg.d_model, inner), "v": dense(cfg.d_model, inner),
+            "o": dense(inner, cfg.d_model)}
+    if has_rel_bias:
+        attn["relative_attention_bias"] = {"weight": it.normal((cfg.relative_attention_num_buckets, cfg.num_heads),
+                                                               0.02)}
+    norm = {"weight": torch.ones(cfg.d_model, dtype=it.dtype, device=it.device)}
+    return {"layer": {
+        "0": {"SelfAttention": attn, "layer_norm": norm},
+        "1": {"DenseReluDense": {"wi_0": dense(cfg.d_model, cfg.d_ff), "wi_1": dense(cfg.d_model, cfg.d_ff),
+                                 "wo": dense(cfg.d_ff, cfg.d_model)},
+              "layer_norm": dict(norm)},
+    }}
+
+
+def init_t5_encoder(seed, cfg: T5Config, dtype=torch.float32, device="cuda"):
+    """Random T5 encoder parameters with the HF tree structure (``shared`` +
+    ``encoder.*``; models/t5.py): the token table N(0, 1) and the relative
+    position table N(0, 0.02) as in the JAX package's initialiser, dense
+    layers torch's default without bias, RMS norms 1. Each tensor is drawn in
+    f32 and cast before the next, so the 4.76B T5-XXL in bf16 never exists in
+    f32."""
+    it = _Init(seed, dtype, device)
+    return {
+        "shared": {"weight": it.normal((cfg.vocab_size, cfg.d_model), 1.0)},
+        "encoder": {
+            "block": {str(i): _t5_block(it, cfg, i == 0) for i in range(cfg.num_layers)},
+            "final_layer_norm": {"weight": torch.ones(cfg.d_model, dtype=dtype, device=it.device)},
+        },
     }
 
 

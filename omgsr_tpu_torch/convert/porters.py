@@ -12,8 +12,8 @@ conversion is the identity on the key paths, with conv weights kept in
 ``channels_last`` memory. Each porter checks the leaf paths and shapes
 against the structure of the port's own ``init_*`` for the config, built on
 the ``meta`` device (nothing is allocated), so a missing or mistyped key
-fails loudly. The T5 and CLIP-vision porters, and the DINOv3 ViT's, arrive
-with FLUX's prompt encoders and the eval and DINOv3 slices.
+fails loudly. The CLIP-vision porter and the DINOv3 ViT's arrive with the
+eval and DINOv3 slices.
 """
 
 from __future__ import annotations
@@ -149,6 +149,21 @@ def port_clip_text(path: str, cfg=None, dtype=torch.float32, validate: bool = Tr
     )
     if validate:
         _validate_against(params, init_clip_text(0, cfg, dtype, "meta"), "clip_text")
+    return params
+
+
+def port_t5_encoder(path: str, cfg=None, dtype=torch.bfloat16, validate: bool = True, device="cuda"):
+    """<flux_path>/text_encoder_2 -> T5 encoder parameter tree (bf16 by
+    default, as the JAX porter; ``encoder.embed_tokens`` is an alias of
+    ``shared`` and is dropped)."""
+    from omgsr_tpu_torch.convert.params import init_t5_encoder
+    from omgsr_tpu_torch.models.configs import FLUX_T5_XXL
+
+    device = resolve_device(device)
+    cfg = cfg or FLUX_T5_XXL
+    params = _convert(load_safetensors_dir(path), skip=("encoder.embed_tokens",), dtype=dtype, device=device)
+    if validate:
+        _validate_against(params, init_t5_encoder(0, cfg, dtype, "meta"), "t5")
     return params
 
 

@@ -9,8 +9,9 @@ it): the JAX package computes it with ``jax.nn.dot_product_attention(
 is_causal=True)`` beside its kernel dispatch, and here it goes to
 ``ops/attention.matmul_attention`` with a causal bias, since the flash kernel
 takes no mask. The pooled output is the final-layer-norm hidden state at
-each sequence's first EOS token. FLUX's CLIP-L (quick GELU) arrives with -F;
-``hidden_act="quick_gelu"`` is taken already.
+each sequence's first EOS token. FLUX's CLIP-L (``configs.FLUX_CLIP_L``,
+quick GELU) gives the pooled embedding of OMGSR-F (``cli/prompts.
+encode_prompt_flux``).
 """
 
 from __future__ import annotations

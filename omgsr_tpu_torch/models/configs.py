@@ -1,11 +1,12 @@
 """Model architecture configs of the ported slices (SD2.1 VAE, UNet and CLIP
-text encoder, the FLUX.1-dev VAE and DiT, DINOv3 ConvNeXt).
+text encoder, the FLUX.1-dev VAE, DiT and prompt encoders (CLIP-L, T5-XXL),
+DINOv3 ConvNeXt).
 
 Values mirror the HF checkpoint configs of
 stabilityai/stable-diffusion-2-1-base (vae/unet/text_encoder) and
-black-forest-labs/FLUX.1-dev (vae/transformer). The port keeps its own copy of
-these dataclasses; FLUX's prompt encoders (T5-XXL, CLIP-L) are not ported yet.
-ConvNeXt sizes follow dinov3/models/convnext.py:309-326.
+black-forest-labs/FLUX.1-dev (vae/transformer/text_encoder/text_encoder_2).
+The port keeps its own copy of these dataclasses. ConvNeXt sizes follow
+dinov3/models/convnext.py:309-326.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class VAEConfig:
     # route every eligible resnet (ops/conv3x3.fused_resblock_eligible) through
     # the fused GN+SiLU -> conv3x3 kernels; inference only
     fused_resblocks: bool = False
+    # recompute each resnet in the backward (training under gradient
+    # checkpointing): the 1024-px decode's backward otherwise holds every
+    # resnet's GroupNorm and conv intermediates at once
+    remat_blocks: bool = False
 
     @property
     def downscale(self) -> int:
@@ -97,6 +102,9 @@ class FluxConfig:
     axes_dims_rope: Sequence[int] = (16, 56, 56)
     rope_theta: int = 10000
     mlp_ratio: float = 4.0
+    # recompute each dual / single block in the backward, keeping one carry a
+    # block (training under gradient checkpointing)
+    remat_blocks: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -121,6 +129,33 @@ class CLIPTextConfig:
 
 # stabilityai/stable-diffusion-2-1-base text_encoder (OpenCLIP ViT-H text tower)
 SD21_CLIP = CLIPTextConfig()
+
+# openai/clip-vit-large-patch14 (FLUX text_encoder, pooled embedding)
+FLUX_CLIP_L = CLIPTextConfig(
+    hidden_size=768,
+    intermediate_size=3072,
+    num_hidden_layers=12,
+    num_attention_heads=12,
+    hidden_act="quick_gelu",
+)
+
+
+@dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "gated-gelu"
+
+
+# google/t5-v1_1-xxl encoder (FLUX text_encoder_2)
+FLUX_T5_XXL = T5Config()
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,11 @@ laid out [text; image], as in diffusers' FluxAttnProcessor. Timestep and
 guidance enter as sigmas in [0, 1] and are scaled by 1000 before the
 sinusoidal projection (diffusers' FluxTransformer2DModel.forward).
 
-The blocks run as a Python loop, eagerly. Every attention goes through
+The blocks run as a Python loop, eagerly. With ``cfg.remat_blocks`` (training
+under gradient checkpointing) each block runs under
+``torch.utils.checkpoint``: the backward keeps one carry a block and
+recomputes the block's internals, as the JAX package's scan-stacked DiT does
+under ``jax.checkpoint`` per block. Every attention goes through
 ``ops/attention.dot_product_attention``, so at head dim 128 the joint
 attention is the flash-attention kernel on the card; RoPE, the RMS norms, the
 modulation and GELU are plain tensor code.
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from omgsr_tpu_torch.models.configs import FluxConfig
 from omgsr_tpu_torch.models.layers import dense, layer_norm, rms_norm, silu, timestep_embedding
@@ -156,13 +161,21 @@ def flux_apply(params, cfg: FluxConfig, hidden_states, timestep, guidance, poole
 
     cos, sin = rope_cos_sin(torch.cat([txt_ids, img_ids], dim=0).to(device), cfg.axes_dims_rope, cfg.rope_theta)
 
+    dual, single = _dual_block, _single_block
+    if cfg.remat_blocks:
+        def dual(*args):
+            return checkpoint(_dual_block, *args, use_reentrant=False)
+
+        def single(*args):
+            return checkpoint(_single_block, *args, use_reentrant=False)
+
     blocks = params["transformer_blocks"]
     for i in sorted(blocks, key=int):
-        img, txt = _dual_block(blocks[i], cfg, img, txt, temb, cos, sin)
+        img, txt = dual(blocks[i], cfg, img, txt, temb, cos, sin)
     x = torch.cat([txt, img], dim=1)
     blocks = params["single_transformer_blocks"]
     for i in sorted(blocks, key=int):
-        x = _single_block(blocks[i], cfg, x, temb, cos, sin)
+        x = single(blocks[i], cfg, x, temb, cos, sin)
     img = x[:, txt.shape[1]:]
 
     # AdaLayerNormContinuous: the chunk order is (scale, shift)

@@ -6,8 +6,9 @@ is 1e-6 throughout the VAE (diffusers default for AutoencoderKL blocks).
 With ``cfg.fused_resblocks`` every eligible resnet of the encoder, the mid
 blocks and the decoder runs as ``ops/conv3x3.fused_resblock`` (two launches of
 the fused GN+SiLU -> conv3x3 kernel); the others, and every resnet without
-the flag, run ``_resnet``. Its per-block remat arrives with the slice that
-trains through it.
+the flag, run ``_resnet``. With ``cfg.remat_blocks`` (training under gradient
+checkpointing) each resnet runs under ``torch.utils.checkpoint``: its
+internals are recomputed in the backward instead of held.
 
 GroupNorm seam of the tiled VAE (``inference/tiled_vae.py``): every function
 below takes ``gn_hook``. When it is given, every GroupNorm of the network
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from omgsr_tpu_torch.models.configs import VAEConfig
 from omgsr_tpu_torch.models.layers import (
@@ -89,9 +91,11 @@ def _fused_or_plain_resnet(p, x, groups):
 
 
 def _select_resnet(cfg: VAEConfig, gn_hook=None):
-    """Resnet executor for the given config: the fused kernels per eligible
-    shape (inference), or the plain block; with a GroupNorm hook always the
-    plain block, through the hook."""
+    """Resnet executor for the given config: per-resnet recompute (training),
+    the fused kernels per eligible shape (inference), or the plain block; with
+    a GroupNorm hook always the plain block, through the hook."""
+    if cfg.remat_blocks:
+        return lambda p, x, groups: checkpoint(_resnet, p, x, groups, gn_hook, use_reentrant=False)
     if gn_hook is not None:
         return lambda p, x, groups: _resnet(p, x, groups, gn_hook)
     return _fused_or_plain_resnet if cfg.fused_resblocks else _resnet

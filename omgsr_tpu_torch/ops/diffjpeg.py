@@ -96,10 +96,11 @@ def _merge(x, h, w):
     return x.permute(0, 1, 3, 2, 4).reshape(b, h, w)
 
 
-def diffjpeg(img, quality):
-    """JPEG round-trip. img (B, H, W, 3) RGB in [0,1]; quality a number, or a
-    0-d or (B,) tensor on img's device. Returns the compressed-then-decompressed
-    image in [0,1]."""
+def jpeg_coefficients(img, quality):
+    """The compression half of ``diffjpeg``: img (B, H, W, 3) RGB in [0,1]
+    -> (y, cb, cr), each block's DCT coefficients over its quantization
+    table, before rounding ((B, nb, 8, 8) f32: Y at full size, Cb and Cr
+    subsampled 2x2), and the scaled tables (yt, ct)."""
     t = _tables(img.device)
     b, h, w, _ = img.shape
     f = quality_to_factor(quality)
@@ -114,9 +115,6 @@ def diffjpeg(img, quality):
     def dct(x):
         return t["dct_scale"] * torch.einsum("bnxy,xyuv->bnuv", x - 128.0, t["dct"])
 
-    def idct(x):
-        return 0.25 * torch.einsum("bnxy,xyuv->bnuv", x * t["idct_alpha"], t["idct"]) + 128.0
-
     # to YCbCr
     ycc = torch.einsum("bhwc,ck->bhwk", x * 255.0, t["rgb2ycbcr"]) + t["shift"]
     y = ycc[..., 0]
@@ -125,11 +123,19 @@ def diffjpeg(img, quality):
     cb, cr = cbcr[..., 0], cbcr[..., 1]
 
     yt, ct = t["y"] * f, t["c"] * f
-    yq = torch.round(dct(_blocks(y)) / yt)
-    cbq = torch.round(dct(_blocks(cb)) / ct)
-    crq = torch.round(dct(_blocks(cr)) / ct)
+    return (dct(_blocks(y)) / yt, dct(_blocks(cb)) / ct, dct(_blocks(cr)) / ct), (yt, ct)
 
-    # decompress
+
+def jpeg_decode(yq, cbq, crq, tables, h, w, dtype=torch.float32):
+    """The decompression half of ``diffjpeg``: the rounded coefficients and
+    the tables of ``jpeg_coefficients`` -> the (B, h, w, 3) image in [0,1]."""
+    t = _tables(yq.device)
+    yt, ct = tables
+    hp, wp = h + (16 - h % 16) % 16, w + (16 - w % 16) % 16
+
+    def idct(x):
+        return 0.25 * torch.einsum("bnxy,xyuv->bnuv", x * t["idct_alpha"], t["idct"]) + 128.0
+
     y2 = _merge(idct(yq * yt), hp, wp)
     cb2 = _merge(idct(cbq * ct), hp // 2, wp // 2)
     cr2 = _merge(idct(crq * ct), hp // 2, wp // 2)
@@ -140,4 +146,12 @@ def diffjpeg(img, quality):
     ycc2 = torch.stack([y2, up(cb2), up(cr2)], dim=-1)
     rgb = torch.einsum("bhwc,ck->bhwk", ycc2 - t["shift"], t["ycbcr2rgb"])
     rgb = torch.clamp(rgb, 0.0, 255.0) / 255.0
-    return rgb[:, :h, :w, :].to(img.dtype)
+    return rgb[:, :h, :w, :].to(dtype)
+
+
+def diffjpeg(img, quality):
+    """JPEG round-trip. img (B, H, W, 3) RGB in [0,1]; quality a number, or a
+    0-d or (B,) tensor on img's device. Returns the compressed-then-decompressed
+    image in [0,1]."""
+    coefs, tables = jpeg_coefficients(img, quality)
+    return jpeg_decode(*(torch.round(c) for c in coefs), tables, img.shape[1], img.shape[2], img.dtype)

@@ -75,7 +75,7 @@ K2_SHAPES = [
     ((1, 64, 20, 64), 64, True, False),  # the mid block: one q tile, one kv tile, no split
     ((1, 64, 20, 64), 77, True, False),
     ((2, 300, 3, 64), 300, False, True),
-    ((1, 4608, 24, 128), 4608, False, False),  # the -F training shape
+    ((1, 4608, 24, 128), 4608, True, False),  # the -F training shape (the DiT's joint attention)
     ((4, 1024, 10, 64), 77, False, False),  # cross-attention at batch 4: 40 kv blocks, split in 3
     # the two sides of dkv_splits' choice: 50 kv blocks, split in 2; 140 (past one wave) not split
     ((1, 1024, 10, 64), 640, False, False),
@@ -85,7 +85,7 @@ K2_SHAPES = [
 WIDE_SHAPES = [
     ((1, 4096, 1, 512), 4096, True, False),  # the VAE mid block at 512 px
     ((1, 1100, 1, 512), 700, False, False),  # ends inside a 64-row q and a 64-row kv tile
-    ((1, 16384, 1, 512), 16384, False, False),  # the VAE mid block at 1024 px (training at 1024 px)
+    ((1, 16384, 1, 512), 16384, True, False),  # the VAE mid block at 1024 px (-F training at 1024 px)
     ((2, 300, 2, 512), 300, False, True),
 ]
 # checked only, not timed: the f32 kernels, which chip_smoke.py does not hold

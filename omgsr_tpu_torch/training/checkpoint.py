@@ -79,17 +79,23 @@ def export_adapters(output_dir: str, step: int, gen_lora, cfg, adapter_names: di
     """Write reference-layout adapter directories: weight-{step}/<name>.
 
     adapter_names, for -S: {"vae_encoder": "vae_encoder_lora_adapter",
-    "denoiser": "unet_lora_adapter"} (infer/omgsr_s_infer_model.py:16-21).
-    The -F export (FLUX targets, scan-stacked LoRA) arrives with -F."""
-    from omgsr_tpu_torch.lora import SD_TARGET_MODULES
+    "denoiser": "unet_lora_adapter"} (infer/omgsr_s_infer_model.py:16-21);
+    for -F: {"vae_encoder": "vae_encoder_adapter", "denoiser": "flux_adapter"}
+    (train/train_omgsr_f.py:150,176), with FLUX's targets and
+    ``cfg.flux_transformer_lora_rank``. The port's DiT LoRA is already a dict
+    per block, so the JAX package's ``unstack_lora_tree`` (for its
+    scan-stacked layout) has nothing to do here and is not ported: the files
+    hold the same per-block keys and bytes as the JAX export."""
+    from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES
     from omgsr_tpu_torch.lora.adapter_io import save_adapter
 
-    if cfg.is_flux:
-        raise NotImplementedError("exporting -F adapters is not ported yet (-F slice)")
     weight_path = os.path.join(output_dir, f"weight-{step}")
-    ranks = {"vae_encoder": cfg.vae_lora_rank, "denoiser": cfg.unet_lora_rank}
+    targets = {"vae_encoder": SD_TARGET_MODULES,
+               "denoiser": FLUX_TARGET_MODULES if cfg.is_flux else SD_TARGET_MODULES}
+    ranks = {"vae_encoder": cfg.vae_lora_rank,
+             "denoiser": cfg.flux_transformer_lora_rank if cfg.is_flux else cfg.unet_lora_rank}
     for part, name in adapter_names.items():
-        save_adapter(gen_lora[part], os.path.join(weight_path, name), rank=ranks[part], targets=SD_TARGET_MODULES)
+        save_adapter(gen_lora[part], os.path.join(weight_path, name), rank=ranks[part], targets=targets[part])
     return weight_path
 
 

@@ -1,7 +1,8 @@
-"""LoRA-GAN trainer for OMGSR-S.
+"""LoRA-GAN trainers for OMGSR-S and OMGSR-F.
 
 One train step re-implementing the reference's loop body
-(train/train_omgsr_s.py:438-491), as the JAX package's trainer does:
+(train/train_omgsr_s.py:438-491, train/train_omgsr_f.py:528-591), as the JAX
+package's trainers do:
 
   G step: hq -> frozen-VAE latent, noised to the mid-timestep; lq -> LoRA-VAE
   latent; LRR latent-MSE; one-step denoiser prediction -> decoded image;
@@ -20,11 +21,21 @@ pair rather than on the G forward too.
 Every random number of a step is explicit: ``StepNoise`` holds the two latent
 sampling noises, the mid-timestep noise and the three sets of DiffAugment
 draws; ``draw_step_noise`` makes them from a ``torch.Generator``. Frozen
-parameters must not require grad. ``TrainerF`` arrives with the -F slice.
+parameters must not require grad.
+
+Under ``cfg.gradient_checkpointing`` both trainers recompute the LoRA encode
+and the decode. ``TrainerF`` also recomputes the DiT block by block
+(``FluxConfig.remat_blocks``: one saved carry a block, the JAX package's
+scan-stacked semantics; it wraps the whole apply only for an unstacked tree,
+which here would hold every block's internals during the recomputed forward)
+and every VAE resnet of the differentiated encode and decode
+(``VAEConfig.remat_blocks``). ``TrainerS`` keeps the whole-stage recompute
+without the per-resnet one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -32,11 +43,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from omgsr_tpu_torch.config import TrainConfig
-from omgsr_tpu_torch.diffusion.schedules import ddpm_alphas_cumprod
+from omgsr_tpu_torch.diffusion.packing import latent_image_ids, pack_latents, unpack_latents
+from omgsr_tpu_torch.diffusion.schedules import ddpm_alphas_cumprod, flux_sigma_at_mid_timestep
 from omgsr_tpu_torch.lora import attach_lora
 from omgsr_tpu_torch.losses.diffaug import DiffAugDraws, draw_diffaug
 from omgsr_tpu_torch.losses.discriminator import discriminator_loss
 from omgsr_tpu_torch.losses.dists import dists_loss
+from omgsr_tpu_torch.models import flux as flux_mod
 from omgsr_tpu_torch.models import unet_sd, vae
 from omgsr_tpu_torch.training.optim import global_norm, make_optimizer
 from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
@@ -49,6 +62,15 @@ def l1_loss(a, b):
 def mse_loss(a, b):
     d = a.float() - b.float()
     return (d * d).mean()
+
+
+def _vae_cfg_for_grad(cfg, vae_cfg):
+    """The VAE config of TrainerF's differentiated path: per-resnet recompute
+    under gradient checkpointing (the 1024-px decode's backward otherwise
+    holds about 0.5 GB of intermediates per GroupNorm and conv)."""
+    if not cfg.gradient_checkpointing:
+        return vae_cfg
+    return dataclasses.replace(vae_cfg, remat_blocks=True)
 
 
 class StepNoise(NamedTuple):
@@ -249,3 +271,45 @@ class TrainerS(BaseTrainer):
         x0 = (lq_latent - self.sqrt_1ma * eps) / self.sqrt_a
         decode = self._checkpointed(lambda z: vae.vae_decode(frozen["vae"], frozen["vae_cfg"], z))
         return torch.clamp(decode(x0), -1.0, 1.0)
+
+
+class TrainerF(BaseTrainer):
+    """OMGSR-F: FLUX DiT, flow-matching sigma at mid-timestep 244
+    (train/train_omgsr_f.py; the intended behaviour at :247 and :540, not the
+    shipped NameError / missing argument)."""
+
+    def __init__(self, cfg, frozen, gen_lora, disc_bundle):
+        self.sigma_t = flux_sigma_at_mid_timestep(cfg.mid_timestep)
+        super().__init__(cfg, frozen, gen_lora, disc_bundle)
+
+    def encode_fixed(self, frozen, img, noise):
+        return vae.vae_encode(frozen["vae"], frozen["vae_cfg"], img, noise=noise)
+
+    def encode_lora(self, frozen, lora_enc, img, noise):
+        params = dict(frozen["vae"])
+        params["encoder"] = attach_lora(frozen["vae"]["encoder"], lora_enc)
+        vae_cfg = _vae_cfg_for_grad(self.cfg, frozen["vae_cfg"])
+        encode = self._checkpointed(lambda x, z: vae.vae_encode(params, vae_cfg, x, noise=z))
+        return encode(img, noise)
+
+    def noisy_latent(self, hq_latent, noise):
+        return (1.0 - self.sigma_t) * hq_latent + self.sigma_t * noise
+
+    def one_step_pred(self, frozen, lora_flux, lq_latent):
+        flux_params = attach_lora(frozen["flux"], lora_flux)
+        b, h, w, _ = lq_latent.shape
+        packed = pack_latents(lq_latent)
+        img_ids = latent_image_ids(h // 2, w // 2, device=lq_latent.device)
+        ctx = frozen["prompt_embeds"].to(lq_latent.dtype)
+        ctx = ctx.expand((b,) + tuple(ctx.shape[-2:]))
+        pooled = frozen["pooled_prompt_embeds"].to(lq_latent.dtype)
+        pooled = pooled.expand((b,) + tuple(pooled.shape[-1:]))
+        txt_ids = torch.zeros((ctx.shape[1], 3), dtype=torch.float32, device=lq_latent.device)
+        flux_cfg = frozen["flux_cfg"]
+        if self.cfg.gradient_checkpointing:
+            flux_cfg = dataclasses.replace(flux_cfg, remat_blocks=True)
+        v = flux_mod.flux_apply(flux_params, flux_cfg, packed, self.sigma_t, 1.0, pooled, ctx, txt_ids, img_ids)
+        z0 = unpack_latents(packed - self.sigma_t * v, h, w)
+        dec_cfg = _vae_cfg_for_grad(self.cfg, frozen["vae_cfg"])
+        # the -F reference decodes without clamping (train/train_omgsr_f.py:525)
+        return self._checkpointed(lambda z: vae.vae_decode(frozen["vae"], dec_cfg, z))(z0)

@@ -6,8 +6,9 @@ JAX package in f32 within BF16_REL of the output's largest value), init_flux's
 tree, a scan-stacked JAX tree through from_jax_tree, the pipeline (tiled and
 exact tiled VAE, 1e-3 as the -S pipeline), the porters and the config reader
 (equal), infer_omgsr_f.main (PNGs within 1 uint8 step, posterior mean on both
-sides), one serve --pipeline f request, mid_timestep_flux.main (the same t on
-the same batches), and the raises of what is not ported."""
+sides; with --prompt through the directory's T5 and CLIP-L too), one serve
+--pipeline f request, mid_timestep_flux.main (the same t on the same
+batches), and the raises of what is not ported."""
 
 import io
 import sys
@@ -262,8 +263,9 @@ def test_unported_parts_raise(pipes, tmp_path):
         OMGSRFPipeline(tvp, tfp, T_VAE, T_FLUX, device="cpu").shard_for_mesh(None)
     base = ["--input_image", str(tmp_path), "--output_dir", str(tmp_path), "--flux_path", str(tmp_path),
             "--device", "cpu"]
-    with pytest.raises(ValueError, match="--prompt_npz"):
-        CLI.main(CLI.parse_args(base))
+    # the prompt encoders are ported: without --prompt_npz the prompt needs the checkpoint's encoders
+    with pytest.raises(ValueError, match="--flux_path"):
+        CLI.prompt_embeddings(CLI.parse_args(base[:4] + ["--flux_path", ""]), torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="--quantize int8"):
         CLI.main(CLI.parse_args(base + ["--quantize", "int8", "--prompt_npz", "p.npz"]))
     with pytest.raises(NotImplementedError, match="distribution slice"):
@@ -279,10 +281,31 @@ def test_unported_parts_raise(pipes, tmp_path):
 INPUTS = {"a.png": (20, 16), "b.png": (12, 18)}
 
 
+# encoded into the fixture's prompt.npz by the JAX package's encoders
+PROMPT = "a photo with ｆｕｌｌ-width words <extra_id_1>"
+
+
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
+    """The tiny directory; its prompt.npz holds the JAX package's
+    encode_prompt_flux embeddings of PROMPT (its T5 in f32, the tiny
+    encoders' configs handed to it: it reads FLUX_CLIP_L / FLUX_T5_XXL)."""
+    import functools
+
+    import omgsr_tpu.convert as JCONV
+    import omgsr_tpu.models.configs as JCFG
+    from omgsr_tpu.cli.prompts import encode_prompt_flux as j_encode
+    from tests.torch_port_helpers import tiny_text_configs
+
     root = tmp_path_factory.mktemp("tiny_flux")
     trees = write_tiny_flux_checkpoint(root)
+    jclip, _, jt5, _ = tiny_text_configs()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JCFG, "FLUX_CLIP_L", jclip)
+        mp.setattr(JCFG, "FLUX_T5_XXL", jt5)
+        mp.setattr(JCONV, "port_t5_encoder", functools.partial(JCONV.port_t5_encoder, dtype=jnp.float32))
+        embeds, pooled, _ = j_encode(str(root), PROMPT, dtype=jnp.float32)
+    np.savez(root / "prompt.npz", prompt_embeds=np.asarray(embeds), pooled_prompt_embeds=np.asarray(pooled))
     imgs = root / "imgs"
     imgs.mkdir()
     rng = np.random.default_rng(0)
@@ -341,6 +364,28 @@ def test_infer_cli_matches_the_jax_cli(cli_outputs):
         assert ours.std() > 1.0, name
         d = np.abs(ours.astype(int) - ref.astype(int))
         assert d.max() <= 1, (name, d.max(), d.mean())
+
+
+def test_infer_cli_encodes_the_prompt_as_the_jax_cli(ckpt, cli_outputs, tmp_path, monkeypatch):
+    """--prompt in place of --prompt_npz: the port's CLI encodes PROMPT with the
+    directory's T5 and CLIP-L (T5 in f32) and gives the JAX CLI's PNGs, which
+    were made from the JAX package's encode_prompt_flux embeddings of PROMPT
+    (the ``ckpt`` fixture's prompt.npz): within 1 uint8 step (posterior mean)."""
+    import functools
+
+    root, _ = ckpt
+    monkeypatch.setattr(PORT, "port_t5_encoder", functools.partial(PORT.port_t5_encoder, dtype=torch.float32))
+    port_call = OMGSRFPipeline.__call__
+    monkeypatch.setattr(OMGSRFPipeline, "__call__",
+                        lambda self, *a, **k: port_call(self, *a, **{**k, "sample_latent": False}))
+    CLI.main(CLI.parse_args(["--input_image", str(root / "imgs"), "--flux_path", str(root), "--lora_path",
+                             str(root / "lora"), "--prompt", *PROMPT.split(" "), *COMMON,
+                             "--output_dir", str(tmp_path), "--device", "cpu"]))
+    for name in INPUTS:
+        ours = np.asarray(Image.open(tmp_path / name))
+        ref = np.asarray(Image.open(cli_outputs / "jax" / name))
+        assert ours.shape == ref.shape and ours.std() > 1.0, name
+        assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1, name
 
 
 def test_serve_pipeline_f_answers_with_the_cli_image(ckpt, cli_outputs):

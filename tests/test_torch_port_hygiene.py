@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
                 "data.degradation", "data.dataset", "data.imgdec_native", "ops.filters", "ops.resize", "ops.noise",
                 "ops.diffjpeg", "diffusion.calibration", "cli.mid_timestep_sd", "models.flux",
                 "diffusion.packing", "inference.pipeline_f", "cli.infer_omgsr_f", "cli.mid_timestep_flux",
-                "tools.flux_checkpoint"):
+                "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -81,9 +81,9 @@ def _no_cuda():
 def test_entry_points_raise_without_cuda(tmp_path):
     _no_cuda()
     from omgsr_tpu_torch.cli import infer_omgsr_f, infer_omgsr_s, mid_timestep_flux, mid_timestep_sd, serve, \
-        train_omgsr_s
+        train_omgsr_f, train_omgsr_s
     from omgsr_tpu_torch.data.dataset import PairedDataset, PairedLoader
-    from omgsr_tpu_torch.cli.prompts import encode_prompt_sd
+    from omgsr_tpu_torch.cli.prompts import encode_prompt_flux, encode_prompt_sd
     from omgsr_tpu_torch.config import TrainConfig
     from omgsr_tpu_torch.convert import porters
     from omgsr_tpu_torch.lora import adapter_io
@@ -94,12 +94,13 @@ def test_entry_points_raise_without_cuda(tmp_path):
         init_convnext,
         init_discriminator,
         init_flux,
+        init_t5_encoder,
         init_unet,
         init_vae,
     )
     from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline
     from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
-    from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, UNetConfig, VAEConfig
+    from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, T5Config, UNetConfig, VAEConfig
     from omgsr_tpu_torch.serving import SRServer
     from omgsr_tpu_torch.serving.server import make_fused_infer
 
@@ -161,6 +162,20 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "port_flux_transformer": lambda: porters.port_flux_transformer(str(tmp_path)),
         "mid_timestep_flux.main": lambda: mid_timestep_flux.main(
             ["--dataset_txt_or_dir_paths", str(tmp_path), "--flux_path", str(tmp_path)]),
+        # -F training and FLUX's prompt encoders: each raises before it reads a file
+        "infer_omgsr_f.main --prompt": lambda: infer_omgsr_f.main(infer_omgsr_f.parse_args(
+            ["--input_image", str(tmp_path), "--output_dir", str(tmp_path), "--flux_path", str(tmp_path),
+             "--prompt", "a", "cat"])),
+        "encode_prompt_flux": lambda: encode_prompt_flux(str(tmp_path), "a cat"),
+        "port_t5_encoder": lambda: porters.port_t5_encoder(str(tmp_path)),
+        "init_t5_encoder": lambda: init_t5_encoder(0, T5Config(vocab_size=8, d_model=8, d_kv=4, d_ff=8,
+                                                               num_layers=1, num_heads=2)),
+        "build_frozen_f": lambda: train_omgsr_f.build_frozen_f(TrainConfig(flux_path=str(tmp_path)), torch.float32),
+        "encode_fixed_prompt_f": lambda: train_omgsr_f.encode_fixed_prompt_f(
+            TrainConfig(flux_path=str(tmp_path)), torch.float32),
+        "run_training f": lambda: train_omgsr_f.run_training(
+            TrainConfig(model="omgsr_f_1024", output_dir=str(tmp_path)), frozen={}, loader=[]),
+        "train_omgsr_f.main": lambda: train_omgsr_f.main(["output_dir=" + str(tmp_path)]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):

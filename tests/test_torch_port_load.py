@@ -22,7 +22,7 @@ from omgsr_tpu_torch.convert import hf_config as H
 from omgsr_tpu_torch.convert import porters as P
 from omgsr_tpu_torch.convert import safetensors_io as S
 from omgsr_tpu_torch.convert.params import to_hf_state_dict, to_jax_tree
-from omgsr_tpu_torch.lora import SD_TARGET_MODULES
+from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES
 from omgsr_tpu_torch.lora import adapter_io as A
 from omgsr_tpu_torch.models.configs import CLIPTextConfig, ConvNeXtConfig
 from omgsr_tpu_torch.training import checkpoint as CK
@@ -327,8 +327,13 @@ def test_export_adapters_and_pruning_lay_out_the_reference_directories(ckpt, tmp
         assert meta["r"] == 2 and meta["target_modules"] == list(SD_TARGET_MODULES)
         want = jflatten(trees["lora_vae" if part == "vae_encoder" else "lora_unet"])
         assert all(np.array_equal(np.asarray(v), want[p]) for p, v in jflatten(back).items())
-    with pytest.raises(NotImplementedError, match="-F slice"):
-        CK.export_adapters(str(tmp_path), 1, gen_lora, dataclasses.replace(cfg, model="omgsr_f_1024"), names)
+    # -F (ported): FLUX's targets and flux_transformer_lora_rank for the denoiser, the -F names
+    f_names = {"vae_encoder": "vae_encoder_adapter", "denoiser": "flux_adapter"}
+    f_cfg = dataclasses.replace(cfg, model="omgsr_f_1024", flux_transformer_lora_rank=3)
+    CK.export_adapters(str(tmp_path / "f"), 1, gen_lora, f_cfg, f_names)
+    metas = {part: JA.load_adapter(str(tmp_path / "f" / "weight-1" / name))[1] for part, name in f_names.items()}
+    assert metas["denoiser"]["r"] == 3 and metas["denoiser"]["target_modules"] == list(FLUX_TARGET_MODULES)
+    assert metas["vae_encoder"]["r"] == 2 and metas["vae_encoder"]["target_modules"] == list(SD_TARGET_MODULES)
 
     state = {"step": 0, "x": torch.zeros(2)}
     for step in (5, 10, 15, 20):

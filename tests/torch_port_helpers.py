@@ -283,6 +283,39 @@ _TINY_FLUX = dict(num_layers=2, num_single_layers=2, attention_head_dim=8, num_a
                   joint_attention_dim=16, pooled_projection_dim=8, axes_dims_rope=(2, 4, 2))
 
 
+# FLUX's text towers at the tiny DiT's widths: CLIP-L's pooled output feeds pooled_projection_dim (8),
+# T5's hidden states joint_attention_dim (16); every leaf kind and both T5 position-bias regimes
+TINY_T5_PIECES = 400  # the synthetic Unigram vocabulary; ids 400-499 are the extra ids
+TINY_FLUX_CLIP_KW = dict(vocab_size=512 + TINY_MERGES + 2, hidden_size=8, intermediate_size=16, num_hidden_layers=2,
+                         num_attention_heads=2, hidden_act="quick_gelu", eos_token_id=512 + TINY_MERGES + 1)
+TINY_T5_KW = dict(vocab_size=512, d_model=16, d_kv=8, d_ff=32, num_layers=2, num_heads=2,
+                  relative_attention_num_buckets=8, relative_attention_max_distance=20)
+
+
+def tiny_text_configs():
+    """(JAX CLIP-L, port CLIP-L, JAX T5, port T5) tiny configs of FLUX's text towers."""
+    from omgsr_tpu.models.configs import CLIPTextConfig as JCLIPTextConfig
+    from omgsr_tpu.models.configs import T5Config as JT5Config
+    from omgsr_tpu_torch.models.configs import CLIPTextConfig, T5Config
+
+    return (JCLIPTextConfig(**TINY_FLUX_CLIP_KW), CLIPTextConfig(**TINY_FLUX_CLIP_KW), JT5Config(**TINY_T5_KW),
+            T5Config(**TINY_T5_KW))
+
+
+def charsmap_rules():
+    """A small charsmap: full-width letters and digits, the ideographic space
+    and two other spaces, a ligature, compositions of accented letters, a
+    mapping of a plain letter (so a grapheme of a base letter and combining
+    marks has a shortest-prefix match), a deletion and a tab to a space."""
+    import unicodedata
+
+    rules = {chr(c): unicodedata.normalize("NFKC", chr(c)) for c in [*range(0xFF10, 0xFF1A), *range(0xFF21, 0xFF3B),
+                                                                      *range(0xFF41, 0xFF5B)]}
+    rules.update({"\u3000": " ", "\u2002": " ", "\u00a0": " ", "\ufb01": "fi", "\t": " ", "\x07": "",
+                  "e\u0301": "\u00e9", "a\u0300": "\u00e0", "o\u0308": "\u00f6", "q": "Q", "k\u0301\u0301": "K"})
+    return rules
+
+
 def tiny_flux_configs():
     """(JAX VAE, port VAE, JAX FLUX, port FLUX) tiny configs."""
     from omgsr_tpu.models.configs import FluxConfig as JFluxConfig
@@ -300,23 +333,34 @@ def write_tiny_flux_checkpoint(root, seed=0):
 
         vae/ (one file), transformer/ (two shards + index), lora/{flux_adapter,
         vae_encoder_adapter}/ (rank 2), prompt.npz (prompt_embeds (1, 5, 16),
-        pooled_prompt_embeds (1, 8))
+        pooled_prompt_embeds (1, 8)), text_encoder/ (CLIP-L at the tiny
+        widths, with the position-id buffer the porter drops), tokenizer/ (the
+        synthetic BPE vocabulary, pad <|endoftext|>), text_encoder_2/ (T5 in two
+        shards + index, with the embed_tokens alias the porter drops),
+        tokenizer_2/ (a synthetic Unigram vocabulary with ``charsmap_rules``)
 
-    Returns the JAX-layout trees written: vae, flux, lora_flux, lora_vae."""
+    Returns the JAX-layout trees written: vae, flux, lora_flux, lora_vae, clip, t5."""
     from safetensors.numpy import save_file
 
     from omgsr_tpu.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES
     from omgsr_tpu.lora import save_adapter as jax_save_adapter
+    from omgsr_tpu.models import clip_text as JC
     from omgsr_tpu.models import flux as JF
+    from omgsr_tpu.models import t5 as JT5
     from omgsr_tpu.models import vae as JV
+    from omgsr_tpu_torch.tools.flux_checkpoint import precompiled_charsmap, synthetic_unigram, write_t5_tokenizer
+    from omgsr_tpu_torch.tools.sd_checkpoint import synthetic_bpe, write_tokenizer
 
     jvae, _, jflux, _ = tiny_flux_configs()
+    jclip, _, jt5, _ = tiny_text_configs()
     trees = {"vae": jax_init(JV.init_vae, seed, jvae), "flux": jax_init(JF.init_flux, seed + 1, jflux)}
     trees["lora_flux"] = jax_lora_tree(trees["flux"], 2, seed + 2, FLUX_TARGET_MODULES)
     trees["lora_vae"] = jax_lora_tree(trees["vae"]["encoder"], 2, seed + 3)
+    trees["clip"] = jax_init(JC.init_clip_text, seed + 4, jclip)
+    trees["t5"] = jax_init(JT5.init_t5_encoder, seed + 5, jt5)
     trees = {k: to_numpy_tree(v) for k, v in trees.items()}
 
-    for sub in ("vae", "transformer"):
+    for sub in ("vae", "transformer", "text_encoder", "text_encoder_2"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     save_file(torch_layout(trees["vae"]), str(root / "vae" / "diffusion_pytorch_model.safetensors"))
     flux = torch_layout(trees["flux"])
@@ -338,4 +382,22 @@ def write_tiny_flux_checkpoint(root, seed=0):
     rng = np.random.default_rng(seed)
     np.savez(root / "prompt.npz", prompt_embeds=rng.normal(size=(1, 5, 16)).astype(np.float32),
              pooled_prompt_embeds=rng.normal(size=(1, 8)).astype(np.float32))
+
+    clip = torch_layout(trees["clip"])
+    clip["text_model.embeddings.position_ids"] = np.arange(77, dtype=np.int64)[None]
+    save_file(clip, str(root / "text_encoder" / "model.safetensors"))
+    (root / "text_encoder" / "config.json").write_text(json.dumps(TINY_FLUX_CLIP_KW))
+    write_tokenizer(str(root / "tokenizer"), *synthetic_bpe(TINY_MERGES, seed), pad_token="<|endoftext|>")
+    t5 = torch_layout(trees["t5"])
+    t5["encoder.embed_tokens.weight"] = t5["shared.weight"]
+    keys = sorted(t5)
+    shards = {"model-00001-of-00002.safetensors": keys[: len(keys) // 2],
+              "model-00002-of-00002.safetensors": keys[len(keys) // 2:]}
+    for name, ks in shards.items():
+        save_file({k: t5[k] for k in ks}, str(root / "text_encoder_2" / name))
+    (root / "text_encoder_2" / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": {k: name for name, ks in shards.items() for k in ks}}))
+    (root / "text_encoder_2" / "config.json").write_text(json.dumps(TINY_T5_KW))
+    write_t5_tokenizer(str(root / "tokenizer_2"), synthetic_unigram(TINY_T5_PIECES, seed),
+                       precompiled_charsmap(charsmap_rules()))
     return trees
