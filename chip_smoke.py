@@ -80,6 +80,19 @@ them. Phases, each of which must pass:
            split, peak memory, and the DiT stage at 9, 16 and 13 tiles, one
            tile a forward and a larger batch in turns (with --profile also
            the stages' idle share and kernel time by name)
+  quant-f  the quantised DiT at FLUX.1-dev's full width and depth, from the
+           serve-f weights: int8, int8_w8a8 and int4 quantised one at a time
+           on the card by quantize_flux_for_serving (tree_bytes printed),
+           each serving three 1024x1024 requests through build_server
+           --quantize (launches against the structure's, p50, the DiT
+           stage's device and enqueue ms and idle share, peak memory, the
+           DiT latent's rel L2 and the image's uint8 steps against the bf16
+           server), then freed; run_training on the frozen int8 and int4
+           bases (2 micro-steps at 1024 px, ranks 64/64, recompute), launches,
+           finite losses, s per micro-step and peak memory; after load-f,
+           infer_omgsr_f --quantize int8 on load-f's directory, whose peak
+           above what was resident while the pipeline is built stays below the
+           directory's bf16 DiT bytes (the whole run's beside the bf16 CLI's)
   train-f  OMGSR-F LoRA-GAN training at FLUX.1-dev's full width and depth
            (the serve-f DiT and VAE, the train phase's ConvNeXt-L, 1024x1024,
            batch 1, LoRA ranks 64/64, gradient checkpointing with per-block
@@ -104,6 +117,13 @@ them. Phases, each of which must pass:
            train_omgsr_f.main --config (the package's omgsr_f_1024.yml, the
            fixed prompt "" through the directory's encoders, 2 optimizer steps
            at 1024 px from the data phase's folder)
+  eval     eval_sr.main --dists --lpips --clipiqa --niqe_params on eight
+           GT/SR pairs (512x512 from a seed: blurred and noised, shifted,
+           JPEG, one identical, one below --metric_crop) at published widths
+           (ConvNeXt-L, VGG16, CLIP-L/14 at 224; weights from seeds written
+           in the published layouts; a pristine model fitted by niqe.main),
+           every per-image score on the card against the same CLI on the CPU;
+           s per image per metric
 
 Every phase that serves, trains or runs a CLI records the shapes at which K1,
 K2a/K2b and K3a/K3b launched and holds each shape that the kernels phase does
@@ -206,6 +226,7 @@ from omgsr_tpu_torch.training.checkpoint import latest_checkpoint
 from omgsr_tpu_torch.training.optim import global_norm
 from omgsr_tpu_torch.training.trainer import draw_step_noise, grads_of
 from omgsr_tpu_torch.utils.image_io import load_image_rgb, postprocess_sr_output, preprocess_sr_input
+from omgsr_tpu_torch.utils.quantize import quantize_flux_for_serving, tree_bytes
 from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet; f32 without tensor cores)
@@ -1155,14 +1176,15 @@ def vae_stages_mid_head_routes(pipe, img512, card):
     return out
 
 
-def profile_stages(staged, stages, card, label="512x512"):
-    """With --profile: kernel time by name from torch.profiler. A stage's busy
-    share is the sum of its kernels' times over the elapsed time measured
-    without the profiler (its own overhead stretches the host side only)."""
+def profile_stages(staged, stages, card, label="512x512", top=12):
+    """With --profile: kernel time by name from torch.profiler (the ``top``
+    largest). A stage's busy share is the sum of its kernels' times over the
+    elapsed time measured without the profiler (its own overhead stretches
+    the host side only). Returns {stage: idle share}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    by_kernel = {}
+    by_kernel, idle = {}, {}
     for name, fn in staged.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1181,11 +1203,13 @@ def profile_stages(staged, stages, card, label="512x512"):
         if busy_us == 0.0:
             print(f"profile: {name}: the profiler recorded no device time", flush=True)
             continue
+        idle[name] = 1 - busy_us / 1e3 / stages[name]
         print(f"profile: {label} {name} kernels busy {busy_us / 1e3:.3f} ms of {stages[name]:.3f} ms "
-              f"elapsed, idle share {1 - busy_us / 1e3 / stages[name]:.3f} [{card}]", flush=True)
+              f"elapsed, idle share {idle[name]:.3f} [{card}]", flush=True)
     total = sum(t for _, t in by_kernel.values())
-    for key, (n, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+    for key, (n, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"profile: {label} {t / 1e3:8.3f} ms {t / total:6.1%} {n:5d} x {key[:100]}", flush=True)
+    return idle
 
 
 def phase_http(server, small_u8):
@@ -3268,6 +3292,441 @@ def profile_micro_step(trainer, batch, noise, elapsed_ms, card, label="train"):
 # ----------------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------------
+# phase: quant-f (the quantised DiT, serving and training)
+# ----------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "int8_w8a8", "int4")
+QUANT_TRAIN_MODES = ("int8", "int4")
+
+
+def quant_f_serving(card, vae_params, qflux, mode, prompt, pooled, imgs, ref_outs, z, z0_ref):
+    """One quantised DiT served through build_server --quantize: three
+    1024-px requests with their launches, p50, the DiT stage's device and
+    enqueue ms and idle share, and the deviation from the bf16 server."""
+    dtype = torch.bfloat16
+    args = serve_cli.parse_args(["--pipeline", "f", "--weight_dtype", "bf16", "--latent", "mean", "--port", "0",
+                                 "--quantize", mode])
+    server = serve_cli.build_server(args, params=(vae_params, qflux), prompt_embeds=(prompt, pooled))
+    tile, overlap = args.process_size // 8, args.process_size // 16
+    per = flux_structure_counts(FLUX_VAE, FLUX_DEV)
+    expect = expected_launches([im.shape[:2] for im in imgs], per, tile, overlap, FLUX_VAE.downscale)
+    joint = ((1, 4608, FLUX_DEV.num_attention_heads, FLUX_DEV.attention_head_dim), 4608, dtype)
+    out = {}
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with launch_shapes() as seen:
+            outs = run_clients(server, [(im, "nofix") for im in imgs])
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: v for k, v in read_counts().items() if k in expect}
+        expect["flash_attention_fwd_merge"] = sum(n * mid_head_merges(t) for t, n in mid_head_tokens(seen).items())
+        assert counts == expect, (mode, counts, expect)
+        assert seen["flash_n"].get(joint, 0) == 3 * per["dit"]["flash_attention_fwd"] == 3 * 57, seen["flash_n"]
+        lat = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            server.process_array(imgs[i % 3], "adain")
+            lat.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        server.shutdown()
+    steps = [mean_steps(o, r) for o, r in zip(outs, ref_outs)]
+    for o in outs:
+        assert o.shape == imgs[0].shape and o.dtype == np.uint8 and o.std() > 1.0
+    pipe = OMGSRFPipeline(vae_params, qflux, FLUX_VAE, FLUX_DEV, 244, device="cuda")
+    ctx, pl = (torch.from_numpy(a).to("cuda", dtype) for a in (prompt, pooled))
+    with torch.inference_mode():
+        dit = lambda: pipe.latent_mid(z, ctx, pl, tile, overlap)  # noqa: E731
+        z0 = dit()
+        assert torch.isfinite(z0.float()).all()
+        rel = rel_l2(z0.float(), z0_ref.float())
+        dit_ms = time_ms(dit, iters=5, warmup=1)
+        enq = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dit()
+            enq.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        idle = profile_stages({"dit": dit}, {"dit": dit_ms}, card, f"quant-f {mode} 1024x1024", top=6)
+    out.update({f"quant_f_{mode}_latency_ms_p50_1024": statistics.median(lat[1:]), f"quant_f_{mode}_dit_ms": dit_ms,
+                f"quant_f_{mode}_dit_host_enqueue_ms": statistics.median(enq),
+                f"quant_f_{mode}_dit_idle_share": idle.get("dit"), f"quant_f_{mode}_peak_memory_GiB": peak / 2**30,
+                f"quant_f_{mode}_latent_rel_l2": rel,
+                f"quant_f_{mode}_image_mean_steps": float(np.mean([s[0] for s in steps])),
+                f"quant_f_{mode}_image_max_steps": int(max(s[1] for s in steps))})
+    print(f"quant-f: {mode}: 3 requests at 1024x1024 through serve --quantize {mode}: launches {counts} (the "
+          f"structure's; K1 {per['dit']['flash_attention_fwd']} a tile forward); request p50 "
+          f"{out[f'quant_f_{mode}_latency_ms_p50_1024']:.2f} ms (first excluded: {lat[0]:.2f}); the DiT stage "
+          f"{dit_ms:.2f} ms on the device, host enqueue {statistics.median(enq):.2f} ms, idle share "
+          f"{idle.get('dit', float('nan')):.3f}; peak memory allocated {peak / 2**30:.2f} GiB (the bf16 DiT "
+          f"resident beside it); against the bf16 server on the same inputs: DiT latent rel L2 {rel:.4g}, image "
+          + ", ".join(f"mean {m:.3f} / max {x} uint8 steps" for m, x, _ in steps) + f" [{card}]", flush=True)
+    n_seen = report_launch_shapes("quant-f", f"serve --quantize {mode}", seen, 14000 + 100 * QUANT_MODES.index(mode))
+    assert n_seen["flash_attention_fwd"] and n_seen["group_norm"], n_seen
+    return counts, out
+
+
+def quant_f_training(card, vae_params, qflux, mode, backbone, cn_cfg, work_dir, bf16_dit_bytes):
+    """train_omgsr_f.run_training on the quantised frozen DiT: two
+    micro-steps (one optimizer step at accumulation 2) at 1024 px, then one
+    timed micro-step; launches against the structure's, losses finite, peak
+    memory."""
+    dtype = torch.bfloat16
+    prompt, pooled = flux_prompt(17)
+    frozen = {"vae": vae_params, "vae_cfg": FLUX_VAE, "flux": qflux, "flux_cfg": FLUX_DEV, "backbone": backbone,
+              "dists": init_dists(backbone, cn_cfg.dims), "prompt_embeds": torch.from_numpy(prompt).to("cuda", dtype),
+              "pooled_prompt_embeds": torch.from_numpy(pooled).to("cuda", dtype)}
+    out_dir = os.path.join(work_dir, f"quant_f_{mode}")
+    cfg = TrainConfig(
+        model="omgsr_f_1024", output_dir=out_dir, resolution=F_TRAIN_RES, train_batch_size=1, vae_lora_rank=64,
+        flux_transformer_lora_rank=64, mixed_precision="bf16", gradient_accumulation_steps=2, max_train_steps=1,
+        gradient_checkpointing=True, mid_timestep=244, lr_warmup_steps=0, checkpointing_steps=1000,
+        save_img_steps=1000, seed=124, quantize_base=mode,
+        extra={"disc_channels": list(cn_cfg.dims[:3]), "metrics_jsonl": f"{out_dir}/metrics.jsonl"})
+    expect = f_micro_step_counts(FLUX_VAE, FLUX_DEV, F_TRAIN_RES)
+    loader = [f_pair(40 + i) for i in range(2)]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with launch_shapes() as seen:
+        trainer = train_f_cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lines = [json.loads(line) for line in open(f"{out_dir}/metrics.jsonl")]
+    lora = trainer.state["gen"]["lora"]["denoiser"]
+    a = lora["transformer_blocks"]["0"]["attn"]["to_q"]["lora_A"]
+    assert a.dtype == dtype and a.shape == (64, FLUX_DEV.inner_dim), (a.dtype, a.shape)
+    assert trainer.state["step"] == 2 and trainer.state["gen"]["opt"]["count"] == 1
+    assert [line["step"] for line in lines] == [1] and all(math.isfinite(lines[0][k]) for k in METRICS), lines
+    for name, n in expect.items():
+        assert counts[name] == 2 * n, (mode, name, counts[name], 2 * n)
+    assert all(not v.requires_grad and v.grad is None for v in flatten_dict(qflux).values())
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batch = {k: torch.from_numpy(v).to("cuda", dtype) for k, v in loader[0].items()}
+    latent_shape = (1, F_TRAIN_RES // 8, F_TRAIN_RES // 8, FLUX_VAE.latent_channels)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, pred = trainer.train_step(batch, draw_step_noise(gen, (1, F_TRAIN_RES, F_TRAIN_RES, 3), latent_shape, "cuda",
+                                                         dtype))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_step = torch.cuda.max_memory_allocated()
+    assert read_counts() == expect and all(math.isfinite(float(m[k])) for k in METRICS), m
+    assert torch.isfinite(pred.float()).all()
+    print(f"quant-f: {mode} base: run_training took 1 optimizer step (2 micro-steps) at {F_TRAIN_RES}x{F_TRAIN_RES} "
+          f"in {wall:.2f} s, launches {counts} (2 x the structure's: K1 {expect['flash_attention_fwd']}, K2a/K2b "
+          f"{expect['flash_attention_bwd_dq']}, K3a/K3b {expect['group_norm_stats']} a micro-step); losses "
+          + " ".join(f"{k}={lines[0][k]:.4f}" for k in LOSSES)
+          + f"; a micro-step {step_s:.4f} s; peak memory allocated {peak / 2**30:.2f} GiB in run_training, "
+          f"{peak_step / 2**30:.2f} GiB in the micro-step; without the resident bf16 DiT "
+          f"{(peak - bf16_dit_bytes) / 2**30:.2f} / {(peak_step - bf16_dit_bytes) / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    n_seen = report_launch_shapes("quant-f", f"run_training on the {mode} base", seen,
+                                  14500 + 100 * QUANT_TRAIN_MODES.index(mode))
+    assert n_seen["flash_attention_fwd"] and n_seen["flash_attention_bwd"] and n_seen["group_norm"], n_seen
+    return counts, {f"quant_f_train_{mode}_micro_step_s": step_s,
+                    f"quant_f_train_{mode}_peak_memory_GiB": peak / 2**30,
+                    f"quant_f_train_{mode}_peak_without_bf16_dit_GiB": (peak - bf16_dit_bytes) / 2**30,
+                    f"quant_f_train_{mode}_micro_step_peak_without_bf16_dit_GiB": (peak_step - bf16_dit_bytes) / 2**30}
+
+
+def phase_quant_f(card, vae_params, flux_params, work_dir):
+    """The quantised FLUX.1-dev DiT at full width and depth, from the serve-f
+    weights: each of int8, int8_w8a8 and int4 quantised by
+    quantize_flux_for_serving (its bytes), served (quant_f_serving) and freed
+    before the next; then the frozen int8 and int4 bases under
+    train_omgsr_f.run_training (quant_f_training)."""
+    dtype = torch.bfloat16
+    prompt, pooled = flux_prompt(12)
+    rng = np.random.default_rng(23)
+    up4 = np.ones((4, 4, 1), np.uint8)
+    imgs = [np.kron(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8), up4) for _ in range(3)]
+    bf16_bytes = tree_bytes(flux_params)
+    # the bf16 server's outputs and DiT latent on the same inputs
+    args = serve_cli.parse_args(["--pipeline", "f", "--weight_dtype", "bf16", "--latent", "mean", "--port", "0"])
+    server = serve_cli.build_server(args, params=(vae_params, flux_params), prompt_embeds=(prompt, pooled))
+    try:
+        ref_outs = [server.process_array(im, "nofix") for im in imgs]
+    finally:
+        server.shutdown()
+    pipe = OMGSRFPipeline(vae_params, flux_params, FLUX_VAE, FLUX_DEV, 244, device="cuda")
+    lq = torch.from_numpy(imgs[0].astype(np.float32) / 127.5 - 1.0)[None].to("cuda", dtype)
+    ctx, pl = (torch.from_numpy(a).to("cuda", dtype) for a in (prompt, pooled))
+    with torch.inference_mode():
+        z = pipe.encode(lq, sample_latent=False)
+        z0_ref = pipe.latent_mid(z, ctx, pl, 128, 64)
+    del pipe
+    counts, timings = {}, {}
+    for mode in QUANT_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qflux = quantize_flux_for_serving(flux_params, act_quant=mode == "int8_w8a8", bits=4 if mode == "int4" else 8)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        nbytes = tree_bytes(qflux)
+        kinds = {}
+        for p in flatten_dict(qflux):
+            kinds[p[-1]] = kinds.get(p[-1], 0) + 1
+        print(f"quant-f: {mode}: quantize_flux_for_serving on the card, tensor by tensor, in {q_s:.2f} s: tree_bytes "
+              f"{nbytes / 1e9:.3f} GB against the bf16 tree's {bf16_bytes / 1e9:.3f} GB ({nbytes / bf16_bytes:.3f}); "
+              f"leaves {dict(sorted(kinds.items()))} [{card}]", flush=True)
+        timings[f"quant_f_{mode}_tree_GB"] = nbytes / 1e9
+        c, t = quant_f_serving(card, vae_params, qflux, mode, prompt, pooled, imgs, ref_outs, z, z0_ref)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        timings.update(t)
+        del qflux
+    cn_cfg = CONVNEXT_SIZES["large"]
+    backbone = init_convnext(2, cn_cfg, dtype, "cuda")
+    for mode in QUANT_TRAIN_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        qflux = quantize_flux_for_serving(flux_params, bits=4 if mode == "int4" else 8)
+        c, t = quant_f_training(card, vae_params, qflux, mode, backbone, cn_cfg, work_dir, bf16_bytes)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        timings.update(t)
+        del qflux
+    del backbone
+    timings["quant_f_bf16_tree_GB"] = bf16_bytes / 1e9
+    return counts, timings
+
+
+def quant_f_cli(card, work_dir):
+    """infer_omgsr_f --quantize int8 on the load-f directory (the DiT at full
+    width and 2 + 2 blocks): the DiT is ported and merged on the CPU and only
+    its codes reach the card, so the card's peak above what was resident
+    while the pipeline is built stays below the directory's bf16 DiT bytes,
+    and the whole run's below the bf16 CLI's; its PNGs against the bf16 CLI's
+    on the same inputs."""
+    from PIL import Image
+
+    root = os.path.join(work_dir, "flux1-dev")
+    dit_bytes = sum(os.path.getsize(os.path.join(root, "transformer", f))
+                    for f in os.listdir(os.path.join(root, "transformer")) if f.endswith(".safetensors"))
+    img_dir = os.path.join(work_dir, "quant_f_inputs")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(24)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(os.path.join(img_dir, f"q{i}.png"))
+    base = ["--input_image", img_dir, "--flux_path", root, "--lora_path", os.path.join(root, "lora"), "--prompt_npz",
+            os.path.join(root, "prompt.npz"), "--weight_dtype", "bf16"]
+    outs, peaks, built = {}, {}, {}
+    counts = {}
+    real_build = infer_f_cli.build_pipeline
+    for mode in ("none", "int8"):
+        out_dir = os.path.join(work_dir, f"quant_f_outputs_{mode}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+
+        def build(*a, **kw):  # the peak while the DiT is ported, merged and placed, before any request
+            pipe = real_build(*a, **kw)
+            torch.cuda.synchronize()
+            built[mode] = (torch.cuda.max_memory_allocated() - resident, torch.cuda.memory_allocated() - resident)
+            return pipe
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        infer_f_cli.build_pipeline = build
+        t0 = time.perf_counter()
+        try:
+            with launch_shapes() as seen, contextlib.redirect_stdout(io.StringIO()):
+                infer_f_cli.main(infer_f_cli.parse_args(base + ["--output_dir", out_dir, "--quantize", mode]))
+        finally:
+            infer_f_cli.build_pipeline = real_build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks[mode] = torch.cuda.max_memory_allocated() - resident
+        outs[mode] = [np.asarray(Image.open(os.path.join(out_dir, f"q{i}.png"))) for i in range(2)]
+        if mode == "int8":
+            counts = read_counts()
+            print(f"quant-f: infer_omgsr_f --quantize int8 on the load-f directory (2 images, 64 px -> 256 px) in "
+                  f"{wall:.2f} s, launches {counts} [{card}]", flush=True)
+            report_launch_shapes("quant-f", "infer_omgsr_f --quantize int8", seen, 15000)
+    steps = [mean_steps(a, b) for a, b in zip(outs["int8"], outs["none"])]
+    print(f"quant-f: infer_omgsr_f device memory above what was resident, --quantize int8 / bf16: peak while the "
+          f"pipeline was built {built['int8'][0] / 1e9:.3f} / {built['none'][0] / 1e9:.3f} GB (held after it "
+          f"{built['int8'][1] / 1e9:.3f} / {built['none'][1] / 1e9:.3f} GB), peak of the whole run with the VAE at "
+          f"1024 px {peaks['int8'] / 1e9:.3f} / {peaks['none'] / 1e9:.3f} GB, against the directory's bf16 DiT "
+          f"{dit_bytes / 1e9:.3f} GB; int8 against bf16 PNGs: "
+          + ", ".join(f"mean {m:.3f} / max {x} uint8 steps" for m, x, _ in steps) + f" [{card}]", flush=True)
+    # the card never held the bf16 DiT: the build's peak stays below its bytes, and the run's below the bf16 run's
+    assert built["int8"][0] < dit_bytes < built["none"][0], (built, dit_bytes)
+    assert peaks["int8"] < peaks["none"], peaks
+    for o in outs["int8"]:
+        assert o.shape == (256, 256, 3) and o.std() > 1.0
+    return counts, {"quant_f_cli_int8_build_peak_GB": built["int8"][0] / 1e9,
+                    "quant_f_cli_bf16_build_peak_GB": built["none"][0] / 1e9,
+                    "quant_f_cli_int8_peak_GB": peaks["int8"] / 1e9, "quant_f_cli_bf16_peak_GB": peaks["none"] / 1e9,
+                    "quant_f_cli_dir_dit_GB": dit_bytes / 1e9}
+
+
+# ----------------------------------------------------------------------------
+# phase: eval (eval_sr with every metric, at published widths)
+# ----------------------------------------------------------------------------
+
+EVAL_GT = 512
+EVAL_CROP = 256
+EVAL_TOL = 1e-5  # as tests/test_torch_port_eval.py holds the port to the JAX package
+EVAL_NIQE_TOL = 1e-9
+
+
+def write_eval_inputs(root, seed):
+    """Eight GT/SR pairs (GT 512x512 from a seed; SR blurred and noised,
+    shifted, JPEG-compressed, one identical copy, one pair 200x200, below the
+    metric crop), a pristine folder, and the metric weights from seeds
+    written in the published layouts: a ConvNeXt-L .pth, the LPIPS .pth
+    files, a CLIP-L/14 vision directory with its projection and logit_scale,
+    and a prompt pair."""
+    from PIL import Image, ImageFilter
+
+    from omgsr_tpu_torch.convert.safetensors_io import save_file
+    from omgsr_tpu_torch.models.clip_vision import CLIP_L_VISION, init_clip_vision
+    from omgsr_tpu_torch.utils.lpips import init_lpips
+
+    rng = np.random.default_rng(seed)
+    gt, sr, pristine = (os.path.join(root, d) for d in ("gt", "sr", "pristine"))
+    for d in (gt, sr, pristine):
+        os.makedirs(d)
+
+    def scene(size):  # smooth colour fields with edges: a texture NIQE and the towers respond to
+        y, x = np.mgrid[0:size, 0:size] / size
+        img = np.stack([np.sin(6 * x + rng.uniform(0, 6)) * np.cos(4 * y), np.sin(9 * y + 3 * x),
+                        (x > rng.uniform(0.3, 0.7)) * 0.6], -1)
+        img = 0.5 + 0.4 * img + 0.05 * rng.standard_normal(img.shape)
+        return Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+    for i in range(8):
+        size = 200 if i == 7 else EVAL_GT
+        g = scene(size)
+        g.save(os.path.join(gt, f"im{i}.png"))
+        if i == 6:
+            s = g
+        elif i % 3 == 0:
+            a = np.asarray(g.filter(ImageFilter.GaussianBlur(1.5)), np.float32)
+            s = Image.fromarray(np.clip(a + rng.normal(0, 6, a.shape), 0, 255).astype(np.uint8))
+        elif i % 3 == 1:
+            s = Image.fromarray(np.roll(np.asarray(g), 2 + i, axis=1))
+        else:
+            buf = io.BytesIO()
+            g.save(buf, format="JPEG", quality=20)
+            s = Image.open(buf).convert("RGB")
+        s.save(os.path.join(sr, f"im{i}.png"))
+    for i in range(4):
+        scene(EVAL_GT).save(os.path.join(pristine, f"p{i}.png"))
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cn = init_convnext(gen, CONVNEXT_SIZES["large"], torch.float32, "cuda")
+    torch.save({"model": {k: v.cpu() for k, v in to_hf_state_dict(cn).items()}}, os.path.join(root, "cn.pth"))
+    lp = init_lpips(gen, device="cuda")
+    sd_v = {f"features.{k}.{n}": v.cpu() for k, p in lp["features"].items() for n, v in p.items()}
+    torch.save(sd_v, os.path.join(root, "vgg16.pth"))
+    torch.save({f"lin{i}.model.1.weight": lp["lins"][str(i)].cpu().reshape(1, -1, 1, 1) for i in range(5)},
+               os.path.join(root, "vgg_lins.pth"))
+    clip = init_clip_vision(gen, CLIP_L_VISION, torch.float32, "cuda")
+    state = to_hf_state_dict(clip)
+    state["logit_scale"] = torch.tensor(math.log(100.0))
+    os.makedirs(os.path.join(root, "clip"))
+    save_file({k: v.cpu() for k, v in state.items()}, os.path.join(root, "clip", "model.safetensors"))
+    with open(os.path.join(root, "clip", "config.json"), "w") as f:
+        json.dump({"vision_config": dataclasses.asdict(CLIP_L_VISION), "projection_dim": 768}, f)
+    p0 = rng.standard_normal(768)
+    np.savez(os.path.join(root, "prompts.npz"),
+             prompt_embeds=np.stack([p0, p0 + 0.05 * rng.standard_normal(768)]).astype(np.float32))
+    return gt, sr, pristine
+
+
+def phase_eval(card, work_dir):
+    """eval_sr.main with --dists --lpips --clipiqa --niqe_params at published
+    widths (ConvNeXt-L, VGG16, CLIP-L/14 at 224; weights from seeds written in
+    the published layouts; a pristine model fitted by niqe.main on seeded
+    images) on the card, every per-image score against the same CLI on the
+    CPU; then s per image per metric on the card."""
+    from omgsr_tpu_torch.cli import eval_sr
+    from omgsr_tpu_torch.utils import metrics, niqe
+
+    root = os.path.join(work_dir, "eval")
+    t0 = time.perf_counter()
+    gt, sr, pristine = write_eval_inputs(root, 31)
+    with contextlib.redirect_stdout(io.StringIO()):
+        niqe.main(["fit", pristine, os.path.join(root, "pristine.npz")])
+    setup_s = time.perf_counter() - t0
+    args = ["--sr_dir", sr, "--gt_dir", gt, "--crop_border", "4", "--metric_crop", str(EVAL_CROP), "--dists",
+            "--dinov3_weights_path", os.path.join(root, "cn.pth"), "--lpips", "--lpips_vgg",
+            os.path.join(root, "vgg16.pth"), "--lpips_lins", os.path.join(root, "vgg_lins.pth"), "--clipiqa",
+            "--clip_vision_path", os.path.join(root, "clip"), "--clipiqa_prompts_npz", os.path.join(root, "prompts.npz"),
+            "--niqe_params", os.path.join(root, "pristine.npz")]
+    walls, results = {}, {}
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_sr.main(args + ["--device", device, "--output", os.path.join(root, f"{where}.json")])
+        walls[where] = time.perf_counter() - t0
+        with open(os.path.join(root, f"{where}.json")) as f:
+            results[where] = json.load(f)
+    rows = {d: {r["name"]: r for r in results[d]["per_image"]} for d in results}
+    assert len(rows["card"]) == 8 and set(rows["card"]) == set(rows["cpu"])
+    worst = {}
+    for name, r in rows["card"].items():
+        c = rows["cpu"][name]
+        for k in ("psnr", "ssim", "dists", "lpips", "clipiqa", "niqe"):
+            assert math.isfinite(r[k]), (name, k, r[k])
+            d = abs(r[k] - c[k])
+            tol = (EVAL_NIQE_TOL if k == "niqe" else EVAL_TOL) * max(1.0, abs(c[k]))
+            assert d <= tol, (name, k, r[k], c[k])
+            worst[k] = max(worst.get(k, 0.0), d)
+    same = rows["card"]["im6.png"]
+    assert same["psnr"] == 120.0 and same["lpips"] < 1e-6 and same["dists"] < 1e-5, same
+    s = results["card"]["summary"]
+    print(f"eval: eval_sr.main --dists --lpips --clipiqa --niqe_params over 8 pairs (GT {EVAL_GT}x{EVAL_GT}, one "
+          f"200x200 below --metric_crop {EVAL_CROP}; ConvNeXt-L, VGG16, CLIP-L/14 at 224 from seeds, f32) in "
+          f"{walls['card']:.2f} s on the card, {walls['cpu']:.2f} s on the CPU (inputs and weights written in "
+          f"{setup_s:.2f} s); means PSNR {s['psnr_mean']:.3f} SSIM {s['ssim_mean']:.4f} DISTS {s['dists_mean']:.4f} "
+          f"LPIPS {s['lpips_mean']:.4f} CLIP-IQA {s['clipiqa_mean']:.4f} NIQE {s['niqe_mean']:.3f}; the identical "
+          f"pair PSNR {same['psnr']} (the clamp at mse 1e-12); card against CPU, max |difference| "
+          + " ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (bounds {EVAL_TOL} relative past 1, NIQE "
+          f"{EVAL_NIQE_TOL}) [{card}]", flush=True)
+
+    # s per image per metric on the card, the closures eval_sr builds
+    pairs, _ = eval_sr.pair_by_stem(sorted(os.path.join(sr, f) for f in os.listdir(sr)),
+                                    sorted(os.path.join(gt, f) for f in os.listdir(gt)))
+    imgs = [(eval_sr._load01(a), eval_sr._load01(b)) for a, b in pairs]
+    crops = [eval_sr._center_crop_multiple(a, b, EVAL_CROP, os.path.basename(p)) for (a, b), (p, _) in zip(imgs, pairs)]
+    fns = {"dists": eval_sr.build_dists_fn(os.path.join(root, "cn.pth"), device="cuda"),
+           "lpips": eval_sr.build_lpips_fn(os.path.join(root, "vgg16.pth"), os.path.join(root, "vgg_lins.pth"),
+                                           device="cuda"),
+           "clipiqa": eval_sr.build_clipiqa_fn(os.path.join(root, "clip"), os.path.join(root, "prompts.npz"),
+                                               device="cuda")}
+    pristine_model = niqe.load_pristine(os.path.join(root, "pristine.npz"))
+    def psnr_ssim(a, b, ca, cb):
+        ta, tb = (torch.from_numpy(np.ascontiguousarray(v))[None].cuda() for v in (a, b))
+        return float(metrics.psnr(ta, tb)[0]), float(metrics.ssim(ta, tb)[0])
+
+    calls = {"psnr+ssim": psnr_ssim,
+             "dists": lambda a, b, ca, cb: fns["dists"](ca, cb), "lpips": lambda a, b, ca, cb: fns["lpips"](ca, cb),
+             "clipiqa": lambda a, b, ca, cb: fns["clipiqa"](a), "niqe": lambda a, b, ca, cb: niqe.niqe(a, pristine_model)}
+    per_image = {}
+    for name, fn in calls.items():
+        fn(*imgs[0], *crops[0])  # warm
+        t0 = time.perf_counter()
+        for (a, b), (ca, cb) in zip(imgs, crops):
+            fn(a, b, ca, cb)
+        torch.cuda.synchronize()
+        per_image[name] = (time.perf_counter() - t0) / len(imgs)
+    print("timings: eval s per image on the card (host clock, 8 images, 512 px but one 200 px; NIQE on the host): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items()) + f" [{card}]", flush=True)
+    return {f"eval_{k.replace('+', '_')}_s_per_image": v for k, v in per_image.items()} | {
+        "eval_card_s": walls["card"], "eval_cpu_s": walls["cpu"]}
+
+
 KERNELS = [
     # name (also its launch counter's), source, the TPU kernel it replaces, the CUDA kernels its
     # wrapper launches (bf16 at D = 64/128 first)
@@ -3330,6 +3789,9 @@ def main():
         serve_f_counts, serve_f_timings = phase_serve_f(card, flux_vae, flux_params, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        quant_f_counts, quant_f_timings = phase_quant_f(card, flux_vae, flux_params, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
         train_f_counts, train_f_timings, f_export = phase_train_f(card, flux_vae, flux_params, work_dir, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3337,8 +3799,14 @@ def main():
         del flux_vae, flux_params  # the -F weights: 23.8 GB
         gc.collect()
         torch.cuda.empty_cache()
+        cli_counts, cli_timings = quant_f_cli(card, work_dir)
+        quant_f_counts = {k: quant_f_counts.get(k, 0) + v for k, v in cli_counts.items()}
+        reset_counts()
+        eval_timings = phase_eval(card, work_dir)
+        eval_counts = read_counts()  # no kernel of the seven is on the eval path
+        assert not any(eval_counts.values()), eval_counts
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
-                 train_f_timings, load_f_timings):
+                 quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings):
         timings.update(more)
 
     kernels = []
@@ -3351,28 +3819,30 @@ def main():
         launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
         launches_serve_f, launches_load_f = serve_f_counts.get(name, 0), load_f_counts.get(name, 0)
         launches_train_f = train_f_counts.get(name, 0)
+        launches_quant_f = quant_f_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
-                    + launches_serve_f + launches_train_f + launches_load_f)
+                    + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f)
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
-            assert launches_serve_f == launches_train_f == launches_load_f == 0, name
+            assert launches_serve_f == launches_quant_f == launches_train_f == launches_load_f == 0, name
         elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
             assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
         elif "bwd" in name:  # training only: -S in train and data, -F in train-f and load-f's train_omgsr_f.main
-            assert min(launches_train, launches_data, launches_train_f, launches_load_f) > 0, name
+            assert min(launches_train, launches_data, launches_train_f, launches_load_f, launches_quant_f) > 0, name
             assert launches_serve_f == 0, name
         else:
             assert min(launches_train, launches_data, launches_serve, launches_fused, launches_load,
-                       launches_serve_f, launches_train_f, launches_load_f) > 0, name
+                       launches_serve_f, launches_quant_f, launches_train_f, launches_load_f) > 0, name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches,
             "launches_serve": launches_serve, "launches_serve_fused": launches_fused,
             "launches_train": launches_train, "launches_serve_tiled": launches_tiled, "launches_load": launches_load,
             "launches_data": launches_data, "launches_serve_f": launches_serve_f,
-            "launches_train_f": launches_train_f, "launches_load_f": launches_load_f,
+            "launches_quant_f": launches_quant_f, "launches_train_f": launches_train_f,
+            "launches_load_f": launches_load_f, "launches_eval": eval_counts.get(name, 0),
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

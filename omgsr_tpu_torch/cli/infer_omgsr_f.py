@@ -11,8 +11,10 @@ versions of the kernels then run on the host). The prompt embeddings come
 from ``--prompt_npz`` (``prompt_embeds`` (1, S, 4096) and
 ``pooled_prompt_embeds`` (1, 768)), else from ``--prompt`` through the
 checkpoint's T5-XXL and CLIP-L (``cli/prompts.encode_prompt_flux``).
-``--quantize`` and ``--shard`` are not ported yet. The VAE latent is sampled,
-its noise seeded by the image's index.
+``--quantize int8 | int8_w8a8 | int4`` ports the DiT to the CPU, merges the
+adapter there and places only its codes on the card (utils/quantize.py): the
+card never holds the bf16 DiT. ``--shard`` is not ported yet. The VAE latent
+is sampled, its noise seeded by the image's index.
 """
 
 from __future__ import annotations
@@ -28,12 +30,20 @@ from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
 
 def _refuse_unported(args):
-    if getattr(args, "quantize", "none") != "none":
-        raise NotImplementedError(f"--quantize {args.quantize}: the quantised DiT is not ported yet "
-                                  "(quantisation slice: int8 / w8a8 / int4)")
     if getattr(args, "shard", "none") != "none":
         raise NotImplementedError(f"--shard {args.shard}: multi-GPU -F serving is not ported yet "
                                   "(distribution slice)")
+
+
+def quantize_flux(flux_params, mode: str, min_params: int, device):
+    """``--quantize`` on a float DiT tree: int8 (weight-only), int8_w8a8 (the
+    w8a8 route marked) or int4, with the codes placed on ``device``."""
+    from omgsr_tpu_torch.utils.quantize import quantize_flux_for_serving
+
+    if mode not in ("int8", "int8_w8a8", "int4"):
+        raise ValueError(f"--quantize {mode!r}: choose none, int8, int8_w8a8 or int4")
+    return quantize_flux_for_serving(flux_params, act_quant=mode == "int8_w8a8", bits=4 if mode == "int4" else 8,
+                                     min_params=min_params, device=device)
 
 
 def build_pipeline(args, dtype, device="cuda"):
@@ -53,14 +63,19 @@ def build_pipeline(args, dtype, device="cuda"):
     vae_cfg = vae_config_from_json(vae_dir)
     flux_cfg = flux_config_from_json(flux_dir)
     vae_params = port_diffusers_vae(vae_dir, cfg=vae_cfg, dtype=dtype, device=device)
-    flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device=device)
+    # a quantised DiT is ported and merged on the CPU, and only its codes reach the card
+    quantize = getattr(args, "quantize", "none")
+    stage = torch.device("cpu") if quantize != "none" else device
+    flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device=stage)
     if args.lora_path:
         flux_ad = os.path.join(args.lora_path, "flux_adapter")
         vae_ad = os.path.join(args.lora_path, "vae_encoder_adapter")
         if os.path.isdir(flux_ad):
-            flux_params = merge_lora(flux_params, load_adapter_dir(flux_ad, device))
+            flux_params = merge_lora(flux_params, load_adapter_dir(flux_ad, stage))
         if os.path.isdir(vae_ad):
             vae_params["encoder"] = merge_lora(vae_params["encoder"], load_adapter_dir(vae_ad, device))
+    if quantize != "none":
+        flux_params = quantize_flux(flux_params, quantize, args.quantize_min_params, device)
     return OMGSRFPipeline(
         vae_params, flux_params, vae_cfg, flux_cfg, mid_timestep=args.mid_timestep,
         guidance_scale=args.guidance_scale, vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
@@ -132,7 +147,11 @@ def parse_args(argv=None):
     parser.add_argument("--mid_timestep", type=int, default=244)
     parser.add_argument("--guidance_scale", type=float, default=1.0)
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int8_w8a8", "int4"],
-                        help="only none is ported")
+                        help="int8: weight-only DiT storage (11.9 GB for the 12B DiT); int8_w8a8: also "
+                        "the block products int8 x int8 -> int32 with per-token activation scales; int4: "
+                        "group-wise (g=128) nibble-packed storage, the minimum-memory mode")
+    parser.add_argument("--quantize_min_params", type=int, default=1 << 16,
+                        help="only dense weights with at least this many elements are quantized")
     parser.add_argument("--vae_tile", type=int, default=None,
                         help="tile the VAE stages of images whose larger side exceeds this many pixels")
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],

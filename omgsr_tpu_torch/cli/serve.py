@@ -21,7 +21,9 @@ its caller. ``--process_size`` and
 Dispatch defaults to serial batch-1 with opt-in fixed-size micro-batching.
 ``--vae_tile N`` sends the VAE stages of images larger than N pixels through
 the tiled VAE, with ``--vae_stats fast|exact|auto`` (see
-``inference/pipeline_s.py``).
+``inference/pipeline_s.py``). ``--quantize int8 | int8_w8a8 | int4`` serves
+-F on a quantised DiT (``cli/infer_omgsr_f.quantize_flux``, also over
+in-memory parameters; -S takes no quantisation, as in the JAX server).
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def _pipeline_s(args, dtype, device, params, configs, prompt_embeds):
 
 
 def _pipeline_f(args, dtype, device, params, configs, prompt_embeds):
-    from omgsr_tpu_torch.cli.infer_omgsr_f import build_pipeline, prompt_embeddings
+    from omgsr_tpu_torch.cli.infer_omgsr_f import build_pipeline, prompt_embeddings, quantize_flux
     from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline
 
     if params is None and not args.flux_path:
@@ -70,8 +72,11 @@ def _pipeline_f(args, dtype, device, params, configs, prompt_embeds):
     if params is None:
         return build_pipeline(args, dtype, device), embeds
     vae_cfg, flux_cfg = configs or (FLUX_VAE, FLUX_DEV)
+    vae_params, flux_params = params
+    if args.quantize != "none":  # a tree quantised already keeps its codes (w8a8 adds its markers)
+        flux_params = quantize_flux(flux_params, args.quantize, args.quantize_min_params, device)
     return OMGSRFPipeline(
-        *params, vae_cfg, flux_cfg, mid_timestep=args.mid_timestep, guidance_scale=args.guidance_scale,
+        vae_params, flux_params, vae_cfg, flux_cfg, mid_timestep=args.mid_timestep, guidance_scale=args.guidance_scale,
         vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
     ), embeds
 
@@ -172,6 +177,11 @@ def parse_args(argv=None):
     parser.add_argument("--prompt_npz", type=str, default=None)
     parser.add_argument("--mid_timestep", type=int, default=None, help="default: 273 (-S), 244 (-F)")
     parser.add_argument("--guidance_scale", type=float, default=1.0, help="-F only")
+    parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int8_w8a8", "int4"],
+                        help="-F only: int8 weight-only DiT storage, int8_w8a8 with int8 products, int4 "
+                        "group-wise (g=128) storage, the minimum-memory mode")
+    parser.add_argument("--quantize_min_params", type=int, default=1 << 16,
+                        help="-F only: quantize dense weights with at least this many elements")
     parser.add_argument("--vae_tile", type=int, default=None,
                         help="tile the VAE stages of images whose larger side exceeds this many pixels")
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],

@@ -17,8 +17,10 @@ beside the train step), the DINOv3 ConvNeXt from
 is set), and the fixed prompt's embeddings from ``cfg.fixed_prompt_path`` or
 ``cfg.fixed_prompt`` through the checkpoint's T5-XXL and CLIP-L. The DiT is
 trained under per-block recompute when ``gradient_checkpointing`` is set (see
-``training/trainer.TrainerF``). ``quantize_base`` (int8 / int4 storage of the
-frozen DiT) is not ported yet and raises.
+``training/trainer.TrainerF``). ``quantize_base: int8 | int4`` ports the DiT
+to the CPU and freezes only its codes on the card (utils/quantize.py), the
+LoRA training on top in the compute dtype; a quantised dense layer keeps no
+float copy of its weight for the backward (``models/layers.dense``).
 """
 
 from __future__ import annotations
@@ -39,12 +41,6 @@ DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__
                               "omgsr_f_1024.yml")
 
 
-def _refuse_quantized_base(cfg: TrainConfig):
-    if cfg.quantize_base not in (None, "none"):
-        raise NotImplementedError(f"quantize_base {cfg.quantize_base!r}: the quantised frozen DiT is not ported yet "
-                                  "(quantisation slice: int8 / w8a8 / int4); unset it to train on the bf16 DiT")
-
-
 def build_frozen_f(cfg: TrainConfig, dtype, device="cuda"):
     """Load the frozen model bundle for -F from cfg.flux_path: (bundle, the
     ConvNeXt config)."""
@@ -55,7 +51,9 @@ def build_frozen_f(cfg: TrainConfig, dtype, device="cuda"):
     from omgsr_tpu_torch.models.configs import CONVNEXT_SIZES
 
     device = resolve_device(device)
-    _refuse_quantized_base(cfg)
+    if cfg.quantize_base not in (None, "none", "int8", "int4"):
+        raise ValueError(f"quantize_base {cfg.quantize_base!r}: choose int8 or int4 (w8a8 is inference-only), "
+                         "or leave it unset to train on the float DiT")
     if not cfg.flux_path:
         raise ValueError("cfg.flux_path is not set: name the FLUX.1-dev checkpoint directory, or hand run_training "
                          "the frozen bundle in memory (frozen=...)")
@@ -64,7 +62,15 @@ def build_frozen_f(cfg: TrainConfig, dtype, device="cuda"):
     vae_cfg = vae_config_from_json(vae_dir)
     flux_cfg = flux_config_from_json(flux_dir)
     vae_params = port_diffusers_vae(vae_dir, cfg=vae_cfg, dtype=dtype, device=device)
-    flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device=device)
+    if cfg.quantize_base in ("int8", "int4"):
+        # the float DiT stays on the CPU; only its codes are placed on the card
+        from omgsr_tpu_torch.utils.quantize import quantize_flux_for_serving
+
+        flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device="cpu")
+        flux_params = quantize_flux_for_serving(flux_params, bits=4 if cfg.quantize_base == "int4" else 8,
+                                                device=device)
+    else:
+        flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device=device)
 
     cn_cfg = CONVNEXT_SIZES[cfg.dinov3_convnext_size]
     dinov3_path = cfg.extra.get("dinov3_weights_path")
@@ -116,7 +122,6 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
     device = resolve_device(device)
-    _refuse_quantized_base(cfg)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
     os.makedirs(cfg.output_dir, exist_ok=True)
     save_config(cfg, os.path.join(cfg.output_dir, "cfg.yml"))

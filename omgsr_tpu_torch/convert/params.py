@@ -52,11 +52,22 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
     """Nested dict of numpy arrays in the JAX package's layout -> nested dict
     of tensors in the port's layout, same key paths. A scan-stacked block
     group (``{"stacked": ...}``, as under the FLUX DiT's
-    ``transformer_blocks``) is unstacked along axis 0 into "0".."N-1"."""
+    ``transformer_blocks``) is unstacked along axis 0 into "0".."N-1". A
+    quantised layer's ``kernel_q`` / ``kernel_q4`` / ``kernel_scale`` become
+    ``weight_q`` / ``weight_q4`` / ``weight_scale`` transposed to (out, ...)
+    (int4's nibble pairs stay in their bytes) in their own dtypes, whatever
+    ``dtype`` says, and an ``act_quant`` marker is kept."""
     device = resolve_device(device)
 
     def leaf(key, arr):
         t = torch.from_numpy(np.array(arr, copy=True))
+        # quantised dense layers (utils/quantize.py): integer codes keep their dtype, scales stay f32
+        if key in ("kernel_q", "kernel_q4"):  # (in, out) / (in/2, out) -> (out, in) / (out, in/2)
+            return key.replace("kernel", "weight"), t.t().contiguous().to(device)
+        if key == "kernel_scale":  # per channel (out,) or per group (in/g, out) -> (out, in/g)
+            return "weight_scale", t.t().contiguous().to(device) if t.dim() == 2 else t.to(device)
+        if key == "act_quant":
+            return key, t.to(device)
         if key in ("lora_A", "lora_B"):
             if t.dim() == 4:
                 return key, _conv_weight(t.permute(3, 2, 0, 1).to(device=device, dtype=dtype))
@@ -90,9 +101,14 @@ def to_jax_tree(tree):
     """The way back: nested dict of tensors in the port's layout -> nested
     dict of f32 numpy arrays in the JAX package's layout (``weight`` of rank 4
     -> ``kernel`` HWIO, of rank 2 -> ``kernel`` (in, out), of rank 1 ->
-    ``scale``; LoRA leaves transposed back; everything else as it is)."""
+    ``scale``; LoRA leaves transposed back; the codes and scales of a
+    quantised layer transposed back in their own dtypes; everything else as
+    it is)."""
 
     def leaf(key, t):
+        if key in ("weight_q", "weight_q4", "weight_scale", "act_quant"):  # dtypes kept, as stored
+            a = t.detach().cpu()
+            return key.replace("weight", "kernel"), (a.t() if a.dim() == 2 else a).contiguous().numpy()
         a = t.detach().float().cpu()
         if key in ("weight", "lora_A", "lora_B"):
             name = "kernel" if key == "weight" else key
@@ -417,25 +433,30 @@ def _flux_single_block(it: _Init, cfg: FluxConfig):
     }
 
 
-def init_flux(seed, cfg: FluxConfig, dtype=torch.float32, device="cuda"):
+def init_flux(seed, cfg: FluxConfig, dtype=torch.float32, device="cuda", finish=None):
     """Random FluxTransformer2DModel parameters with the HF tree structure and
     the JAX package's init family (``omgsr_tpu/models/flux.py init_flux``).
     Each tensor is drawn in f32 on ``device`` and cast to ``dtype`` before the
-    next is drawn, so the full-size tree in bf16 never exists in f32."""
+    next is drawn, so the full-size tree in bf16 never exists in f32.
+    ``finish(name, part)`` is applied to each top-level part and each block
+    as soon as it is drawn (``utils/quantize.init_flux_quantized`` quantises
+    there)."""
     it = _Init(seed, dtype, device)
+    finish = finish or (lambda name, part: part)
     dim = cfg.inner_dim
     tte = {"timestep_embedder": _flux_mlp_embedder(it, 256, dim),
            "text_embedder": _flux_mlp_embedder(it, cfg.pooled_projection_dim, dim)}
     if cfg.guidance_embeds:
         tte["guidance_embedder"] = _flux_mlp_embedder(it, 256, dim)
     return {
-        "x_embedder": _flux_dense(it, cfg.in_channels, dim),
-        "context_embedder": _flux_dense(it, cfg.joint_attention_dim, dim),
-        "time_text_embed": tte,
-        "transformer_blocks": {str(i): _flux_dual_block(it, cfg) for i in range(cfg.num_layers)},
-        "single_transformer_blocks": {str(i): _flux_single_block(it, cfg) for i in range(cfg.num_single_layers)},
-        "norm_out": {"linear": _flux_dense(it, dim, 2 * dim)},
-        "proj_out": _flux_dense(it, dim, cfg.in_channels),
+        "x_embedder": finish("x_embedder", _flux_dense(it, cfg.in_channels, dim)),
+        "context_embedder": finish("context_embedder", _flux_dense(it, cfg.joint_attention_dim, dim)),
+        "time_text_embed": finish("time_text_embed", tte),
+        "transformer_blocks": {str(i): finish(str(i), _flux_dual_block(it, cfg)) for i in range(cfg.num_layers)},
+        "single_transformer_blocks": {str(i): finish(str(i), _flux_single_block(it, cfg))
+                                      for i in range(cfg.num_single_layers)},
+        "norm_out": finish("norm_out", {"linear": _flux_dense(it, dim, 2 * dim)}),
+        "proj_out": finish("proj_out", _flux_dense(it, dim, cfg.in_channels)),
     }
 
 

@@ -12,8 +12,7 @@ conversion is the identity on the key paths, with conv weights kept in
 ``channels_last`` memory. Each porter checks the leaf paths and shapes
 against the structure of the port's own ``init_*`` for the config, built on
 the ``meta`` device (nothing is allocated), so a missing or mistyped key
-fails loudly. The CLIP-vision porter and the DINOv3 ViT's arrive with the
-eval and DINOv3 slices.
+fails loudly. The DINOv3 ViT's porter arrives with the DINOv3 slice.
 """
 
 from __future__ import annotations
@@ -149,6 +148,29 @@ def port_clip_text(path: str, cfg=None, dtype=torch.float32, validate: bool = Tr
     )
     if validate:
         _validate_against(params, init_clip_text(0, cfg, dtype, "meta"), "clip_text")
+    return params
+
+
+def port_clip_vision(path: str, cfg=None, dtype=torch.float32, validate: bool = True, device="cuda"):
+    """An HF CLIPVisionModel[WithProjection] or full CLIPModel directory ->
+    the vision tower's tree (the text tower and the position-id buffer
+    dropped; ``visual_projection`` and the learned ``logit_scale`` kept where
+    present). ``cfg`` defaults to the directory's own ``config.json``
+    (``vision_config`` of a CLIPModel), else CLIP-L's."""
+    from omgsr_tpu_torch.models.clip_vision import clip_vision_config_from_json, init_clip_vision
+
+    device = resolve_device(device)
+    cfg = cfg or clip_vision_config_from_json(path)
+    params = _convert(load_safetensors_dir(path), skip=("text_model", "text_projection",
+                                                        "vision_model.embeddings.position_ids"),
+                      dtype=dtype, device=device)
+    if "logit_scale" in params:
+        params["logit_scale"] = params["logit_scale"].float().reshape(())
+    if validate:
+        expected = init_clip_vision(0, cfg, dtype, "meta", with_projection="visual_projection" in params)
+        if "logit_scale" in params:
+            expected["logit_scale"] = params["logit_scale"]
+        _validate_against(params, expected, "clip_vision")
     return params
 
 

@@ -21,7 +21,9 @@ a combined tree the model apply-fns consume: ``layers.dense`` /
 Training differentiates w.r.t. the LoRA tree only; ``attach_lora`` is pure
 tree surgery and copies no tensor. The FLUX DiT's blocks are a dict per
 block here (no scan-stacked layout; ``convert/params.from_jax_tree`` unstacks
-a JAX tree); the quantized-base layouts of the JAX package are not ported.
+a JAX tree). A quantised frozen base (``weight_q`` / ``weight_q4``,
+utils/quantize.py) takes LoRA too: its factors default to bf16, and the
+adapter stays attached, since the delta cannot merge into codes.
 """
 
 from __future__ import annotations
@@ -72,24 +74,27 @@ def path_matches_targets(module_path: str, targets) -> bool:
 
 def _iter_matched_weights(params, targets):
     for path, leaf in flatten_dict(params).items():
-        if path[-1] != "weight" or leaf.dim() not in (2, 4):
+        if path[-1] not in ("weight", "weight_q", "weight_q4") or leaf.dim() not in (2, 4):
             continue  # norm weights are rank 1 and never a target
         if path_matches_targets(".".join(path[:-1]), targets):
-            yield path[:-1], leaf
+            yield path[:-1], leaf, path[-1] == "weight_q4"
 
 
 def init_lora_tree(generator: torch.Generator, params, targets, rank: int, dtype=None):
-    """A LoRA tree for every matched dense / conv weight in ``params``:
-    A ~ N(0, 1) / rank drawn from ``generator`` (which must live on the
-    parameters' device), B = 0, in ``dtype`` or the base weight's."""
+    """A LoRA tree for every matched dense / conv weight in ``params``, float
+    or quantised: A ~ N(0, 1) / rank drawn from ``generator`` (which must
+    live on the parameters' device), B = 0, in ``dtype``, else the base
+    weight's, else bf16 over quantised codes (int4's in dim is the packed dim
+    doubled)."""
     out = {}
     matched = list(_iter_matched_weights(params, targets))
     if not matched:
         raise ValueError(f"no modules matched targets {targets}")
-    for mpath, weight in matched:
-        kdtype = dtype or weight.dtype
+    for mpath, weight, packed4 in matched:
+        kdtype = dtype or (weight.dtype if weight.is_floating_point() else torch.bfloat16)
         if weight.dim() == 2:  # dense (out, in)
             out_dim, in_dim = weight.shape
+            in_dim *= 2 if packed4 else 1
             a_shape, b_shape = (rank, in_dim), (out_dim, rank)
         else:  # conv (out, in, kh, kw)
             out_ch, in_ch, kh, kw = weight.shape
@@ -130,6 +135,12 @@ def merge_lora(base_params, lora_tree):
     flat = flatten_dict(base_params)
     lflat = flatten_dict(lora_tree)
     for mpath in {p[:-1] for p in lflat if p[-1] == "lora_A"}:
+        if mpath + ("weight",) not in flat and (mpath + ("weight_q",) in flat or mpath + ("weight_q4",) in flat):
+            raise ValueError(
+                f"cannot merge LoRA into a quantized kernel at {'.'.join(mpath)}: "
+                "merge into the float base before quantize_tree_int8/int4, or keep "
+                "the adapter attached (attach_lora applies it at run time)"
+            )
         flat[mpath + ("weight",)] = _merged_weight(
             flat[mpath + ("weight",)], lflat[mpath + ("lora_A",)], lflat[mpath + ("lora_B",)]
         )

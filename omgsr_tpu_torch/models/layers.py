@@ -19,16 +19,67 @@ import torch
 import torch.nn.functional as F
 
 from omgsr_tpu_torch.ops.fused_groupnorm import fused_group_norm_silu
+from omgsr_tpu_torch.utils.quantize import dequantize_weight
+
+
+class _QuantizedLinear(torch.autograd.Function):
+    """x @ W^T with W dequantised from its codes at the call. The backward
+    saves the codes, not W, and dequantises again: a frozen quantised base
+    keeps no float copy of its weights for the input gradient, with or
+    without recompute."""
+
+    @staticmethod
+    def forward(ctx, x, p, bias=None):
+        ctx.p = p
+        return F.linear(x, dequantize_weight(p, x.dtype), bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy @ dequantize_weight(ctx.p, gy.dtype), None, None
+
+
+def _dense_w8a8(p, x):
+    """The w8a8 route (inference only): x quantised per token (absmax / 127,
+    rounded to int8), an s8 x s8 -> s32 product with the stored codes, both
+    scales applied in f32, cast to x's dtype. On the card ``torch._int_mm``
+    needs more than 16 rows (fewer are padded with zero rows, which is exact)
+    and K, N multiples of 8."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("the w8a8 route is inference-only: train on a weight-only quantised base")
+    wq = p["weight_q"]
+    n, k = wq.shape
+    x32 = x.float()
+    m = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    qx = torch.round(x32 / m).to(torch.int8).reshape(-1, k)  # |x| / m <= 127 by construction
+    rows = qx.shape[0]
+    if qx.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(f"w8a8 on CUDA needs K and N multiples of 8: x {tuple(x.shape)}, weight_q {(n, k)}")
+        if rows <= 16:
+            qx = F.pad(qx, (0, 0, 0, 17 - rows))
+    y = torch._int_mm(qx, wq.t())[:rows].reshape(*x.shape[:-1], n)
+    return (y.float() * m * p["weight_scale"]).to(x.dtype)
 
 
 def dense(p, x):
     """x @ weight^T [+ (x @ A^T) @ B^T] [+ bias]; the low-rank term (scaling
     1.0, alpha == rank; see lora/lora.py) is added when the module dict
-    carries ``lora_A`` (r, in) and ``lora_B`` (out, r)."""
-    if "lora_A" not in p:
-        return F.linear(x, p["weight"], p.get("bias"))
-    y = F.linear(x, p["weight"])
-    y = y + F.linear(F.linear(x, p["lora_A"].to(x.dtype)), p["lora_B"].to(x.dtype))
+    carries ``lora_A`` (r, in) and ``lora_B`` (out, r). A quantised module
+    (``weight_q`` / ``weight_q4`` with ``weight_scale``; utils/quantize.py)
+    dequantises to x's dtype at the call, or with an ``act_quant`` marker
+    takes the w8a8 route."""
+    if "act_quant" in p:
+        y = _dense_w8a8(p, x)
+    elif "lora_A" not in p:  # the bias goes into the product
+        if "weight" in p:
+            return F.linear(x, p["weight"], p.get("bias"))
+        return _QuantizedLinear.apply(x, p, p.get("bias"))
+    elif "weight" in p:
+        y = F.linear(x, p["weight"])
+    else:
+        y = _QuantizedLinear.apply(x, p)
+    if "lora_A" in p:
+        y = y + F.linear(F.linear(x, p["lora_A"].to(x.dtype)), p["lora_B"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"]
     return y

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
                 "data.degradation", "data.dataset", "data.imgdec_native", "ops.filters", "ops.resize", "ops.noise",
                 "ops.diffjpeg", "diffusion.calibration", "cli.mid_timestep_sd", "models.flux",
                 "diffusion.packing", "inference.pipeline_f", "cli.infer_omgsr_f", "cli.mid_timestep_flux",
-                "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f"):
+                "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f",
+                "utils.quantize", "utils.metrics", "utils.niqe", "utils.lpips", "models.clip_vision",
+                "cli.eval_sr"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -103,6 +105,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, T5Config, UNetConfig, VAEConfig
     from omgsr_tpu_torch.serving import SRServer
     from omgsr_tpu_torch.serving.server import make_fused_infer
+    from omgsr_tpu_torch.cli import eval_sr
+    from omgsr_tpu_torch.models.clip_vision import CLIP_L_VISION, init_clip_vision
+    from omgsr_tpu_torch.utils.lpips import init_lpips
+    from omgsr_tpu_torch.utils.quantize import init_flux_quantized, quantize_flux_for_serving
 
     vc = VAEConfig(block_out_channels=(8, 16), norm_num_groups=4)
     uc = UNetConfig(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
@@ -176,6 +182,16 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "run_training f": lambda: train_omgsr_f.run_training(
             TrainConfig(model="omgsr_f_1024", output_dir=str(tmp_path)), frozen={}, loader=[]),
         "train_omgsr_f.main": lambda: train_omgsr_f.main(["output_dir=" + str(tmp_path)]),
+        # the quantised DiT and the eval path: each raises before it reads a file
+        "init_flux_quantized": lambda: init_flux_quantized(0, fc),
+        "quantize_flux_for_serving": lambda: quantize_flux_for_serving(fp),
+        "build_server --quantize": lambda: serve.build_server(
+            serve.parse_args(["--pipeline", "f", "--quantize", "int8"]), params=(vp, fp), configs=(vc, fc),
+            prompt_embeds=(np.zeros((1, 5, 16), np.float32), np.zeros((1, 8), np.float32))),
+        "eval_sr.main": lambda: eval_sr.main(["--sr_dir", str(tmp_path), "--gt_dir", str(tmp_path)]),
+        "port_clip_vision": lambda: porters.port_clip_vision(str(tmp_path)),
+        "init_clip_vision": lambda: init_clip_vision(0, CLIP_L_VISION),
+        "init_lpips": lambda: init_lpips(0),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -227,6 +243,29 @@ def test_unported_options_raise_naming_their_slice():
         serve.build_server(args)
     with pytest.raises(SystemExit):
         serve.parse_args(["--pipeline", "x"])
+    # the quantised DiT is ported: --quantize and quantize_base build; --shard still raises
+    from omgsr_tpu_torch.cli import infer_omgsr_f, train_omgsr_f
+    from omgsr_tpu_torch.config import TrainConfig
+    from omgsr_tpu_torch.convert.params import init_flux
+    from omgsr_tpu_torch.models.configs import FluxConfig
+
+    fc = FluxConfig(num_layers=1, num_single_layers=1, attention_head_dim=8, num_attention_heads=2,
+                    joint_attention_dim=16, pooled_projection_dim=8, axes_dims_rope=(2, 4, 2))
+    fvc = VAEConfig(block_out_channels=(8, 16), norm_num_groups=4, latent_channels=16)
+    fvp, fp = init_vae(0, fvc, device="cpu"), init_flux(2, fc, device="cpu")
+    for mode, key in (("int8", "weight_q"), ("int8_w8a8", "act_quant"), ("int4", "weight_q4")):
+        server = serve.build_server(
+            serve.parse_args(["--pipeline", "f", "--quantize", mode, "--quantize_min_params", "64", "--device", "cpu",
+                              "--weight_dtype", "fp32"]), params=(fvp, fp), configs=(fvc, fc),
+            prompt_embeds=(np.zeros((1, 5, 16), np.float32), np.zeros((1, 8), np.float32)))
+        server.shutdown()
+        assert key in infer_omgsr_f.quantize_flux(fp, mode, 64, "cpu")["transformer_blocks"]["0"]["attn"]["to_q"]
+    with pytest.raises(ValueError, match="flux_path"):  # quantize_base passes its check, then needs a directory
+        train_omgsr_f.build_frozen_f(TrainConfig(quantize_base="int4"), torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        infer_omgsr_f.build_pipeline(infer_omgsr_f.parse_args(
+            ["--input_image", "x", "--output_dir", "x", "--flux_path", "/nowhere", "--quantize", "int8",
+             "--shard", "fsdp"]), torch.float32, "cpu")
 
 
 def test_backward_kernels_hold_no_atomics_and_no_library_calls():

@@ -304,11 +304,28 @@ def test_train_main_trains_from_a_flux_directory(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path / "run" / "weight-2")) == ["flux_adapter", "vae_encoder_adapter"]
 
 
-def test_quantized_base_raises_naming_its_slice(tmp_path):
-    for bits in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="quantisation slice"):
-            FCLI.run_training(_cfg(tmp_path, quantize_base=bits), frozen=_frozen_from_seed(), loader=[],
-                              device="cpu")
+def test_quantized_base_raises_naming_its_slice(tmp_path, monkeypatch):
+    """The quantised base is ported: int8 / int4 build a frozen DiT of codes
+    from a directory (tests/test_torch_port_quantize.py holds a step on it
+    against the JAX package), and what is not a storage mode is refused. The
+    tiny DiT's layers are below the default min_params, so it is lowered."""
+    import functools
+
+    from omgsr_tpu_torch.models import configs as CFG
+    from omgsr_tpu_torch.utils import quantize as TQ
+
+    monkeypatch.setitem(CFG.CONVNEXT_SIZES, "micro", T_CN)
+    monkeypatch.setattr(TQ, "quantize_flux_for_serving", functools.partial(TQ.quantize_flux_for_serving,
+                                                                           min_params=64))
+    root = tmp_path / "flux"
+    write_tiny_flux_checkpoint(root)
+    for bits, key in (("int8", "weight_q"), ("int4", "weight_q4")):
+        frozen, _ = FCLI.build_frozen_f(_cfg(tmp_path, quantize_base=bits, flux_path=str(root),
+                                             dinov3_convnext_size="micro"), torch.float32, "cpu")
+        to_q = frozen["flux"]["transformer_blocks"]["0"]["attn"]["to_q"]
+        assert key in to_q and "weight" not in to_q, bits
+    with pytest.raises(ValueError, match="w8a8 is inference-only"):
+        FCLI.build_frozen_f(_cfg(tmp_path, quantize_base="int8_w8a8", flux_path=str(root)), torch.float32, "cpu")
     with pytest.raises(ValueError, match="flux_path"):
         FCLI.build_frozen_f(_cfg(tmp_path), torch.float32, "cpu")
 
