@@ -124,6 +124,20 @@ them. Phases, each of which must pass:
            in the published layouts; a pristine model fitted by niqe.main),
            every per-image score on the card against the same CLI on the CPU;
            s per image per metric
+  shard    multi-GPU serving on a one-rank NCCL group formed in-process (a
+           TCP store on 127.0.0.1): -S tiles at 2048 px (49 tiles) against
+           the unsharded pipeline and server; sharded_vae_encode / decode at
+           2048 px against the full-image VAE; -F tiles, fsdp and tp on the
+           serve-f weights (no copy) and tp on their int8 tree, each through
+           build_server --shard on three 1024-px requests and one 2048-px
+           request against the unsharded server (fsdp and tp the same bits),
+           with p50, stage ms and peak; serve --shard tiles --sd_path over HTTP
+           and POST /v1/reload of the train phase's adapters; then a world of
+           two processes sharing the card over gloo runs the -S tile path and
+           the sharded VAE at 2048 px against the one-rank references (the
+           kernels' bound), and the same routes in f32 at 1024 px against the
+           unsharded f32 pipeline and VAE. Within one uint8 step where the
+           products differ; launch counts and shapes
 
 Every phase that serves, trains or runs a CLI records the shapes at which K1,
 K2a/K2b and K3a/K3b launched and holds each shape that the kernels phase does
@@ -3727,6 +3741,430 @@ def phase_eval(card, work_dir):
         "eval_card_s": walls["card"], "eval_cpu_s": walls["cpu"]}
 
 
+# ----------------------------------------------------------------------------
+# phase: shard (multi-GPU serving on a process group of one rank, and of two ranks on the one card)
+# ----------------------------------------------------------------------------
+
+# on one rank, a sharded output that does not run the same products in the same order as the unsharded
+# pipeline: uint8 steps of the image. On two ranks the GroupNorm sums of two bands and the tile batches of
+# another size round otherwise in bf16, which random weights amplify: there the bf16 routes are held as
+# the kernels are to their plain versions (MAX_MEAN_STEPS, and 95% of the pixels within 16 steps), and the
+# same routes in f32 (TF32 off) at SHARD_F32_SIZE px, where no bf16 rounding hides a seam, within
+# MAX_SHARD_STEPS at every pixel
+MAX_SHARD_STEPS = 1
+SHARD_S_INPUT = 512  # the -S request: a 512-px input served at 2048 px, 49 latent tiles of 64
+SHARD_F32_SIZE = 1024  # the f32 hold of the world of two: its top-left crop, 9 latent tiles of 64
+SHARD_WORLD_TIMEOUT_S = 420.0
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def image_steps(a, b):
+    """(max, mean, share within 16) uint8 steps between two images in [-1, 1]
+    (any float dtype)."""
+    def u8(x):
+        return torch.clamp((x.float() + 1.0) * 127.5, 0, 255).round()
+
+    d = (u8(a) - u8(b)).abs()
+    return int(d.max().item()), d.mean().item(), (d <= 16).float().mean().item()
+
+
+def within_two_rank_bound(steps):
+    return steps[1] <= MAX_MEAN_STEPS and steps[2] >= 0.95
+
+
+def shard_s_inputs(seed=31):
+    """The -S 2048-px request of the shard phase and a prompt, as numpy."""
+    rng = np.random.default_rng(seed)
+    img = np.kron(rng.integers(0, 256, (SHARD_S_INPUT, SHARD_S_INPUT, 3), dtype=np.uint8),
+                  np.ones((4, 4, 1), np.uint8))
+    prompt = rng.standard_normal((1, 77, SD21_UNET.cross_attention_dim)).astype(np.float32)
+    return img, prompt
+
+
+def shard_world_rank(rank, world, port, z, z0, out_path):
+    """One rank of a world of two sharing the one card over gloo: SD2.1 from
+    init_sd21's seeds; the -S tile path on the parent's 2048-px latent ``z``,
+    the sharded VAE encode of the request and decode of the parent's ``z0``;
+    then the f32 hold (``shard_world_f32``). Rank 0 saves the outputs and the
+    f32 hold's steps, both ranks their launch shapes and counts."""
+    from omgsr_tpu_torch.parallel import create_mesh, distributed
+
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device="cuda:0", backend="gloo",
+                           timeout_s=SHARD_WORLD_TIMEOUT_S)
+    dtype = torch.bfloat16
+    vae_params, unet_params = init_vae(0, SD21_VAE, dtype, "cuda"), init_unet(1, SD21_UNET, dtype, "cuda")
+    img, prompt = shard_s_inputs()
+    lq = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)[None].to("cuda", dtype)
+    ctx = torch.from_numpy(prompt).to("cuda", dtype)
+    mesh = create_mesh({"data": world})
+    pipe = OMGSRSPipeline(vae_params, unet_params, SD21_VAE, SD21_UNET, device="cuda").shard_for_mesh(mesh)
+    reset_counts()
+    with torch.inference_mode(), launch_shapes() as seen:
+        out = {"z0": pipe.latent_mid(torch.from_numpy(z).to("cuda", dtype), ctx, 64, 32),
+               "encode": TTV.sharded_vae_encode(vae_params, SD21_VAE, lq, mesh),
+               "decode": TTV.sharded_vae_decode(vae_params, SD21_VAE, torch.from_numpy(z0).to("cuda", dtype), mesh)}
+        torch.cuda.synchronize()
+    counts = read_counts()
+    f32 = shard_world_f32(rank, mesh, lq[:, :SHARD_F32_SIZE, :SHARD_F32_SIZE], prompt)
+    torch.save({"rank": rank, "seen": seen, "counts": counts, "f32": f32,
+                **({k: v.float().cpu() for k, v in out.items()} if rank == 0 else {})}, f"{out_path}.{rank}")
+    distributed.shutdown()
+
+
+def shard_world_f32(rank, mesh, lq, prompt):
+    """The world of two's f32 hold, after its bf16 run (neither counted nor
+    shape-logged): SD2.1 in f32 from the same seeds with TF32 off, the tile
+    path and the sharded VAE on ``lq``; rank 0 then runs the unsharded
+    pipeline and the full-image VAE on the same inputs. Returns rank 0's
+    uint8 steps (max / mean / share within 16) of each route and the latents'
+    rel L2, None on rank 1. The decode takes the tile path's x0 latent, the
+    same on both ranks; the encode's latent is held through the full decoder."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vae, unet = init_vae(0, SD21_VAE, torch.float32, "cuda"), init_unet(1, SD21_UNET, torch.float32, "cuda")
+    ref = OMGSRSPipeline(vae, unet, SD21_VAE, SD21_UNET, device="cuda")
+    sharded = OMGSRSPipeline(vae, unet, SD21_VAE, SD21_UNET, device="cuda").shard_for_mesh(mesh)
+    lq, ctx = lq.float(), torch.from_numpy(prompt).to("cuda")
+    with torch.inference_mode():
+        z = ref.encode(lq, sample_latent=False)
+        dist.broadcast(z, src=0)  # one input for both ranks, whatever the convolutions' algorithms
+        assert latent_tiles(SHARD_F32_SIZE, SHARD_F32_SIZE, 64, 32, 8) == 9
+        z0 = sharded.latent_mid(z, ctx, 64, 32)
+        enc = TTV.sharded_vae_encode(vae, SD21_VAE, lq, mesh)
+        dec = TTV.sharded_vae_decode(vae, SD21_VAE, z0, mesh)
+        torch.cuda.synchronize()
+        if rank != 0:
+            return None
+        z0_ref = ref.latent_mid(z, ctx, 64, 32)
+        dec_ref = ref.decode(z0)
+        return {"tiles": image_steps(dec_ref, ref.decode(z0_ref)), "tiles_rel_l2": rel_l2(z0, z0_ref),
+                "encode": image_steps(ref.decode(enc), ref.decode(z)), "encode_rel_l2": rel_l2(enc, z),
+                "decode": image_steps(torch.clamp(dec, -1, 1), dec_ref),
+                "decode_rel_l2": rel_l2(torch.clamp(dec, -1, 1), dec_ref)}  # the pipeline's decode clamps
+
+
+def shard_two_ranks(card, z, z0, work_dir):
+    """Two processes on the one card over gloo; returns rank 0's outputs
+    and the merged launch shapes and counts of both ranks."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port, out_path = free_port(), os.path.join(work_dir, "shard_world2.pt")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=shard_world_rank, args=(r, 2, port, z, z0, out_path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_WORLD_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert not alive and codes == [0, 0], f"the world of two: ranks {alive} still running, exit codes {codes}"
+    results = [torch.load(f"{out_path}.{r}", weights_only=False) for r in range(2)]
+    seen = merge_seen(merge_seen({"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}, results[0]["seen"]),
+                      results[1]["seen"])
+    counts = {k: results[0]["counts"][k] + results[1]["counts"][k] for k in results[0]["counts"]}
+    print(f"shard: a world of two processes on the one card over gloo ran in {time.perf_counter() - t0:.1f} s "
+          f"(spawn, SD2.1 from seeds, the tile path and the sharded VAE at 2048 px) [{card}]", flush=True)
+    return results[0], seen, counts
+
+
+def shard_s(card, vae_params, unet_params, work_dir, mesh, timings):
+    """-S at 2048 px: the tile-parallel UNet (49 tiles) and the sharded VAE on
+    a group of one rank against the unsharded pipeline and the full-image
+    VAE, stage by stage and by server; then the same on two ranks sharing
+    the card. Returns the launch shapes of the two ranks and their counts."""
+    dtype = torch.bfloat16
+    img, prompt = shard_s_inputs()
+    lq = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)[None].to("cuda", dtype)
+    ctx = torch.from_numpy(prompt).to("cuda", dtype)
+    ref = OMGSRSPipeline(vae_params, unet_params, SD21_VAE, SD21_UNET, device="cuda")
+    sharded = OMGSRSPipeline(vae_params, unet_params, SD21_VAE, SD21_UNET, device="cuda").shard_for_mesh(mesh)
+    with torch.inference_mode():
+        z = ref.encode(lq, sample_latent=False)
+        assert z.shape == (1, 256, 256, 4) and latent_tiles(2048, 2048, 64, 32, 8) == 49
+        z0 = ref.latent_mid(z, ctx, 64, 32)
+        z0_sh = sharded.latent_mid(z, ctx, 64, 32)
+        out_ref, out_sh = ref.decode(z0), sharded.decode(z0_sh)
+        same = torch.equal(z0, z0_sh)
+        steps = image_steps(out_sh, out_ref)
+        print(f"shard: -S tiles on one rank, 2048x2048 (49 tiles): the x0 latent "
+              f"{'the same bits as' if same else 'rel L2 %.3g from' % rel_l2(z0_sh.float(), z0.float())} the "
+              f"unsharded pipeline's; image max {steps[0]} / mean {steps[1]:.4f} uint8 steps", flush=True)
+        assert torch.isfinite(out_sh.float()).all() and steps[0] <= MAX_SHARD_STEPS, steps
+        unet_ms = {"unsharded": [], "tiles": []}
+        for name in in_turns(list(unet_ms), 2):
+            p = ref if name == "unsharded" else sharded
+            unet_ms[name].append(time_ms(lambda: p.latent_mid(z, ctx, 64, 32), iters=3, warmup=1))
+        for name, ms in unet_ms.items():
+            timings[f"shard_s_{name}_unet_2048_ms"] = statistics.mean(ms)
+
+        # the sharded VAE against the full-image VAE at 2048 px
+        vae_rows = {}
+        enc_ref = ref.encode(lq, sample_latent=False)
+        torch.cuda.reset_peak_memory_stats()
+        enc_sh = TTV.sharded_vae_encode(vae_params, SD21_VAE, lq, mesh)
+        vae_rows["encode peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        dec_sh = TTV.sharded_vae_decode(vae_params, SD21_VAE, z0, mesh)
+        vae_rows["decode peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        dec_ref = ref.decode(z0)
+        vae_rows["full decode peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        enc_steps = image_steps(ref.decode(enc_sh), ref.decode(enc_ref))
+        dec_steps = image_steps(torch.clamp(dec_sh, -1, 1), dec_ref)
+        for name, fn in (("sharded encode", lambda: TTV.sharded_vae_encode(vae_params, SD21_VAE, lq, mesh)),
+                         ("full encode", lambda: ref.encode(lq, sample_latent=False)),
+                         ("sharded decode", lambda: TTV.sharded_vae_decode(vae_params, SD21_VAE, z0, mesh)),
+                         ("full decode", lambda: ref.decode(z0))):
+            vae_rows[f"{name} ms"] = time_ms(fn, iters=3, warmup=1)
+        print(f"shard: sharded VAE on one rank at 2048x2048 against the full-image VAE: encode latent rel L2 "
+              f"{rel_l2(enc_sh.float(), enc_ref.float()):.3g} (its decoded image max {enc_steps[0]} / mean "
+              f"{enc_steps[1]:.4f} uint8 steps), decode max {dec_steps[0]} / mean {dec_steps[1]:.4f} uint8 steps; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in vae_rows.items()) + f" [{card}]", flush=True)
+        assert enc_steps[0] <= MAX_SHARD_STEPS and dec_steps[0] <= MAX_SHARD_STEPS, (enc_steps, dec_steps)
+        timings.update({f"shard_vae_2048_{k.replace(' ', '_')}": v for k, v in vae_rows.items()})
+
+    # through servers: the 2048-px request, unsharded and --shard tiles, in turns
+    base = ["--weight_dtype", "bf16", "--latent", "mean", "--port", "0", "--process_size", "512"]
+    servers = {name: serve_cli.build_server(serve_cli.parse_args(base + extra), params=(vae_params, unet_params),
+                                            prompt_embeds=prompt)
+               for name, extra in (("unsharded", []), ("tiles", ["--shard", "tiles"]))}
+    try:
+        outs, lat, peaks = {}, {name: [] for name in servers}, {}
+        for name, server in servers.items():
+            torch.cuda.reset_peak_memory_stats()
+            outs[name] = server.process_array(img, "adain")
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        for name in in_turns(list(servers), 4):
+            t0 = time.perf_counter()
+            servers[name].process_array(img, "adain")
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for server in servers.values():
+            server.shutdown()
+    d = np.abs(outs["tiles"].astype(int) - outs["unsharded"].astype(int)).max()
+    for name in servers:
+        timings[f"shard_s_{name}_2048_p50_ms"] = statistics.median(lat[name])
+        timings[f"shard_s_{name}_2048_peak_GiB"] = peaks[name]
+        print(f"timings: -S 2048x2048 request through serve{' --shard tiles' if name == 'tiles' else ''}: p50 "
+              f"{timings[f'shard_s_{name}_2048_p50_ms']:.1f} ms over 4 in turns "
+              f"({', '.join(f'{x:.1f}' for x in lat[name])}), "
+              f"peak {peaks[name]:.2f} GiB, UNet stage {timings[f'shard_s_{name}_unet_2048_ms']:.2f} ms on the device "
+              f"(in turns: {', '.join(f'{x:.2f}' for x in unet_ms[name])}) [{card}]", flush=True)
+    print(f"shard: the --shard tiles server's 2048-px image against the unsharded server's: max {d} uint8 steps",
+          flush=True)
+    assert d <= MAX_SHARD_STEPS, d
+
+    # two ranks on the one card over gloo (which takes CUDA tensors for all-reduce, broadcast and
+    # all-gather; its send / recv of a CUDA tensor aborts the process, and the port uses neither)
+    out2, seen2, counts2 = shard_two_ranks(card, z.float().cpu().numpy(), z0.float().cpu().numpy(), work_dir)
+    with torch.inference_mode():
+        z0_2 = out2["z0"].to("cuda", dtype)
+        tiles_steps = image_steps(ref.decode(z0_2), out_ref)
+        enc2_steps = image_steps(ref.decode(out2["encode"].to("cuda", dtype)), ref.decode(enc_ref))
+        dec2_steps = image_steps(torch.clamp(out2["decode"].to("cuda"), -1, 1), dec_ref)
+    print(f"shard: two ranks over gloo on the one card at 2048x2048, uint8 steps (max / mean / share within "
+          f"16; bounds: mean {MAX_MEAN_STEPS}, share 0.95): -S tiles (25 tiles a rank, one padded; x0 latent rel "
+          f"L2 {rel_l2(z0_2.float(), z0.float()):.3g}) " + "%d / %.4f / %.4f" % tiles_steps + " from the "
+          f"unsharded pipeline's image; sharded VAE (two bands of 1024 rows, 128 latent rows) encode's image "
+          + "%d / %.4f / %.4f" % enc2_steps + ", decode " + "%d / %.4f / %.4f" % dec2_steps + " from the "
+          f"full-image VAE; launches of both ranks {counts2}", flush=True)
+    assert all(within_two_rank_bound(x) for x in (tiles_steps, enc2_steps, dec2_steps)), (tiles_steps, enc2_steps,
+                                                                                          dec2_steps)
+    f32 = out2["f32"]
+    print(f"shard: two ranks over gloo on the one card in f32 (TF32 off) at {SHARD_F32_SIZE}x{SHARD_F32_SIZE}, "
+          f"uint8 steps (max / mean / share within 16; bound: max {MAX_SHARD_STEPS}): "
+          + "; ".join(f"{k} " + "%d / %.4f / %.4f" % f32[k] + f" (latent rel L2 {f32[k + '_rel_l2']:.3g})"
+                      for k in ("tiles", "encode", "decode"))
+          + " against the unsharded pipeline and the full-image VAE", flush=True)
+    assert all(f32[k][0] <= MAX_SHARD_STEPS for k in ("tiles", "encode", "decode")), f32
+    assert min(counts2["flash_attention_fwd"], counts2["group_norm_stats"], counts2["group_norm_apply"]) > 0
+    return seen2, counts2
+
+
+def in_turns(names, rounds):
+    """The order of ``rounds`` rounds over ``names``, every other round
+    reversed (a, b, b, a, ...)."""
+    return [n for r in range(rounds) for n in (names if r % 2 == 0 else names[::-1])]
+
+
+def shard_f(card, flux_vae, flux_params, timings):
+    """-F on a group of one rank: tiles, fsdp and tp on the serve-f weights
+    (no copy: one rank's parts are the tensors themselves), and tp on the
+    int8 tree, each through build_server --shard on three 1024-px requests
+    and one 2048-px request against the unsharded server, then the 1024-px
+    request p50 and the stages' device ms of every configuration in turns."""
+    from omgsr_tpu_torch.parallel import create_mesh
+
+    prompt, pooled = flux_prompt(12)
+    rng = np.random.default_rng(13)
+    up4 = np.ones((4, 4, 1), np.uint8)
+    jobs = [(np.kron(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8), up4), al)
+            for al in ("nofix", "adain", "wavelet")]
+    jobs.append((np.kron(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8), up4), "adain"))
+    lq = torch.from_numpy(jobs[0][0].astype(np.float32) / 127.5 - 1.0)[None].to("cuda", torch.bfloat16)
+    ctx, pl = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (prompt, pooled))
+    t0 = time.perf_counter()
+    q8 = quantize_flux_for_serving(flux_params, min_params=1 << 16, device="cuda")
+    torch.cuda.synchronize()
+    print(f"shard: the serve-f DiT quantised to int8 on the card in {time.perf_counter() - t0:.2f} s "
+          f"({tree_bytes(q8) / 1e9:.3f} GB)", flush=True)
+    base = ["--pipeline", "f", "--weight_dtype", "bf16", "--latent", "mean", "--port", "0"]
+    configs = {"unsharded": (None, flux_params, None), "tiles": ("tiles", flux_params, "unsharded"),
+               "fsdp": ("fsdp", flux_params, "unsharded"), "tp": ("tp", flux_params, "unsharded"),
+               "int8 unsharded": (None, q8, None), "int8 tp": ("tp", q8, "int8 unsharded")}
+    servers, pipes, served, latents, rows = {}, {}, {}, {}, {}
+    try:
+        for name, (shard, tree, against) in configs.items():
+            extra = ["--shard", shard] if shard else []
+            servers[name] = server = serve_cli.build_server(serve_cli.parse_args(base + extra),
+                                                            params=(flux_vae, tree), prompt_embeds=(prompt, pooled))
+            torch.cuda.reset_peak_memory_stats()
+            served[name] = outs = [server.process_array(img, al) for img, al in jobs]
+            rows[name] = {"peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+            pipes[name] = pipe = OMGSRFPipeline(flux_vae, tree, FLUX_VAE, FLUX_DEV, 244, device="cuda")
+            if shard:
+                pipe.shard_for_mesh(create_mesh({"data" if shard == "tiles" else shard: 1}), shard)
+            with torch.inference_mode():
+                z = pipe.encode(lq, sample_latent=False)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                latents[name] = (z, pipe.latent_mid(z, ctx, pl, 128, 64))
+                rows[name]["dit_peak_above_resident_GiB"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            for (img, _), out in zip(jobs, outs):
+                assert out.shape == img.shape and out.dtype == np.uint8 and out.std() > 1.0, (name, out.std())
+            if against:
+                d = [np.abs(a.astype(int) - b.astype(int)).max() for a, b in zip(outs, served[against])]
+                same = torch.equal(latents[name][1], latents[against][1])
+                rows[name]["note"] = (f"against {against}: the DiT latent {'the same bits' if same else 'differs'}, "
+                                      f"the four images max {max(d)} uint8 steps")
+                if shard in ("fsdp", "tp"):  # the same products in the same order
+                    assert same and max(d) == 0, (name, same, d)
+                assert max(d) <= MAX_SHARD_STEPS, (name, d)
+        # the 1024-px request and the stages, every configuration in turns
+        lat = {name: [] for name in configs}
+        for name in in_turns(list(configs), 4):
+            t0 = time.perf_counter()
+            servers[name].process_array(jobs[len(lat[name]) % 3][0], "adain")
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+        with torch.inference_mode():
+            for name in in_turns(list(configs), 2):
+                pipe, (z, z0) = pipes[name], latents[name]
+                for stage, fn in (("vae_encode", lambda: pipe.encode(lq, sample_latent=False)),
+                                  ("dit", lambda: pipe.latent_mid(z, ctx, pl, 128, 64)),
+                                  ("vae_decode", lambda: pipe.decode(z0))):
+                    rows[name].setdefault(stage, []).append(time_ms(fn, iters=3, warmup=1))
+    finally:
+        for server in servers.values():
+            server.shutdown()
+    del pipes, latents, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        key = name.replace(" ", "_")
+        timings[f"shard_f_{key}_1024_p50_ms"] = statistics.median(lat[name])
+        timings[f"shard_f_{key}_peak_GiB"] = row["peak_GiB"]
+        timings[f"shard_f_{key}_dit_peak_above_resident_GiB"] = row["dit_peak_above_resident_GiB"]
+        for stage in ("vae_encode", "dit", "vae_decode"):
+            timings[f"shard_f_{key}_{stage}_1024_ms"] = statistics.mean(row[stage])
+        print(f"timings: -F {name}: 1024x1024 p50 {timings[f'shard_f_{key}_1024_p50_ms']:.2f} ms over 4 in turns "
+              f"({', '.join(f'{x:.1f}' for x in lat[name])}); encode / DiT / decode "
+              + " / ".join(f"{statistics.mean(row[st]):.2f}" for st in ("vae_encode", "dit", "vae_decode"))
+              + f" ms on the device (DiT in turns: {', '.join(f'{x:.2f}' for x in row['dit'])}); peak "
+              f"{row['peak_GiB']:.2f} GiB over the four requests, the 1024-px DiT stage's "
+              f"{row['dit_peak_above_resident_GiB']:.3f} GiB above what was resident"
+              + (f"; {row['note']}" if "note" in row else "")
+              + f" [{card}]", flush=True)
+
+
+def shard_serve_reload(card, ckpt_dir, adapter_dir, timings):
+    """serve --shard tiles from the load phase's directory over HTTP, then
+    POST /v1/reload with the adapters the train phase exported: the output
+    after the reload is the output of a server built on them."""
+    from PIL import Image
+    import urllib.request
+
+    rng = np.random.default_rng(37)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)).save(buf, format="PNG")
+    body = buf.getvalue()
+    common = ["--sd_path", ckpt_dir, "--prompt", "", "--weight_dtype", "bf16", "--process_size", "512",
+              "--port", "0", "--latent", "mean", "--align_method", "nofix"]
+
+    def post(url, data):
+        with urllib.request.urlopen(urllib.request.Request(url, data=data, method="POST"), timeout=600) as r:
+            return r.read()
+
+    def sr(base):
+        return np.asarray(Image.open(io.BytesIO(post(f"{base}/v1/sr", body)))).astype(int)
+
+    outs = {}
+    for name, lora in (("served", None), ("fresh", adapter_dir)):
+        args = serve_cli.parse_args(common + ["--shard", "tiles"] + (["--lora_path", lora] if lora else []))
+        server, httpd = serve_cli.main(args, serve_forever=False)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = "http://%s:%d" % httpd.server_address[:2]
+        try:
+            outs[f"{name} before"] = sr(base)
+            if name == "served":
+                t0 = time.perf_counter()
+                reply = json.loads(post(f"{base}/v1/reload", json.dumps({"lora_path": adapter_dir}).encode()))
+                timings["shard_reload_s"] = time.perf_counter() - t0
+                assert reply == {"status": "reloaded", "lora_path": adapter_dir}, reply
+                outs["served after"] = sr(base)
+        finally:
+            server.shutdown()
+    moved = np.abs(outs["served after"] - outs["served before"])
+    print(f"shard: serve --shard tiles --sd_path over HTTP, then /v1/reload of the train phase's adapters in "
+          f"{timings['shard_reload_s']:.2f} s (the old pipeline freed first, the directory ported again): the "
+          f"output moved by mean {moved.mean():.4f} / max {moved.max()} uint8 steps, and equals a server built on "
+          f"those adapters: {np.array_equal(outs['served after'], outs['fresh before'])} [{card}]", flush=True)
+    assert np.array_equal(outs["served after"], outs["fresh before"])
+
+
+def phase_shard(card, vae_params, unet_params, flux_vae, flux_params, ckpt_dir, adapter_dir, work_dir):
+    """Multi-GPU serving on a one-rank NCCL group formed in-process (a TCP
+    store on 127.0.0.1): -S tiles at 2048 px, the sharded VAE at 2048 px, -F
+    tiles / fsdp / tp (and tp on the int8 tree), serve --shard tiles with a
+    /v1/reload; then two ranks on the one card over gloo. Returns the launch
+    counts of the whole phase."""
+    from omgsr_tpu_torch.parallel import create_mesh, distributed
+
+    assert distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", timeout_s=600)
+    timings = {}
+    try:
+        reset_counts()
+        with launch_shapes() as seen:
+            seen2, counts2 = shard_s(card, vae_params, unet_params, work_dir, create_mesh({"data": 1}), timings)
+            shard_f(card, flux_vae, flux_params, timings)
+            shard_serve_reload(card, ckpt_dir, adapter_dir, timings)
+        counts = read_counts()
+    finally:
+        distributed.shutdown()
+    print(f"shard: launches on the one-rank group {counts} [{card}]", flush=True)
+    assert min(counts["flash_attention_fwd"], counts["group_norm_stats"], counts["group_norm_apply"]) > 0, counts
+    report_launch_shapes("shard", "the one-rank group", seen, 14000)
+    report_launch_shapes("shard", "the two ranks on the one card", seen2, 15000)
+    return {k: counts[k] + counts2[k] for k in counts}, timings
+
+
 KERNELS = [
     # name (also its launch counter's), source, the TPU kernel it replaces, the CUDA kernels its
     # wrapper launches (bf16 at D = 64/128 first)
@@ -3796,7 +4234,6 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         load_f_counts, load_f_timings = phase_load_f(card, flux_vae, flux_params, work_dir, f_export)
-        del flux_vae, flux_params  # the -F weights: 23.8 GB
         gc.collect()
         torch.cuda.empty_cache()
         cli_counts, cli_timings = quant_f_cli(card, work_dir)
@@ -3805,8 +4242,11 @@ def main():
         eval_timings = phase_eval(card, work_dir)
         eval_counts = read_counts()  # no kernel of the seven is on the eval path
         assert not any(eval_counts.values()), eval_counts
+        shard_counts, shard_timings = phase_shard(card, vae_params, unet_params, flux_vae, flux_params,
+                                                  ckpt["sd_path"], export["dir"], work_dir)
+        del flux_vae, flux_params  # the -F weights: 23.8 GB
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
-                 quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings):
+                 quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings, shard_timings):
         timings.update(more)
 
     kernels = []
@@ -3820,13 +4260,15 @@ def main():
         launches_serve_f, launches_load_f = serve_f_counts.get(name, 0), load_f_counts.get(name, 0)
         launches_train_f = train_f_counts.get(name, 0)
         launches_quant_f = quant_f_counts.get(name, 0)
+        launches_shard = shard_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
-                    + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f)
+                    + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f + launches_shard)
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
             assert launches_serve_f == launches_quant_f == launches_train_f == launches_load_f == 0, name
+            assert launches_shard == 0, name  # the sharded VAE runs no fused resblock, as in the JAX package
         elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
             assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
         elif "bwd" in name:  # training only: -S in train and data, -F in train-f and load-f's train_omgsr_f.main
@@ -3834,7 +4276,7 @@ def main():
             assert launches_serve_f == 0, name
         else:
             assert min(launches_train, launches_data, launches_serve, launches_fused, launches_load,
-                       launches_serve_f, launches_quant_f, launches_train_f, launches_load_f) > 0, name
+                       launches_serve_f, launches_quant_f, launches_train_f, launches_load_f, launches_shard) > 0, name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches,
@@ -3843,6 +4285,7 @@ def main():
             "launches_data": launches_data, "launches_serve_f": launches_serve_f,
             "launches_quant_f": launches_quant_f, "launches_train_f": launches_train_f,
             "launches_load_f": launches_load_f, "launches_eval": eval_counts.get(name, 0),
+            "launches_shard": launches_shard,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

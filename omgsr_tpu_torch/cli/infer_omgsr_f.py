@@ -13,8 +13,13 @@ from ``--prompt_npz`` (``prompt_embeds`` (1, S, 4096) and
 checkpoint's T5-XXL and CLIP-L (``cli/prompts.encode_prompt_flux``).
 ``--quantize int8 | int8_w8a8 | int4`` ports the DiT to the CPU, merges the
 adapter there and places only its codes on the card (utils/quantize.py): the
-card never holds the bf16 DiT. ``--shard`` is not ported yet. The VAE latent
-is sampled, its noise seeded by the image's index.
+card never holds the bf16 DiT. The VAE latent is sampled, its noise seeded by
+the image's index.
+
+Multi-GPU, one process per GPU: ``torchrun --nproc_per_node=N -m
+omgsr_tpu_torch.cli.infer_omgsr_f --shard tp|fsdp|tiles ...``. Every rank
+reads the same input list and runs each image in lockstep; rank 0 writes the
+outputs. One process started without torchrun runs unsharded.
 """
 
 from __future__ import annotations
@@ -25,14 +30,10 @@ import os
 import torch
 
 from omgsr_tpu_torch.cli.infer_omgsr_s import collect_images, load_adapter_dir
+from omgsr_tpu_torch.parallel.distributed import is_main_process, local_device
+from omgsr_tpu_torch.parallel.sharding import cli_mesh
 from omgsr_tpu_torch.utils.devices import resolve_device
 from omgsr_tpu_torch.utils.dtypes import resolve_dtype
-
-
-def _refuse_unported(args):
-    if getattr(args, "shard", "none") != "none":
-        raise NotImplementedError(f"--shard {args.shard}: multi-GPU -F serving is not ported yet "
-                                  "(distribution slice)")
 
 
 def quantize_flux(flux_params, mode: str, min_params: int, device):
@@ -46,18 +47,18 @@ def quantize_flux(flux_params, mode: str, min_params: int, device):
                                      min_params=min_params, device=device)
 
 
-def build_pipeline(args, dtype, device="cuda"):
+def build_pipeline(args, dtype, device="cuda", mesh=None):
     """Configs from ``--flux_path``'s ``vae/`` and ``transformer/`` JSON,
     weights through the porters, the reference's adapters
     (train/train_omgsr_f.py:150,176: ``flux_adapter/``,
-    ``vae_encoder_adapter/``) merged where ``--lora_path`` holds them."""
+    ``vae_encoder_adapter/``) merged where ``--lora_path`` holds them; on a
+    ``mesh`` (``parallel.sharding.cli_mesh``) placed by ``--shard``."""
     from omgsr_tpu_torch.convert.hf_config import flux_config_from_json, vae_config_from_json
     from omgsr_tpu_torch.convert.porters import port_diffusers_vae, port_flux_transformer
     from omgsr_tpu_torch.inference.pipeline_f import OMGSRFPipeline
     from omgsr_tpu_torch.lora import merge_lora
 
     device = resolve_device(device)
-    _refuse_unported(args)
     vae_dir = os.path.join(args.flux_path, "vae")
     flux_dir = os.path.join(args.flux_path, "transformer")
     vae_cfg = vae_config_from_json(vae_dir)
@@ -76,10 +77,11 @@ def build_pipeline(args, dtype, device="cuda"):
             vae_params["encoder"] = merge_lora(vae_params["encoder"], load_adapter_dir(vae_ad, device))
     if quantize != "none":
         flux_params = quantize_flux(flux_params, quantize, args.quantize_min_params, device)
-    return OMGSRFPipeline(
+    pipe = OMGSRFPipeline(
         vae_params, flux_params, vae_cfg, flux_cfg, mid_timestep=args.mid_timestep,
         guidance_scale=args.guidance_scale, vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
     )
+    return pipe.shard_for_mesh(mesh, args.shard) if mesh is not None else pipe
 
 
 def prompt_embeddings(args, dtype, device):
@@ -103,11 +105,11 @@ def main(args=None):
         args = parse_args()
     from omgsr_tpu_torch.inference.batch_runner import run_batch
 
-    device = resolve_device(args.device)
+    mesh = cli_mesh(args.shard, args.device)
+    device = resolve_device(local_device(args.device))
     dtype = resolve_dtype(args.weight_dtype)
-    _refuse_unported(args)
     prompt_embeds, pooled = prompt_embeddings(args, dtype, device)
-    pipe = build_pipeline(args, dtype, device)
+    pipe = build_pipeline(args, dtype, device, mesh)
     image_names = collect_images(args.input_image)
     print(f"There are {len(image_names)} images.")
 
@@ -123,7 +125,7 @@ def main(args=None):
 
     return run_batch(
         image_names, infer_fn, args.output_dir, args.process_size, args.upscale, args.align_method,
-        size_bucket=args.size_bucket, batch_size=args.batch_size,
+        size_bucket=args.size_bucket, batch_size=args.batch_size, write=is_main_process(),
     )
 
 
@@ -157,7 +159,8 @@ def parse_args(argv=None):
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],
                         help="GroupNorm statistics of the tiled VAE (see cli/serve.py)")
     parser.add_argument("--shard", type=str, default="none", choices=["none", "fsdp", "tp", "tiles"],
-                        help="multi-GPU serving (not ported yet)")
+                        help="multi-GPU under torchrun: fsdp / tp place the DiT over the ranks, tiles "
+                        "splits the denoiser's tiles over them")
     parser.add_argument("--batch_size", type=int, default=1,
                         help="same-bucket batch size (images per pipeline call)")
     parser.add_argument("--size_bucket", type=int, default=64,

@@ -9,6 +9,12 @@
 Runs on the CUDA device unless ``--device cpu`` is given (the plain PyTorch
 versions of the kernels then run on the host). The VAE latent is sampled, its
 noise seeded by the image's index.
+
+Multi-GPU, one process per GPU: ``torchrun --nproc_per_node=N -m
+omgsr_tpu_torch.cli.infer_omgsr_s --shard tiles ...`` splits the tiled UNet's
+tiles over the ranks; every rank reads the same input list and runs each
+image in lockstep, and rank 0 writes the outputs. One process started
+without torchrun runs unsharded.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import os
 
 import torch
 
+from omgsr_tpu_torch.parallel.distributed import is_main_process, local_device
+from omgsr_tpu_torch.parallel.sharding import cli_mesh
 from omgsr_tpu_torch.utils.devices import resolve_device
 from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
@@ -51,19 +59,17 @@ def load_adapter_dir(path: str, device="cuda"):
     return import_peft_adapter(path, device=device)[0]
 
 
-def build_pipeline(args, dtype, device="cuda"):
+def build_pipeline(args, dtype, device="cuda", mesh=None):
     """Configs from the checkpoint's JSON, weights through the porters, the
     reference's adapters (infer/omgsr_s_infer_model.py:16-21) merged into the
-    VAE encoder and the UNet."""
+    VAE encoder and the UNet; on a ``mesh`` (``parallel.sharding.cli_mesh``)
+    tile-parallel."""
     from omgsr_tpu_torch.convert.hf_config import unet_config_from_json, vae_config_from_json
     from omgsr_tpu_torch.convert.porters import port_diffusers_unet, port_diffusers_vae
     from omgsr_tpu_torch.inference.pipeline_s import OMGSRSPipeline
     from omgsr_tpu_torch.lora import merge_lora
 
     device = resolve_device(device)
-    if getattr(args, "shard", "none") == "tiles":
-        raise NotImplementedError("--shard tiles: tile-parallel multi-GPU serving is not ported yet "
-                                  "(distribution slice)")
     vae_dir = os.path.join(args.sd_path, "vae")
     unet_dir = os.path.join(args.sd_path, "unet")
     vae_cfg = vae_config_from_json(vae_dir)
@@ -77,10 +83,11 @@ def build_pipeline(args, dtype, device="cuda"):
             vae_params["encoder"] = merge_lora(vae_params["encoder"], load_adapter_dir(vae_ad, device))
         if os.path.isdir(unet_ad):
             unet_params = merge_lora(unet_params, load_adapter_dir(unet_ad, device))
-    return OMGSRSPipeline(
+    pipe = OMGSRSPipeline(
         vae_params, unet_params, vae_cfg, unet_cfg, mid_timestep=args.mid_timestep,
         vae_tile=args.vae_tile, vae_stats=args.vae_stats, device=device,
     )
+    return pipe.shard_for_mesh(mesh, args.shard) if mesh is not None else pipe
 
 
 def prompt_embeddings(args, dtype, device):
@@ -98,10 +105,11 @@ def main(args=None):
         args = parse_args()
     from omgsr_tpu_torch.inference.batch_runner import run_batch
 
-    device = resolve_device(args.device)
+    mesh = cli_mesh(args.shard, args.device)
+    device = resolve_device(local_device(args.device))
     dtype = resolve_dtype(args.weight_dtype)
     prompt_embeds = prompt_embeddings(args, dtype, device)
-    pipe = build_pipeline(args, dtype, device)
+    pipe = build_pipeline(args, dtype, device, mesh)
     image_names = collect_images(args.input_image)
     print(f"There are {len(image_names)} images.")
 
@@ -117,7 +125,7 @@ def main(args=None):
 
     return run_batch(
         image_names, infer_fn, args.output_dir, args.process_size, args.upscale, args.align_method,
-        size_bucket=args.size_bucket, batch_size=args.batch_size,
+        size_bucket=args.size_bucket, batch_size=args.batch_size, write=is_main_process(),
     )
 
 
@@ -144,7 +152,7 @@ def parse_args(argv=None):
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],
                         help="GroupNorm statistics of the tiled VAE (see cli/serve.py)")
     parser.add_argument("--shard", type=str, default="none", choices=["none", "tiles"],
-                        help="tiles: multi-GPU tile sharding (not ported yet)")
+                        help="tiles: under torchrun, the denoiser's tiles split over the ranks")
     parser.add_argument("--batch_size", type=int, default=1,
                         help="same-bucket batch size (images per pipeline call)")
     parser.add_argument("--size_bucket", type=int, default=64,

@@ -24,16 +24,38 @@ the tiled VAE, with ``--vae_stats fast|exact|auto`` (see
 ``inference/pipeline_s.py``). ``--quantize int8 | int8_w8a8 | int4`` serves
 -F on a quantised DiT (``cli/infer_omgsr_f.quantize_flux``, also over
 in-memory parameters; -S takes no quantisation, as in the JAX server).
+
+``POST /v1/reload {"lora_path": ..., "mid_timestep": ..., "guidance_scale":
+...}`` rebuilds the pipeline with those arguments changed and swaps it in
+behind the dispatcher; the old pipeline is freed first (two 12B DiTs do not
+fit one card), requests during the rebuild fail fast with 502, and a failed
+rebuild restores the committed arguments' pipeline.
+
+Multi-GPU, one process per GPU under torchrun:
+
+    torchrun --nproc_per_node=8 -m omgsr_tpu_torch.cli.serve --pipeline f --shard tp ...
+
+``--shard tiles`` splits the tiles of the tiled denoiser over the ranks (-S
+and -F), ``--shard fsdp`` / ``tp`` the -F DiT (``inference/pipeline_f.py``).
+Rank 0 answers HTTP; the other ranks mirror its dispatches
+(``serving/server.RankSync``). Started without torchrun (one process, no
+process group) the server runs unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import gc
+import json
+import os
 
 import torch
 
 from omgsr_tpu_torch.models.configs import FLUX_DEV, FLUX_VAE, SD21_UNET, SD21_VAE
-from omgsr_tpu_torch.serving.server import ServeOptions, SRServer, make_fused_infer
+from omgsr_tpu_torch.parallel.distributed import local_device
+from omgsr_tpu_torch.parallel.sharding import cli_mesh
+from omgsr_tpu_torch.serving.server import RankSync, ServeOptions, SRServer, make_fused_infer
 from omgsr_tpu_torch.utils.devices import resolve_device
 from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
@@ -81,8 +103,9 @@ def _pipeline_f(args, dtype, device, params, configs, prompt_embeds):
     ), embeds
 
 
-def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
-    """Build the pipeline and return (infer_fn, fused_infer_fn | None).
+def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds, mesh=None):
+    """Build the pipeline (placed on ``mesh`` by ``--shard``) and return
+    (infer_fn, fused_infer_fn | None). Called again by /v1/reload.
 
     The fused function folds the colour fix into the request's dispatch; as
     in the JAX server there is none under ``--vae_tile``, where the colour fix
@@ -91,6 +114,8 @@ def _make_infer_fn(args, dtype, device, params, configs, prompt_embeds):
     tile_overlap = tile_size // 2
     build = _pipeline_f if args.pipeline == "f" else _pipeline_s
     pipe, embeds = build(args, dtype, device, params, configs, prompt_embeds)
+    if mesh is not None:
+        pipe.shard_for_mesh(mesh, args.shard)
     sample = args.latent == "sample"
 
     def pipe_call(lq, i):
@@ -116,7 +141,8 @@ def build_server(args, params=None, configs=None, prompt_embeds=None) -> SRServe
     ``--prompt``: (1, S, C) for -S, a (prompt_embeds, pooled_prompt_embeds)
     pair for -F."""
     dtype = resolve_dtype(args.weight_dtype)
-    device = resolve_device(args.device)
+    mesh = cli_mesh(args.shard, args.device)
+    device = resolve_device(local_device(args.device))
     warmup = tuple(tuple(int(v) for v in s.split("x")) for s in (args.warmup or []))
     opts = ServeOptions(
         process_size=args.process_size,
@@ -128,14 +154,101 @@ def build_server(args, params=None, configs=None, prompt_embeds=None) -> SRServe
         queue_depth=args.queue_depth,
         warmup_sizes=warmup,
     )
-    infer_fn, fused_fn = _make_infer_fn(args, dtype, device, params, configs, prompt_embeds)
-    return SRServer(infer_fn, opts, fused_infer_fn=fused_fn, device=device)
+    infer_fn, fused_fn = _make_infer_fn(args, dtype, device, params, configs, prompt_embeds, mesh)
+    sync = RankSync() if mesh is not None else None
+    server = SRServer(infer_fn, opts, fused_infer_fn=fused_fn, device=device, sync=sync)
+
+    def rebuild(a):
+        if a.lora_path and not os.path.isdir(a.lora_path):  # the build would serve without adapters
+            raise FileNotFoundError(f"lora_path {a.lora_path!r} is not a directory")
+        return _make_infer_fn(a, dtype, device, params, configs, prompt_embeds, mesh)
+
+    server.post_routes["/v1/reload"] = _reload_route(server, args, rebuild, in_memory=params is not None)
+    return server
+
+
+RELOAD_FIELDS = ("lora_path", "mid_timestep", "guidance_scale")
+
+
+def _reload_route(server, args, rebuild, in_memory: bool):
+    """POST /v1/reload {"lora_path": ..., "mid_timestep": n, "guidance_scale":
+    g} (any of them): rebuild the pipeline with these arguments and swap it
+    in. Other fields are refused. The old pipeline is freed before the new
+    build (two 12B DiTs do not fit one card); requests that arrive during the
+    rebuild fail fast with 502. A failed rebuild restores a pipeline from the
+    committed arguments, which change only on success. On a multi-rank
+    server rank 0 broadcasts the call, every rank rebuilds, and the outcome
+    is agreed over the ranks. Parameters handed over in memory are reused;
+    only a server built from a checkpoint directory takes a new
+    ``lora_path``."""
+
+    def unavailable(message):
+        def stub(*a):
+            raise RuntimeError(message)
+
+        stub.unavailable = True
+        return stub
+
+    def free():
+        gc.collect()
+        if server.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def route(body: bytes) -> dict:
+        req = json.loads(body or b"{}")
+        unknown = set(req) - set(RELOAD_FIELDS)
+        if unknown:
+            raise ValueError(f"unknown reload fields: {sorted(unknown)}; allowed: {list(RELOAD_FIELDS)}")
+        if in_memory and "lora_path" in req:
+            raise ValueError("lora_path: this server's parameters were handed over in memory, not read from "
+                             "--sd_path / --flux_path")
+        if server.rank_failure() is not None:  # the process group cannot be used again
+            raise RuntimeError(f"a rank failed ({server.rank_failure()}); restart the server")
+        new_args = copy.copy(args)  # a failed rebuild must not touch the committed args
+        for k, v in req.items():
+            setattr(new_args, k, v)
+        sync = server._sync
+        with server._reload_lock:
+            server.swap_infer_fn(unavailable("model reloading, retry shortly"))
+            with server._dispatch_busy:  # waits out the dispatch in flight
+                if sync is not None and sync.rank == 0:
+                    sync.send_post("/v1/reload", body)
+                free()  # the swap dropped the server's references to the old pipeline
+                error, fns = None, None
+                try:
+                    fns = rebuild(new_args)
+                except Exception as e:  # noqa: BLE001 — restored below, then raised
+                    error = e
+                ok = sync.all_ok(error is None) if sync is not None else error is None
+                if ok:
+                    server.swap_infer_fn(*fns)
+                    args.__dict__.update(new_args.__dict__)
+                    return {"status": "reloaded", **req}
+                fns = None
+                free()
+                restored = None
+                try:
+                    restored = rebuild(args)
+                except Exception as e:  # noqa: BLE001
+                    error = error or e
+                if sync is not None and not sync.all_ok(restored is not None):
+                    restored = None
+                if restored is None:
+                    restored = (unavailable(f"model reload failed and its restore failed ({error}); "
+                                            "restart the server"),)
+                server.swap_infer_fn(*restored)
+        raise error if error is not None else RuntimeError("the reload failed on another rank")
+
+    return route
 
 
 def main(args=None, serve_forever: bool = True, **build_kwargs):
     if args is None:
         args = parse_args()
     server = build_server(args, **build_kwargs)
+    if server.follower:  # a rank other than 0 of a multi-rank server: mirror rank 0 until it stops
+        server.follow()
+        return server, None
     httpd = server.make_httpd(args.host, args.port)
     if server.opts.warmup_sizes:
         print(f"warming {list(server.opts.warmup_sizes)} ...", flush=True)
@@ -187,6 +300,9 @@ def parse_args(argv=None):
     parser.add_argument("--vae_stats", type=str, default="fast", choices=["fast", "exact", "auto"],
                         help="GroupNorm statistics of the tiled VAE: from a downsampled copy (fast), "
                         "exact over the whole image (exact), or exact past a downsample ratio of 4 (auto)")
+    parser.add_argument("--shard", type=str, default="none", choices=["none", "fsdp", "tp", "tiles"],
+                        help="multi-GPU under torchrun: tiles (-S, -F) splits the denoiser's tiles over the "
+                        "ranks; fsdp / tp (-F) place the DiT over them")
     parser.add_argument("--size_bucket", type=int, default=64)
     parser.add_argument("--max_batch", type=int, default=1)
     parser.add_argument("--batch_window_ms", type=float, default=5.0)

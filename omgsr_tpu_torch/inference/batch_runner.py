@@ -34,6 +34,7 @@ def run_batch(
     savers: int = 2,
     size_bucket: int = 64,
     batch_size: int = 1,
+    write: bool = True,
 ):
     """infer_fn(lq (B,H,W,3) f32 numpy in [-1,1], index) -> SR batch
     (B,H,W,3) in [-1,1] on the device (enqueued, not waited for).
@@ -47,8 +48,12 @@ def run_batch(
     the end of the stream or on a bucket change). With batch_size > 1 the
     infer_fn receives the group's FIRST index, so a sampled latent's noise is
     drawn per batch. Returns the average seconds per image.
+
+    write=False (the ranks other than 0 of a multi-GPU run): every image is
+    run, in the same order, and nothing is written or timed.
     """
-    os.makedirs(output_dir, exist_ok=True)
+    if write:
+        os.makedirs(output_dir, exist_ok=True)
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = object()
 
@@ -93,6 +98,8 @@ def run_batch(
             lq = np.concatenate([it[2] for it in items]).astype(np.float32)
             t0 = time.perf_counter()
             out = infer_fn(lq, items[0][0])
+            if not write:
+                return
             # backpressure: each pending future holds its batch's device output;
             # without a bound a loader faster than the device grows memory with the backlog
             while len(futures) > 4 * savers:
@@ -117,5 +124,6 @@ def run_batch(
             f.result()
 
     avg = sum(times) / max(len(times), 1)
-    print(f"Average inference time: {avg}s")
+    if write:
+        print(f"Average inference time: {avg}s")
     return avg

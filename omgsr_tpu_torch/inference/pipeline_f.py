@@ -9,6 +9,8 @@ are built once per tile grid and shared by all tiles: every tile is exactly
 infer/infer_omgsr_f.py:50-55). LoRA adapters are merged into the base weights
 at load time. With ``vae_tile`` the VAE stages of large images go through the
 tiled VAE (``inference/vae_routing.py``), as in ``pipeline_s.py``.
+``shard_for_mesh`` spreads the DiT over the ranks of a mesh (one process per
+GPU): FSDP, tensor parallelism or tile parallelism.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from omgsr_tpu_torch.inference.vae_routing import (
 )
 from omgsr_tpu_torch.models import flux
 from omgsr_tpu_torch.models.configs import FLUX_DEV, FLUX_VAE, FluxConfig, VAEConfig
+from omgsr_tpu_torch.parallel.sharding import shard_flux_params
 from omgsr_tpu_torch.utils.devices import resolve_device, tree_to
 
 
@@ -77,11 +80,33 @@ class OMGSRFPipeline:
         self.vae_tile = vae_tile
         self.vae_stats = vae_stats
         self._img_ids = {}
+        self._tile_group = None
+        self._sharding = None
 
-    def shard_for_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "shard_for_mesh: multi-GPU -F serving (fsdp, tp, tiles) is not ported yet (distribution slice)"
-        )
+    def shard_for_mesh(self, mesh, strategy: str = "fsdp", *, min_size: int = 2**18):
+        """Spread the 12B DiT over the ranks of ``mesh`` (bf16 or a quantised
+        tree). "fsdp": each rank keeps a chunk of every leaf of ``min_size``
+        elements or more over the "fsdp" axis; the chunks of a block are
+        gathered just before it runs. "tp": tensor parallelism over the "tp"
+        axis, each rank holding its share of the heads and the MLP width for
+        good, one sum over the group per row-parallel product (the trade when
+        the products dominate). "tiles": every rank keeps all the weights and
+        the tiles are split over the "data" axis, near-linear single-image
+        scaling when the model fits one card. The VAE stays whole on every
+        rank. A later "fsdp" / "tp" call clears the tile split of an earlier
+        "tiles" call; a placed DiT is not placed again. Every rank then makes
+        every call with the same inputs."""
+        if strategy == "tiles":
+            self._tile_group = mesh.group("data")
+            return self
+        if strategy not in ("fsdp", "tp"):
+            raise ValueError(f"strategy must be 'fsdp', 'tp' or 'tiles', got {strategy!r}")
+        if self._sharding is not None:
+            raise ValueError("the DiT is placed already: build a new pipeline to place it again")
+        self.flux_params, self._sharding = shard_flux_params(self.flux_params, self.flux_cfg, mesh, strategy,
+                                                             min_size)
+        self._tile_group = None
+        return self
 
     def _on_device(self, x, dtype=None):
         if isinstance(x, np.ndarray):
@@ -112,7 +137,7 @@ class OMGSRFPipeline:
             ctx = prompt_embeds.expand(n, *prompt_embeds.shape[-2:]).to(tiles.dtype)
             pooled = pooled_prompt_embeds.expand(n, pooled_prompt_embeds.shape[-1]).to(tiles.dtype)
             v = flux.flux_apply(self.flux_params, self.flux_cfg, pack_latents(tiles), self.sigma_t,
-                                self.guidance_scale, pooled, ctx, txt_ids, self._ids(th, tw))
+                                self.guidance_scale, pooled, ctx, txt_ids, self._ids(th, tw), self._sharding)
             return unpack_latents(v, th, tw)
 
         tb = self.tile_batch
@@ -120,7 +145,7 @@ class OMGSRFPipeline:
             # the tile size tiled_denoise runs: clamped to the latent
             tokens = (min(tile_size, z.shape[1], z.shape[2]) // 2) ** 2 + prompt_embeds.shape[-2]
             tb = functools.partial(flux_tile_batch, tokens=tokens)
-        v = tiled_denoise(z, denoise, tile_size, tile_overlap, tb)
+        v = tiled_denoise(z, denoise, tile_size, tile_overlap, tb, self._tile_group)
         return z - self.sigma_t * v
 
     def decode(self, z0):

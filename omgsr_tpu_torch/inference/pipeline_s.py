@@ -6,7 +6,8 @@ exceeds the tile size), recover x0, VAE-decode, clamp. Runs eagerly under
 ``torch.inference_mode()``. LoRA adapters are merged into the base weights
 at load time, so inference runs the plain architecture. With ``vae_tile`` the
 VAE stages of large images go through the tiled VAE
-(``inference/vae_routing.py``).
+(``inference/vae_routing.py``). ``shard_for_mesh`` makes the tiled UNet
+tile-parallel over the ranks of a mesh (one process per GPU).
 """
 
 from __future__ import annotations
@@ -62,11 +63,18 @@ class OMGSRSPipeline:
         self.vae_tile = vae_tile
         self.vae_stats = vae_stats
         self.sqrt_alpha, self.sqrt_one_minus_alpha = mid_timestep_coeffs_sd(mid_timestep)
+        self._tile_group = None
 
-    def shard_for_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "shard_for_mesh: tile-parallel multi-GPU serving is not ported yet (distribution slice)"
-        )
+    def shard_for_mesh(self, mesh, strategy: str = "tiles"):
+        """Multi-GPU -S serving: the 866M stack fits every card, so the one
+        strategy is tile parallelism. Every rank keeps all the weights, and
+        the tiled UNet's tiles are split over the mesh's "data" axis (one
+        all-gather of the latent predictions before the stitch). Every rank
+        then makes every call with the same inputs."""
+        if strategy != "tiles":
+            raise ValueError(f"OMGSR-S supports strategy='tiles', got {strategy!r}")
+        self._tile_group = mesh.group("data")
+        return self
 
     def _on_device(self, x, dtype=None):
         if isinstance(x, np.ndarray):
@@ -91,7 +99,7 @@ class OMGSRSPipeline:
             ctx = prompt_embeds.expand(n, *prompt_embeds.shape[-2:]).to(tiles.dtype)
             return unet_sd.unet_apply(self.unet_params, self.unet_cfg, tiles, self.mid_timestep, ctx)
 
-        eps = tiled_denoise(z, denoise, tile_size, tile_overlap, self.tile_batch)
+        eps = tiled_denoise(z, denoise, tile_size, tile_overlap, self.tile_batch, self._tile_group)
         return (z - self.sqrt_one_minus_alpha * eps) / self.sqrt_alpha
 
     def decode(self, z0):

@@ -3,15 +3,19 @@
 The tile grid is computed on the host, tiles are sliced out of the latent,
 the denoiser runs on fixed-size tile batches (a Python loop), and the
 predictions are added into float32 stitch buffers with gaussian weights,
-then normalized by the contributor sum. Tile-parallel multi-GPU denoising
-arrives with the distribution slice.
+then normalized by the contributor sum. With a process group the tiles are
+denoised in parallel: each rank takes a contiguous share, the predictions are
+all-gathered, and every rank stitches all of them in the same order.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from omgsr_tpu_torch.diffusion.tiling import gaussian_tile_weights, tile_grid_2d
+from omgsr_tpu_torch.parallel.distributed import all_gather_cat
+from omgsr_tpu_torch.parallel.sharding import local_tiles
 
 
 def auto_tile_batch(n: int, cap: int = 8) -> int:
@@ -33,6 +37,7 @@ def tiled_denoise(
     tile_size: int,
     tile_overlap: int,
     tile_batch: int | None = 1,
+    tile_group=None,
 ):
     """latent (B, H, W, C); denoise_tile: (N, t, t, C) -> (N, t, t, C).
 
@@ -41,7 +46,14 @@ def tiled_denoise(
     third tile coordinate), so the denoiser always sees full
     tile_batch-sized batches. tile_batch=None picks a padding-free divisor
     of the tile count (auto_tile_batch); a function of the tile count picks
-    the batch itself."""
+    the batch itself.
+
+    tile_group (a process group): tile-parallel denoising. The tile list is
+    padded to a multiple of the group's size with copies of the last tile;
+    each rank denoises its contiguous share, in batches that ``tile_batch``
+    picks for the share; the predictions are all-gathered and stitched in
+    tile order on every rank, the copies at weight 0. A latent of one tile
+    runs whole on every rank."""
     b, h, w, c = latent.shape
     t = min(tile_size, h, w)
     if h * w <= tile_size * tile_size:
@@ -53,28 +65,35 @@ def tiled_denoise(
     grid = tile_grid_2d(h, w, t, tile_overlap)
     triples = [(bi, oy, ox) for bi in range(b) for (oy, ox) in grid]
     n = len(triples)
-    if tile_batch is None:
-        tile_batch = auto_tile_batch(n)
-    elif callable(tile_batch):
-        tile_batch = tile_batch(n)
-    # the last tile is repeated to fill the final batch; the repeats are
-    # denoised and then dropped (zero stitch weight)
-    pad = (-n) % tile_batch
-    padded = triples + [triples[-1]] * pad
-
     # stitch in float32: bf16 running sums would round in the overlap regions
     weights = torch.as_tensor(
         gaussian_tile_weights(t, t), dtype=torch.float32, device=latent.device
     )[:, :, None]
     acc = torch.zeros(latent.shape, dtype=torch.float32, device=latent.device)
     contrib = torch.zeros(latent.shape, dtype=torch.float32, device=latent.device)
-    for start in range(0, len(padded), tile_batch):
-        batch = padded[start : start + tile_batch]
-        tiles = torch.stack([latent[bi, oy : oy + t, ox : ox + t, :] for bi, oy, ox in batch])
-        preds = denoise_tile(tiles)
-        for j, (bi, oy, ox) in enumerate(batch):
-            if start + j >= n:
-                break
-            acc[bi, oy : oy + t, ox : ox + t, :] += preds[j].float() * weights
-            contrib[bi, oy : oy + t, ox : ox + t, :] += weights
+
+    def denoise(share):
+        """The tiles ``share`` in batches of ``tile_batch``; the last tile is
+        repeated to fill the final batch, and the repeats are denoised and
+        dropped: yields the predictions of each batch."""
+        tb = tile_batch
+        if tb is None:
+            tb = auto_tile_batch(len(share))
+        elif callable(tb):
+            tb = tb(len(share))
+        padded = share + [share[-1]] * ((-len(share)) % tb)
+        for start in range(0, len(share), tb):
+            batch = padded[start : start + tb]
+            preds = denoise_tile(torch.stack([latent[bi, oy : oy + t, ox : ox + t, :] for bi, oy, ox in batch]))
+            yield preds[: min(tb, len(share) - start)]
+
+    size, rank = (1, 0) if tile_group is None else (dist.get_world_size(tile_group), dist.get_rank(tile_group))
+    total, first, count = local_tiles(n, size, rank)
+    padded = triples + [triples[-1]] * (total - n)
+    preds = torch.cat(list(denoise(padded[first : first + count])))
+    if tile_group is not None:
+        preds = all_gather_cat(preds, tile_group)
+    for (bi, oy, ox), pred in zip(triples, preds[:n]):
+        acc[bi, oy : oy + t, ox : ox + t, :] += pred.float() * weights
+        contrib[bi, oy : oy + t, ox : ox + t, :] += weights
     return (acc / contrib).to(latent.dtype)

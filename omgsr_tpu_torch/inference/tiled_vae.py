@@ -1,7 +1,7 @@
 """Tiled VAE for large images on one card, eager PyTorch.
 
-Two single-card strategies, as in the JAX package's ``inference/tiled_vae.py``
-(the multi-card spatially sharded mode waits for the distribution slice):
+Two single-card strategies and one multi-card one, as in the JAX package's
+``inference/tiled_vae.py``:
 
 1. ``streaming_vae_encode/decode`` with ``stats="fast"`` (bounded memory): a
    two-pass scheme after vaehook's fast mode. Pass 1 runs the network on a
@@ -23,6 +23,11 @@ Two single-card strategies, as in the JAX package's ``inference/tiled_vae.py``
    (S x S) score matrix. Its peak memory is the full-image VAE's, above the
    fast mode's: the fast mode is the bounded-memory one.
 
+3. ``sharded_vae_encode/decode`` over the ranks of a mesh: the image's or the
+   latent's rows cut into one band per rank, with the collectives written in
+   ``_Band`` (halo rows, GroupNorm sums, the mid block's attention input);
+   every rank gets the whole result.
+
 Randomness: a sampled encode draws each tile's noise from a generator seeded
 from the caller's generator and the tile index (``fold_generator``), so no
 two tiles share a draw; the numbers differ from the JAX package's folded keys.
@@ -30,12 +35,18 @@ two tiles share a draw; the numbers differ from the JAX package's folded keys.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from omgsr_tpu_torch.models import vae as vae_mod
+from omgsr_tpu_torch.models.layers import conv2d
+from omgsr_tpu_torch.ops.fused_groupnorm import group_norm_apply, group_norm_stats
+from omgsr_tpu_torch.parallel.distributed import all_gather, all_gather_cat, all_reduce
 
 ENCODER_PAD = 32  # pixels of context per tile side (vaehook.py:546)
 DECODER_PAD = 11  # latents of context per tile side
@@ -259,9 +270,93 @@ def exact_vae_decode(params, cfg, z, unscale: bool = True):
 # ----------------------------------------------------------------------------
 
 
-def sharded_vae_decode(*args, **kwargs):
-    raise NotImplementedError("sharded_vae_decode: the multi-GPU VAE is not ported yet (distribution slice)")
+class _Band:
+    """The collectives of the spatially sharded VAE (``models/vae.py``'s band
+    seam): every activation's rows are cut into equal bands, one per rank of
+    ``group`` in rank order; the width stays whole."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size, self.rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def split(self, x, multiple: int = 1):
+        """This rank's band of x (B, H, W, C); H / size must be a multiple of
+        ``multiple``."""
+        h = x.shape[1]
+        if h % (self.size * multiple):
+            raise ValueError(f"{h} rows do not cut into {self.size} bands of a multiple of {multiple} rows")
+        rows = h // self.size
+        return x[:, self.rank * rows : (self.rank + 1) * rows].contiguous()
+
+    def gather(self, x):
+        """Every band, in row order, on every rank."""
+        return all_gather_cat(x, self.group, dim=1)
+
+    def _neighbour_rows(self, x):
+        """(the row above the band, the row below it): the neighbours' edge
+        rows, None beyond the image's top and bottom."""
+        parts = all_gather(torch.cat([x[:, :1], x[:, -1:]], dim=1), self.group)
+        above = parts[self.rank - 1][:, 1:] if self.rank > 0 else None
+        below = parts[self.rank + 1][:, :1] if self.rank < self.size - 1 else None
+        return above, below
+
+    def conv3x3(self, p, x):
+        """3x3 SAME conv of the band with one halo row from each neighbour; at
+        the image's top and bottom the conv pads with zeros itself, so one
+        band is the full image's conv."""
+        above, below = self._neighbour_rows(x)
+        rows = [r for r in (above, x, below) if r is not None]
+        h = torch.cat(rows, dim=1) if len(rows) > 1 else x
+        return conv2d(p, h, padding=((int(above is None), int(below is None)), (1, 1)))
+
+    def downsample(self, p, x):
+        """diffusers' Downsample2D (pad bottom and right by one, stride-2 VALID
+        3x3 conv) on a band of even height: its last output row also reads
+        the first row of the band below; the last band pads as the full
+        image does."""
+        _, below = self._neighbour_rows(x)
+        if below is None:
+            return vae_mod.downsample_conv_2x(p, x)
+        h = F.pad(torch.cat([x, below], dim=1), (0, 0, 0, 1))
+        return conv2d(p, h, stride=2, padding="VALID")
+
+    def group_norm_silu(self, p, x, groups, eps):
+        """GroupNorm+SiLU with statistics over every band: K3a's partial sums
+        of the band, summed over the group, then K3b. The apply divides the
+        sums by its own band's H * W, so the summed partials are divided by
+        the number of bands (all of equal size)."""
+        partial = all_reduce(group_norm_stats(x, groups), self.group)
+        partial /= self.size
+        return group_norm_apply(x, partial, p["weight"], p["bias"], groups, eps)
+
+    def own_tokens(self, t):
+        """(B, S, ...) over every band's rows -> this band's tokens."""
+        n = t.shape[1] // self.size
+        return t[:, self.rank * n : (self.rank + 1) * n]
 
 
-def sharded_vae_encode(*args, **kwargs):
-    raise NotImplementedError("sharded_vae_encode: the multi-GPU VAE is not ported yet (distribution slice)")
+def sharded_vae_decode(params, cfg, z, mesh, axis: str = "data"):
+    """scaled latent (B,h,w,C), the same on every rank -> pixels (B,H,W,3),
+    un-clamped, on every rank: the latent's rows cut into equal bands over
+    ``mesh``'s ``axis`` (h divisible by its size). Exact global GroupNorm
+    (statistics summed over the bands), 3x3 convs with one halo row from
+    each neighbour. The mid block's attention input (the lowest resolution)
+    is gathered: every rank normalises it whole with the full VAE's
+    GroupNorm and computes the keys and values of every token, and the
+    queries of its band. As in the JAX package the fused resblock kernel is
+    off: it takes no halo."""
+    cfg = dataclasses.replace(cfg, fused_resblocks=False)
+    band = _Band(mesh.group(axis))
+    return band.gather(vae_mod.vae_decode(params, cfg, band.split(z), band=band))
+
+
+def sharded_vae_encode(params, cfg, x, mesh, axis: str = "data"):
+    """pixels (B,H,W,3), the same on every rank -> the scaled latent mean on
+    every rank, the image's rows cut into equal bands as in
+    ``sharded_vae_decode``. Each band's height is a multiple of
+    2^downsamplers, so every stride-2 downsample starts on an even row."""
+    cfg = dataclasses.replace(cfg, fused_resblocks=False)
+    band = _Band(mesh.group(axis))
+    moments = vae_mod.vae_encode_features(params, cfg, band.split(x, cfg.downscale), band=band)
+    mean = vae_mod.sample_diagonal_gaussian(moments, sample=False)
+    return vae_mod.scale_latent(cfg, band.gather(mean.contiguous()))

@@ -18,6 +18,13 @@ under ``jax.checkpoint`` per block. Every attention goes through
 ``ops/attention.dot_product_attention``, so at head dim 128 the joint
 attention is the flash-attention kernel on the card; RoPE, the RMS norms, the
 modulation and GELU are plain tensor code.
+
+Multi-GPU (``parallel/sharding.shard_flux_params``): with a ``sharding``
+every block's FSDP chunks are all-gathered just before the block runs and
+dropped after it, and under tensor parallelism each rank runs its share of
+the heads and of the MLP width: the column-parallel products stay local, and
+each row-parallel product (the attention outputs, the MLP down projections,
+the single blocks' ``proj_out``) is summed over the tensor-parallel group.
 """
 
 from __future__ import annotations
@@ -91,8 +98,18 @@ def _heads(x, n):
     return x.reshape(b, s, n, d // n)
 
 
-def _joint_attention(p, cfg: FluxConfig, img, txt, cos, sin):
-    n = cfg.num_attention_heads
+def _local_heads(cfg: FluxConfig, sh) -> int:
+    return cfg.num_attention_heads // (sh.tp_size if sh is not None else 1)
+
+
+def _row(sh):
+    """The row-parallel reduction of ``dense``: the sharding under tensor
+    parallelism, else None (a plain product)."""
+    return sh if sh is not None and sh.tp_group is not None else None
+
+
+def _joint_attention(p, cfg: FluxConfig, img, txt, cos, sin, sh=None):
+    n = _local_heads(cfg, sh)
     q = rms_norm(p["norm_q"], _heads(dense(p["to_q"], img), n))
     k = rms_norm(p["norm_k"], _heads(dense(p["to_k"], img), n))
     v = _heads(dense(p["to_v"], img), n)
@@ -107,30 +124,34 @@ def _joint_attention(p, cfg: FluxConfig, img, txt, cos, sin):
     b, s, h, d = o.shape
     o = o.reshape(b, s, h * d)
     t_len = txt.shape[1]
-    return dense(p["to_out"]["0"], o[:, t_len:]), dense(p["to_add_out"], o[:, :t_len])
+    return dense(p["to_out"]["0"], o[:, t_len:], _row(sh)), dense(p["to_add_out"], o[:, :t_len], _row(sh))
 
 
-def _dual_block(p, cfg: FluxConfig, img, txt, temb, cos, sin):
+def _dual_block(p, cfg: FluxConfig, img, txt, temb, cos, sin, sh=None):
+    if sh is not None:
+        p = sh.gather(p)
     act = silu(temb)
     sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = dense(p["norm1"]["linear"], act).chunk(6, dim=-1)
     c_sh_msa, c_sc_msa, c_g_msa, c_sh_mlp, c_sc_mlp, c_g_mlp = dense(p["norm1_context"]["linear"], act).chunk(
         6, dim=-1)
 
     img_attn, txt_attn = _joint_attention(
-        p["attn"], cfg, _modulate(img, sh_msa, sc_msa), _modulate(txt, c_sh_msa, c_sc_msa), cos, sin)
+        p["attn"], cfg, _modulate(img, sh_msa, sc_msa), _modulate(txt, c_sh_msa, c_sc_msa), cos, sin, sh)
 
     img = img + g_msa[:, None, :] * img_attn
     h = F.gelu(dense(p["ff"]["net"]["0"]["proj"], _modulate(img, sh_mlp, sc_mlp)), approximate="tanh")
-    img = img + g_mlp[:, None, :] * dense(p["ff"]["net"]["2"], h)
+    img = img + g_mlp[:, None, :] * dense(p["ff"]["net"]["2"], h, _row(sh))
 
     txt = txt + c_g_msa[:, None, :] * txt_attn
     ch = F.gelu(dense(p["ff_context"]["net"]["0"]["proj"], _modulate(txt, c_sh_mlp, c_sc_mlp)), approximate="tanh")
-    txt = txt + c_g_mlp[:, None, :] * dense(p["ff_context"]["net"]["2"], ch)
+    txt = txt + c_g_mlp[:, None, :] * dense(p["ff_context"]["net"]["2"], ch, _row(sh))
     return img, txt
 
 
-def _single_block(p, cfg: FluxConfig, x, temb, cos, sin):
-    n = cfg.num_attention_heads
+def _single_block(p, cfg: FluxConfig, x, temb, cos, sin, sh=None):
+    if sh is not None:
+        p = sh.gather(p)
+    n = _local_heads(cfg, sh)
     shift, scale, gate = dense(p["norm"]["linear"], silu(temb)).chunk(3, dim=-1)
     xn = _modulate(x, shift, scale)
     q = rms_norm(p["attn"]["norm_q"], _heads(dense(p["attn"]["to_q"], xn), n))
@@ -139,17 +160,23 @@ def _single_block(p, cfg: FluxConfig, x, temb, cos, sin):
     o = dot_product_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
     b, s, h, d = o.shape
     mlp = F.gelu(dense(p["proj_mlp"], xn), approximate="tanh")
-    out = dense(p["proj_out"], torch.cat([o.reshape(b, s, h * d), mlp], dim=-1))
+    # under tensor parallelism proj_out's input columns are this rank's heads, then its MLP slice
+    out = dense(p["proj_out"], torch.cat([o.reshape(b, s, h * d), mlp], dim=-1), _row(sh))
     return x + gate[:, None, :] * out
 
 
 def flux_apply(params, cfg: FluxConfig, hidden_states, timestep, guidance, pooled_projections,
-               encoder_hidden_states, txt_ids, img_ids):
+               encoder_hidden_states, txt_ids, img_ids, sharding=None):
     """hidden_states (B, S_img, 64) packed latents, timestep / guidance sigmas
     in [0, 1] (scalars or (B,)), pooled (B, 768), encoder_hidden_states
     (B, S_txt, 4096), txt_ids (S_txt, 3), img_ids (S_img, 3) -> the velocity
-    prediction (B, S_img, 64) in the input's dtype."""
+    prediction (B, S_img, 64) in the input's dtype. ``sharding``: the
+    ``parallel.sharding.FluxSharding`` of a tree that ``shard_flux_params``
+    placed (every rank of its groups makes the same call)."""
     dtype, device = hidden_states.dtype, hidden_states.device
+    blocks = {k: params[k] for k in ("transformer_blocks", "single_transformer_blocks")}
+    if sharding is not None:  # the leaves outside the blocks, gathered once a forward
+        params = sharding.gather({k: v for k, v in params.items() if k not in blocks})
     img = dense(params["x_embedder"], hidden_states)
     txt = dense(params["context_embedder"], encoder_hidden_states)
 
@@ -169,13 +196,11 @@ def flux_apply(params, cfg: FluxConfig, hidden_states, timestep, guidance, poole
         def single(*args):
             return checkpoint(_single_block, *args, use_reentrant=False)
 
-    blocks = params["transformer_blocks"]
-    for i in sorted(blocks, key=int):
-        img, txt = dual(blocks[i], cfg, img, txt, temb, cos, sin)
+    for i in sorted(blocks["transformer_blocks"], key=int):
+        img, txt = dual(blocks["transformer_blocks"][i], cfg, img, txt, temb, cos, sin, sharding)
     x = torch.cat([txt, img], dim=1)
-    blocks = params["single_transformer_blocks"]
-    for i in sorted(blocks, key=int):
-        x = single(blocks[i], cfg, x, temb, cos, sin)
+    for i in sorted(blocks["single_transformer_blocks"], key=int):
+        x = single(blocks["single_transformer_blocks"][i], cfg, x, temb, cos, sin, sharding)
     img = x[:, txt.shape[1]:]
 
     # AdaLayerNormContinuous: the chunk order is (scale, shift)

@@ -38,18 +38,24 @@ class _QuantizedLinear(torch.autograd.Function):
         return gy @ dequantize_weight(ctx.p, gy.dtype), None, None
 
 
-def _dense_w8a8(p, x):
+def _dense_w8a8(p, x, tp=None):
     """The w8a8 route (inference only): x quantised per token (absmax / 127,
     rounded to int8), an s8 x s8 -> s32 product with the stored codes, both
     scales applied in f32, cast to x's dtype. On the card ``torch._int_mm``
     needs more than 16 rows (fewer are padded with zero rows, which is exact)
-    and K, N multiples of 8."""
+    and K, N multiples of 8. Row-parallel (``tp``, see ``dense``): the
+    absmax is the maximum over the group, so every rank quantises with the
+    same per-token scale, and the s32 products are summed over the group
+    before the scales: the same numbers as on one rank."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("the w8a8 route is inference-only: train on a weight-only quantised base")
     wq = p["weight_q"]
     n, k = wq.shape
     x32 = x.float()
-    m = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    m = x32.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        m = tp.tp_max(m)
+    m = m.clamp_min(1e-6) / 127.0
     qx = torch.round(x32 / m).to(torch.int8).reshape(-1, k)  # |x| / m <= 127 by construction
     rows = qx.shape[0]
     if qx.is_cuda:
@@ -57,28 +63,40 @@ def _dense_w8a8(p, x):
             raise ValueError(f"w8a8 on CUDA needs K and N multiples of 8: x {tuple(x.shape)}, weight_q {(n, k)}")
         if rows <= 16:
             qx = F.pad(qx, (0, 0, 0, 17 - rows))
-    y = torch._int_mm(qx, wq.t())[:rows].reshape(*x.shape[:-1], n)
-    return (y.float() * m * p["weight_scale"]).to(x.dtype)
+    y = torch._int_mm(qx, wq.t())[:rows]
+    if tp is not None:
+        y = tp.tp_sum(y.contiguous())
+    return (y.reshape(*x.shape[:-1], n).float() * m * p["weight_scale"]).to(x.dtype)
 
 
-def dense(p, x):
+def dense(p, x, tp=None):
     """x @ weight^T [+ (x @ A^T) @ B^T] [+ bias]; the low-rank term (scaling
     1.0, alpha == rank; see lora/lora.py) is added when the module dict
     carries ``lora_A`` (r, in) and ``lora_B`` (out, r). A quantised module
     (``weight_q`` / ``weight_q4`` with ``weight_scale``; utils/quantize.py)
     dequantises to x's dtype at the call, or with an ``act_quant`` marker
-    takes the w8a8 route."""
+    takes the w8a8 route.
+
+    ``tp`` (a ``parallel.sharding.FluxSharding``) makes the product
+    row-parallel: x holds this rank's slice of the contraction and p the
+    matching input columns; the partial products are summed over the
+    tensor-parallel group. The bias enters the product of the group's first
+    rank only, so the sum holds it once and one rank computes what ``dense``
+    computes without ``tp``."""
+    if tp is not None and "lora_A" in p:
+        raise ValueError("row-parallel products take merged weights, not LoRA branches")
+    lora = "lora_A" in p
     if "act_quant" in p:
-        y = _dense_w8a8(p, x)
-    elif "lora_A" not in p:  # the bias goes into the product
-        if "weight" in p:
-            return F.linear(x, p["weight"], p.get("bias"))
-        return _QuantizedLinear.apply(x, p, p.get("bias"))
-    elif "weight" in p:
-        y = F.linear(x, p["weight"])
+        y = _dense_w8a8(p, x, tp)  # under tp summed over the group before the scales
     else:
-        y = _QuantizedLinear.apply(x, p)
-    if "lora_A" in p:
+        # the bias goes into the product when there is no low-rank term; under tp on the first rank only
+        bias = None if lora or (tp is not None and tp.tp_rank != 0) else p.get("bias")
+        y = F.linear(x, p["weight"], bias) if "weight" in p else _QuantizedLinear.apply(x, p, bias)
+        if tp is not None:
+            return tp.tp_sum(y)
+        if not lora:
+            return y
+    if lora:
         y = y + F.linear(F.linear(x, p["lora_A"].to(x.dtype)), p["lora_B"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"]

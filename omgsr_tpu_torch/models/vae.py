@@ -17,6 +17,16 @@ which either records the statistics (the collect pass) or applies statistics
 handed in from outside (the per-tile pass); the JAX package keeps the hook in
 a module global. With a hook every resnet runs plain: the fused kernel takes
 no statistics from outside. Without one nothing changes.
+
+Band seam of the spatially sharded VAE (``tiled_vae.sharded_vae_*``): with a
+``band`` each rank holds a band of rows of every activation, and the band
+object does what needs the neighbours' rows or every band: each 3x3 conv
+(``band.conv3x3``, with one halo row from each neighbour), the stride-2
+downsample (``band.downsample``), every GroupNorm+SiLU
+(``band.group_norm_silu``, whose statistics are summed over the bands), and
+the mid block's attention input (``band.gather``: its norm, keys and values
+over every band's rows, its queries of this band's, ``band.own_tokens``).
+Every resnet then runs plain.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from omgsr_tpu_torch.models.layers import (
     dense,
     group_norm,
     group_norm_silu,
+    nearest_upsample_2x,
     silu,
     upsample_conv_2x,
 )
@@ -46,29 +57,38 @@ def _vae_group_norm(p, x, groups, gn_hook=None):
     return group_norm(p, x, groups, _EPS)
 
 
-def _vae_group_norm_silu(p, x, groups, gn_hook=None):
+def _vae_group_norm_silu(p, x, groups, gn_hook=None, band=None):
     """GroupNorm+SiLU (the K3 kernels on the card) when no hook is given."""
+    if band is not None:
+        return band.group_norm_silu(p, x, groups, _EPS)
     if gn_hook is not None:
         return silu(gn_hook(p, x, groups))
     return group_norm_silu(p, x, groups, _EPS)
 
 
-def _resnet(p, x, groups, gn_hook=None):
-    h = _vae_group_norm_silu(p["norm1"], x, groups, gn_hook)
-    h = conv2d(p["conv1"], h, padding=1)
-    h = _vae_group_norm_silu(p["norm2"], h, groups, gn_hook)
-    h = conv2d(p["conv2"], h, padding=1)
+def _conv3x3(p, x, band=None):
+    """A 3x3 SAME conv, across the band's edges under a band."""
+    return band.conv3x3(p, x) if band is not None else conv2d(p, x, padding=1)
+
+
+def _resnet(p, x, groups, gn_hook=None, band=None):
+    h = _vae_group_norm_silu(p["norm1"], x, groups, gn_hook, band)
+    h = _conv3x3(p["conv1"], h, band)
+    h = _vae_group_norm_silu(p["norm2"], h, groups, gn_hook, band)
+    h = _conv3x3(p["conv2"], h, band)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0)
     return x + h
 
 
-def _mid_attention(p, x, groups, gn_hook=None):
+def _mid_attention(p, x, groups, gn_hook=None, band=None):
     b, hh, ww, c = x.shape
-    h = _vae_group_norm(p["group_norm"], x, groups, gn_hook)
-    h = h.reshape(b, hh * ww, c)
+    # under a band the norm, the keys and the values take every band's rows, the queries this band's
+    full = band.gather(x) if band is not None else x
+    h = _vae_group_norm(p["group_norm"], full, groups, gn_hook)
+    h = h.reshape(b, -1, c)
     # single-head attention over spatial tokens (diffusers VAE mid block)
-    q = dense(p["to_q"], h)[:, :, None, :]
+    q = dense(p["to_q"], band.own_tokens(h) if band is not None else h)[:, :, None, :]
     k = dense(p["to_k"], h)[:, :, None, :]
     v = dense(p["to_v"], h)[:, :, None, :]
     o = dot_product_attention(q, k, v)[:, :, 0, :]
@@ -76,11 +96,11 @@ def _mid_attention(p, x, groups, gn_hook=None):
     return x + o.reshape(b, hh, ww, c)
 
 
-def _mid_block(p, x, groups, cfg: VAEConfig, gn_hook=None):
-    res = _select_resnet(cfg, gn_hook)
+def _mid_block(p, x, groups, cfg: VAEConfig, gn_hook=None, band=None):
+    res = _select_resnet(cfg, gn_hook, band)
     x = res(p["resnets"]["0"], x, groups)
     if "attentions" in p:
-        x = _mid_attention(p["attentions"]["0"], x, groups, gn_hook)
+        x = _mid_attention(p["attentions"]["0"], x, groups, gn_hook, band)
     return res(p["resnets"]["1"], x, groups)
 
 
@@ -90,10 +110,13 @@ def _fused_or_plain_resnet(p, x, groups):
     return _resnet(p, x, groups)
 
 
-def _select_resnet(cfg: VAEConfig, gn_hook=None):
+def _select_resnet(cfg: VAEConfig, gn_hook=None, band=None):
     """Resnet executor for the given config: per-resnet recompute (training),
     the fused kernels per eligible shape (inference), or the plain block; with
-    a GroupNorm hook always the plain block, through the hook."""
+    a GroupNorm hook always the plain block, through the hook, and with a
+    band the plain block across the bands."""
+    if band is not None:
+        return lambda p, x, groups: _resnet(p, x, groups, None, band)
     if cfg.remat_blocks:
         return lambda p, x, groups: checkpoint(_resnet, p, x, groups, gn_hook, use_reentrant=False)
     if gn_hook is not None:
@@ -101,21 +124,22 @@ def _select_resnet(cfg: VAEConfig, gn_hook=None):
     return _fused_or_plain_resnet if cfg.fused_resblocks else _resnet
 
 
-def vae_encode_features(params, cfg: VAEConfig, x, gn_hook=None):
+def vae_encode_features(params, cfg: VAEConfig, x, gn_hook=None, band=None):
     """pixels (B,H,W,3) in [-1,1] -> moments (B,h,w,2*latent)."""
     p = params["encoder"]
     g = cfg.norm_num_groups
-    h = conv2d(p["conv_in"], x, padding=1)
-    res = _select_resnet(cfg, gn_hook)
+    h = _conv3x3(p["conv_in"], x, band)
+    res = _select_resnet(cfg, gn_hook, band)
     for i in range(len(cfg.block_out_channels)):
         blk = p["down_blocks"][str(i)]
         for j in range(cfg.layers_per_block):
             h = res(blk["resnets"][str(j)], h, g)
         if "downsamplers" in blk:
-            h = downsample_conv_2x(blk["downsamplers"]["0"]["conv"], h)
-    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook)
-    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook)
-    h = conv2d(p["conv_out"], h, padding=1)
+            conv = blk["downsamplers"]["0"]["conv"]
+            h = band.downsample(conv, h) if band is not None else downsample_conv_2x(conv, h)
+    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook, band)
+    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook, band)
+    h = _conv3x3(p["conv_out"], h, band)
     if "quant_conv" in params:
         h = conv2d(params["quant_conv"], h, padding=0)
     return h
@@ -166,7 +190,7 @@ def vae_encode(params, cfg: VAEConfig, x, noise=None, generator=None, sample: bo
     return scale_latent(cfg, z)
 
 
-def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True, gn_hook=None):
+def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True, gn_hook=None, band=None):
     """scaled latent -> pixels in [-1,1] (un-clamped; callers clamp)."""
     if unscale:
         z = unscale_latent(cfg, z)
@@ -174,14 +198,15 @@ def vae_decode(params, cfg: VAEConfig, z, unscale: bool = True, gn_hook=None):
         z = conv2d(params["post_quant_conv"], z, padding=0)
     p = params["decoder"]
     g = cfg.norm_num_groups
-    h = conv2d(p["conv_in"], z, padding=1)
-    res = _select_resnet(cfg, gn_hook)
-    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook)
+    h = _conv3x3(p["conv_in"], z, band)
+    res = _select_resnet(cfg, gn_hook, band)
+    h = _mid_block(p["mid_block"], h, g, cfg, gn_hook, band)
     for i in range(len(cfg.block_out_channels)):
         blk = p["up_blocks"][str(i)]
         for j in range(cfg.layers_per_block + 1):
             h = res(blk["resnets"][str(j)], h, g)
         if "upsamplers" in blk:
-            h = upsample_conv_2x(blk["upsamplers"]["0"]["conv"], h)
-    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook)
-    return conv2d(p["conv_out"], h, padding=1)
+            conv = blk["upsamplers"]["0"]["conv"]
+            h = band.conv3x3(conv, nearest_upsample_2x(h)) if band is not None else upsample_conv_2x(conv, h)
+    h = _vae_group_norm_silu(p["conv_norm_out"], h, g, gn_hook, band)
+    return _conv3x3(p["conv_out"], h, band)

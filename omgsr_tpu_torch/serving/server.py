@@ -9,9 +9,21 @@ batch 1 by default, with host decode/encode overlapped in handler threads.
 Fixed-size padded micro-batches (``max_batch > 1``) are opt-in.
 
 Endpoints:
-  GET  /healthz      -> {"status": "ok", backend, device, warm size list}
+  GET  /healthz      -> {"status": "ok" (or a rank's failure), backend, device, warm size list}
   GET  /metrics      -> request/error/batch counters + latency percentiles
   POST /v1/sr?align=adain|wavelet|nofix  (body: png/jpeg bytes) -> png bytes
+  POST <path> of ``post_routes`` (JSON body) -> the route's JSON (400 on error)
+
+Multi-rank serving (one process per GPU, ``RankSync``): rank 0 owns HTTP and
+the dispatcher and broadcasts each dispatched group, each POST route call and
+the shutdown; the other ranks run ``follow``, which makes the same calls, so
+the collectives inside the pipeline meet. A call that raises on one rank
+leaves that rank at another point of the pipeline's collectives than the
+others, and no later collective can be matched up with theirs: the rank
+reports the failure in the process group's store and stops using the group.
+Rank 0 reads the report while it waits, answers the request with 502 at once
+and every later request with 502 too (the server has to be restarted); ranks
+left inside a collective end there at the group's timeout.
 
 ``SRServer.process_array`` is the same request path below the image codec
 (pre-resized uint8 H x W x 3 in, uint8 out); ``process_image`` decodes,
@@ -23,6 +35,7 @@ from __future__ import annotations
 import io
 import json
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -31,6 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from omgsr_tpu_torch.ops.color import (
     ALIGN_IDX,
@@ -77,6 +91,7 @@ class _Request:
     # a swap_infer_fn between submit and dispatch would otherwise make the
     # handler treat an un-color-fixed [-1,1] canvas as already-[0,1]
     fused_used: bool = False
+    canvas: np.ndarray | None = None  # uint8 (1, H, W, 3), bucket-padded as lq: what a multi-rank server broadcasts
 
 
 class SRServer:
@@ -86,14 +101,16 @@ class SRServer:
     tensor in [-1,1] on the serving device.
     """
 
-    def __init__(self, infer_fn, opts: ServeOptions | None = None, fused_infer_fn=None, device="cuda"):
+    def __init__(self, infer_fn, opts: ServeOptions | None = None, fused_infer_fn=None, device="cuda", sync=None):
         """fused_infer_fn (optional): ``(lq (B,H,W,3) [-1,1], index, hw (B,2)
         int32, align_idx (B,) int32) -> color-fixed batch in [0,1]``: the SR
         step AND the per-request color fix in one dispatch (the fix runs
         masked on the bucket-padded canvas, equal to crop-then-fix; see
         ops/color.py). When absent, the two-dispatch path (infer_fn, then
         the fix on the handler thread) is used. ``device`` is the device the
-        infer functions compute on; it is reported by /healthz."""
+        infer functions compute on; it is reported by /healthz. ``sync``: the
+        ``RankSync`` of a multi-rank server; on a rank other than 0 no
+        dispatcher runs and ``follow`` takes its place."""
         self.device = resolve_device(device)
         self.infer_fn = infer_fn
         self.fused_infer_fn = fused_infer_fn
@@ -108,8 +125,15 @@ class SRServer:
         self._warm: list = []
         self._seq = 0
         self._stop = threading.Event()
+        self.post_routes: dict = {}  # path -> fn(body bytes) -> JSON-able dict
+        self._reload_lock = threading.Lock()
+        self._dispatch_busy = threading.Lock()  # held across each dispatch (and its broadcast)
+        self._sync = sync
+        self._rank_failure: str | None = None  # the first failure a rank of a multi-rank server reported
+        self.follower = sync is not None and sync.rank != 0
         self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
-        self._dispatcher.start()
+        if not self.follower:
+            self._dispatcher.start()
         self._httpd: ThreadingHTTPServer | None = None
 
     # ---- dispatch -----------------------------------------------------------
@@ -163,31 +187,86 @@ class SRServer:
     def _dispatch_group(self, group):
         opts = self.opts
         n = len(group)
-        # read BOTH fns once: a concurrent swap_infer_fn must not be observed
-        # half-way
-        fused_fn, plain_fn = self.fused_infer_fn, self.infer_fn
         # pad to the fixed batch so every dispatch of a bucket has one shape
         b = opts.max_batch if opts.max_batch > 1 else 1
         pad = [group[-1]] * (b - n)
         lq = np.concatenate([r.lq for r in group + pad]).astype(np.float32)
+        hw = np.asarray([r.true_hw for r in group + pad], np.int32)
+        align = np.asarray([ALIGN_IDX[r.align] for r in group + pad], np.int32)
+        if self.rank_failure() is not None:
+            for r in group:
+                r.error = DispatchError(self._failed_message())
+        elif getattr(self.infer_fn, "unavailable", False):
+            self._run_group(group, self.fused_infer_fn, self.infer_fn, lq, hw, align)  # fails fast: no model
+        else:
+            with self._dispatch_busy:
+                # read BOTH fns once, under the lock a reload holds: a concurrent
+                # swap_infer_fn must not be observed half-way
+                fused_fn, plain_fn = self.fused_infer_fn, self.infer_fn
+                mirrored = self._sync is not None and not getattr(plain_fn, "unavailable", False)
+                if mirrored:
+                    canvas = np.concatenate([r.canvas for r in group + pad])
+                    self._sync.send_group(canvas, group[0].index, hw, align, fused_fn is not None)
+                ok = self._run_group(group, fused_fn, plain_fn, lq, hw, align)
+                if not ok and mirrored and self._sync.world > 1:  # one rank alone cannot fall out of step
+                    self._rank_failure = self._sync.report_failure(str(group[0].error))
+        for r in group:
+            r.done.set()
+        with self._lock:
+            self._stats["batches"] += 1
+            self._stats["batched_images"] += n
+
+    @staticmethod
+    def _run_group(group, fused_fn, plain_fn, lq, hw, align) -> bool:
         try:
             if fused_fn is not None:
-                hw = np.asarray([r.true_hw for r in group + pad], np.int32)
-                align = np.asarray([ALIGN_IDX[r.align] for r in group + pad], np.int32)
                 out = fused_fn(lq, group[0].index, hw, align)
             else:
                 out = plain_fn(lq, group[0].index)
             for j, r in enumerate(group):
                 r.result = out[j : j + 1]
                 r.fused_used = fused_fn is not None
+            return True
         except Exception as e:  # noqa: BLE001 — a device/model fault, not bad input
             for r in group:
                 r.error = DispatchError(f"{type(e).__name__}: {e}")
-        for r in group:
-            r.done.set()
-        with self._lock:
-            self._stats["batches"] += 1
-            self._stats["batched_images"] += n
+            return False
+
+    def rank_failure(self) -> str | None:
+        """The failure a rank of a multi-rank server reported, if any (None on
+        one process)."""
+        if self._rank_failure is None and self._sync is not None:
+            self._rank_failure = self._sync.failure()
+        return self._rank_failure
+
+    def _failed_message(self) -> str:
+        return f"a rank of this multi-rank server failed ({self._rank_failure}); restart the server"
+
+    def follow(self):
+        """A follower rank's loop: make every call that rank 0 broadcasts (each
+        group's infer function, each POST route) until rank 0 shuts down, or
+        until a call raises here: the failure is then reported to rank 0
+        (see the module's docstring) and the loop ends."""
+        while True:
+            msg = self._sync.receive()
+            if msg[0] == "stop":
+                return
+            if msg[0] == "post":
+                try:
+                    self.post_routes[msg[1]](msg[2])
+                except Exception:  # noqa: BLE001 — the route agrees its outcome with rank 0 itself
+                    pass
+                continue
+            _, lq, index, hw, align, fused = msg
+            try:
+                if fused:
+                    self.fused_infer_fn(lq, index, hw, align)
+                else:
+                    self.infer_fn(lq, index)
+            except Exception as e:  # noqa: BLE001 — reported to rank 0, which answers 502
+                self._rank_failure = self._sync.report_failure(f"{type(e).__name__}: {e}")
+                print(f"rank {self._sync.rank}: {self._rank_failure}; leaving the group", file=sys.stderr, flush=True)
+                return
 
     # ---- request path -------------------------------------------------------
 
@@ -204,6 +283,8 @@ class SRServer:
                 f"expected a pre-resized (H, W, 3) image with H and W multiples of 8, got {arr_u8.shape}"
             )
         lq, src01, true_hw = array_to_sr_input(arr_u8, opts.size_bucket)
+        if self.rank_failure() is not None:
+            raise DispatchError(self._failed_message())
         with self._lock:
             if self._stop.is_set():
                 raise DispatchError("server shutting down")
@@ -212,23 +293,40 @@ class SRServer:
             self._in_flight += 1
             self._seq += 1
             req = _Request(lq=lq, index=self._seq, true_hw=true_hw, align=method)
+        if self._sync is not None:  # the same reflect padding on the uint8 pixels
+            pad = ((0, 0), (0, lq.shape[1] - arr_u8.shape[0]), (0, lq.shape[2] - arr_u8.shape[1]), (0, 0))
+            req.canvas = np.pad(arr_u8[None], pad, mode="reflect")
         try:
             self._queue.put(req)
-            if not req.done.wait(timeout=opts.request_timeout_s):
-                raise RequestTimeout(f"no result within {opts.request_timeout_s}s")
+            self._wait(req)
             if req.error is not None:
                 raise req.error
             fused = req.fused_used  # the path the dispatcher ACTUALLY ran
             try:
-                return sr_output_to_uint8(
+                out = sr_output_to_uint8(
                     req.result, src01, true_hw,
                     None if fused else self._fix.get(method), already01=fused,
                 )
             except FloatingPointError as e:  # a model fault, not bad input
                 raise DispatchError(str(e)) from e
+            return out
         finally:
             with self._lock:
                 self._in_flight -= 1
+
+    def _wait(self, req: _Request) -> None:
+        """Wait for the dispatcher to finish ``req``, at most the request
+        timeout. A multi-rank server also stops waiting, with a 502, as soon as
+        a rank reports a failure: the dispatch may then be held in a collective
+        that no rank will join."""
+        opts = self.opts
+        deadline = time.monotonic() + opts.request_timeout_s
+        step = 0.2 if self._sync is not None else opts.request_timeout_s
+        while not req.done.wait(timeout=max(0.0, min(step, deadline - time.monotonic()))):
+            if self.rank_failure() is not None:
+                raise DispatchError(self._failed_message())
+            if time.monotonic() >= deadline:
+                raise RequestTimeout(f"no result within {opts.request_timeout_s}s")
 
     def _record(self, t_start: float) -> None:
         with self._lock:
@@ -285,8 +383,9 @@ class SRServer:
     def health(self) -> dict:
         dev = self.device
         is_cuda = dev.type == "cuda"
+        failure = self.rank_failure()
         return {
-            "status": "ok",
+            "status": "ok" if failure is None else f"failed: {failure}",
             "backend": dev.type,
             "device": torch.cuda.get_device_name(dev) if is_cuda else "cpu",
             "devices": torch.cuda.device_count() if is_cuda else 1,
@@ -349,6 +448,13 @@ class SRServer:
 
             def do_POST(self):
                 path, _, query = self.path.partition("?")
+                if path in server.post_routes:
+                    try:
+                        n = int(self.headers.get("Content-Length", 0))
+                        self._send_json(200, server.post_routes[path](self.rfile.read(n)))
+                    except Exception as e:  # noqa: BLE001
+                        self._fail(400, f"{type(e).__name__}: {e}")
+                    return
                 if path != "/v1/sr":
                     self._send_json(404, {"error": "not found"})
                     return
@@ -376,11 +482,18 @@ class SRServer:
         return httpd
 
     def shutdown(self):
+        """Stop serving; on rank 0 of a multi-rank server also end the
+        followers' loops."""
         self._stop.set()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
-        self._dispatcher.join(timeout=5)
+        if not self.follower:
+            self._dispatcher.join(timeout=5)
+        # after a rank's failure the followers have left (or wait at the group's timeout): nothing to stop
+        if self._sync is not None and not self.follower and self.rank_failure() is None:
+            with self._dispatch_busy:
+                self._sync.send_stop()
 
 
 def make_fused_infer(pipeline_call, model_dtype, device="cuda"):
@@ -404,6 +517,97 @@ def make_fused_infer(pipeline_call, model_dtype, device="cuda"):
         return switched_color_fix_batch(out01, src01, hw, align_idx)
 
     return fused_fn
+
+
+class RankSync:
+    """The messages between rank 0 of a multi-rank server and its followers,
+    over the default process group: rank 0 broadcasts a header (the command
+    and sizes) and the payload; ``all_ok`` reduces a status flag over calls
+    that make no collective of their own (a reload's rebuild). A failure in a
+    call that does (a group's infer function) is reported in the group's
+    store instead, where rank 0 reads it without a collective. Tensors go
+    over the backend's device: the current CUDA device for NCCL, the host for
+    gloo. A group's images travel as their uint8 pixels, bucket-padded: each
+    follower makes the float input from them with the ops that made rank 0's
+    from the request's pixels (``utils/image_io.array_to_sr_input``), so all
+    ranks compute on the same numbers."""
+
+    _GROUP, _POST, _STOP = 0, 1, 2
+
+    _instances = 0  # every rank builds its servers in the same order: the count names the failure key
+
+    def __init__(self):
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self._store = dist.distributed_c10d._get_default_store()
+        self._key = f"omgsr_tpu_torch/serve/{RankSync._instances}/failure"
+        RankSync._instances += 1
+        nccl = dist.get_backend() == "nccl"
+        self.device = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+
+    def _header(self, values=None):
+        t = torch.zeros(8, dtype=torch.int64, device=self.device)
+        if values is not None:
+            t[: len(values)] = torch.as_tensor(values, dtype=torch.int64)
+        dist.broadcast(t, src=0)
+        return values if values is not None else [int(v) for v in t.cpu()]
+
+    def _payload(self, array=None, shape=None, dtype=None):
+        """Rank 0 sends ``array``; a follower receives one of ``shape``."""
+        if array is not None:
+            dist.broadcast(torch.from_numpy(np.ascontiguousarray(array)).to(self.device), src=0)
+            return array
+        t = torch.empty(shape, dtype=dtype, device=self.device)
+        dist.broadcast(t, src=0)
+        return t.cpu().numpy()
+
+    def send_group(self, canvas, index, hw, align, fused: bool):
+        """Rank 0: broadcast one dispatch (uint8 canvas (B, H, W, 3))."""
+        b, h, w, _ = canvas.shape
+        self._header([self._GROUP, b, h, w, index, int(fused)])
+        self._payload(canvas)
+        self._payload(np.concatenate([hw.reshape(b, 2), align.reshape(b, 1)], axis=1).astype(np.int32))
+
+    def send_post(self, path: str, body: bytes):
+        data = path.encode() + body
+        self._header([self._POST, len(path.encode()), len(body)])
+        if data:
+            self._payload(np.frombuffer(data, np.uint8))
+
+    def send_stop(self):
+        self._header([self._STOP])
+
+    def receive(self):
+        """A follower: the next message, ("group", lq, index, hw, align, fused),
+        ("post", path, body) or ("stop",)."""
+        cmd, *rest = self._header()
+        if cmd == self._STOP:
+            return ("stop",)
+        if cmd == self._POST:
+            n_path, n_body = rest[:2]
+            data = self._payload(shape=(n_path + n_body,), dtype=torch.uint8).tobytes() if n_path + n_body else b""
+            return ("post", data[:n_path].decode(), data[n_path:])
+        b, h, w, index, fused = rest[:5]
+        u8 = self._payload(shape=(b, h, w, 3), dtype=torch.uint8)
+        meta = self._payload(shape=(b, 3), dtype=torch.int32)
+        lq = (u8.astype(np.float32) / 255.0 * 2.0 - 1.0).astype(np.float32)
+        return ("group", lq, index, meta[:, :2].copy(), meta[:, 2].copy(), bool(fused))
+
+    def all_ok(self, ok: bool) -> bool:
+        """True when the call succeeded on every rank: a collective, so every
+        rank must reach it."""
+        flag = torch.tensor([0 if ok else 1], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return int(flag.item()) == 0
+
+    def report_failure(self, message: str) -> str:
+        """Publish this rank's failure (the first one stays) and return it."""
+        message = f"rank {self.rank}: {message}"
+        self._store.compare_set(self._key, "", message)
+        return self.failure()
+
+    def failure(self) -> str | None:
+        """The failure a rank reported, or None; no collective."""
+        return self._store.get(self._key).decode() if self._store.check([self._key]) else None
 
 
 class OverloadedError(RuntimeError):

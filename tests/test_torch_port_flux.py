@@ -257,10 +257,11 @@ def test_pipeline_default_tile_batch(pipes, monkeypatch, hw, calls):
     assert seen == calls, seen
 
 
-def test_unported_parts_raise(pipes, tmp_path):
+def test_unported_parts_raise(pipes, tmp_path, capsys):
     _, _, tvp, tfp, _, _ = pipes
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        OMGSRFPipeline(tvp, tfp, T_VAE, T_FLUX, device="cpu").shard_for_mesh(None)
+    # multi-GPU serving is ported (tests/test_torch_port_parallel.py); an unknown strategy is refused
+    with pytest.raises(ValueError, match="strategy"):
+        OMGSRFPipeline(tvp, tfp, T_VAE, T_FLUX, device="cpu").shard_for_mesh(None, strategy="pipeline")
     base = ["--input_image", str(tmp_path), "--output_dir", str(tmp_path), "--flux_path", str(tmp_path),
             "--device", "cpu"]
     # the prompt encoders are ported: without --prompt_npz the prompt needs the checkpoint's encoders
@@ -269,8 +270,10 @@ def test_unported_parts_raise(pipes, tmp_path):
     # the quantised DiT is ported (tests/test_torch_port_quantize.py): --quantize reaches the directory
     with pytest.raises(FileNotFoundError):
         CLI.build_pipeline(CLI.parse_args(base + ["--quantize", "int8"]), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    # --shard in one process without a process group runs unsharded, as the JAX CLI does with one device
+    with pytest.raises(FileNotFoundError, match="p.npz"):
         CLI.main(CLI.parse_args(base + ["--shard", "tiles", "--prompt_npz", "p.npz"]))
+    assert "--shard tiles: only one device visible — running unsharded" in capsys.readouterr().out
     with pytest.raises(ValueError, match="--flux_path"):
         serve.build_server(serve.parse_args(["--pipeline", "f", "--device", "cpu", "--prompt_npz", "p.npz"]))
 

@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax():
                 "diffusion.packing", "inference.pipeline_f", "cli.infer_omgsr_f", "cli.mid_timestep_flux",
                 "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f",
                 "utils.quantize", "utils.metrics", "utils.niqe", "utils.lpips", "models.clip_vision",
-                "cli.eval_sr"):
+                "cli.eval_sr", "parallel", "parallel.distributed", "parallel.sharding"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -213,13 +213,16 @@ def test_unported_options_raise_naming_their_slice():
     vp, up = init_vae(0, vc, device="cpu"), init_unet(1, uc, device="cpu")
     from omgsr_tpu_torch.inference import tiled_vae
 
-    # the tiled VAE is ported; its multi-GPU sharded mode is not
+    # the tiled VAE and the multi-GPU paths are ported (tests/test_torch_port_parallel.py): a mesh needs a
+    # process group, and -S has one strategy
+    from omgsr_tpu_torch.parallel import create_mesh
+
     OMGSRSPipeline(vp, up, vc, uc, vae_tile=64, vae_stats="exact", device="cpu")
-    for fn in (tiled_vae.sharded_vae_encode, tiled_vae.sharded_vae_decode):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            fn(vp, vc, torch.zeros(1, 16, 16, 3), None)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        OMGSRSPipeline(vp, up, vc, uc, device="cpu").shard_for_mesh(None)
+    assert callable(tiled_vae.sharded_vae_encode) and callable(tiled_vae.sharded_vae_decode)
+    with pytest.raises(RuntimeError, match="parallel.initialize"):
+        create_mesh({"data": 1})
+    with pytest.raises(ValueError, match="strategy='tiles'"):
+        OMGSRSPipeline(vp, up, vc, uc, device="cpu").shard_for_mesh(None, strategy="fsdp")
     # the load path is ported: a checkpoint directory that is not there is named
     with pytest.raises(FileNotFoundError, match="/nowhere"):
         serve.build_server(serve.parse_args(["--sd_path", "/nowhere", "--device", "cpu"]))
@@ -232,7 +235,7 @@ def test_unported_options_raise_naming_their_slice():
         load_safetensors_dir("/nowhere/vae")
     from omgsr_tpu_torch.cli import infer_omgsr_s
 
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(FileNotFoundError, match="/nowhere"):  # --shard tiles takes its mesh in main
         infer_omgsr_s.build_pipeline(infer_omgsr_s.parse_args(
             ["--input_image", "x", "--output_dir", "x", "--sd_path", "/nowhere", "--shard", "tiles"]), torch.float32,
             "cpu")
@@ -243,7 +246,7 @@ def test_unported_options_raise_naming_their_slice():
         serve.build_server(args)
     with pytest.raises(SystemExit):
         serve.parse_args(["--pipeline", "x"])
-    # the quantised DiT is ported: --quantize and quantize_base build; --shard still raises
+    # the quantised DiT is ported: --quantize and quantize_base build, and --shard reaches the directory
     from omgsr_tpu_torch.cli import infer_omgsr_f, train_omgsr_f
     from omgsr_tpu_torch.config import TrainConfig
     from omgsr_tpu_torch.convert.params import init_flux
@@ -262,7 +265,7 @@ def test_unported_options_raise_naming_their_slice():
         assert key in infer_omgsr_f.quantize_flux(fp, mode, 64, "cpu")["transformer_blocks"]["0"]["attn"]["to_q"]
     with pytest.raises(ValueError, match="flux_path"):  # quantize_base passes its check, then needs a directory
         train_omgsr_f.build_frozen_f(TrainConfig(quantize_base="int4"), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
         infer_omgsr_f.build_pipeline(infer_omgsr_f.parse_args(
             ["--input_image", "x", "--output_dir", "x", "--flux_path", "/nowhere", "--quantize", "int8",
              "--shard", "fsdp"]), torch.float32, "cpu")
