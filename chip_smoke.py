@@ -138,6 +138,20 @@ them. Phases, each of which must pass:
            kernels' bound), and the same routes in f32 at 1024 px against the
            unsharded f32 pipeline and VAE. Within one uint8 step where the
            products differ; launch counts and shapes
+  train-dist  multi-GPU LoRA-GAN training: on a one-rank NCCL group, -S at
+           512 px and -F at 1024 px at full width and depth through
+           run_training (2 optimizer steps at accumulation 2) on {data: 1}
+           and {fsdp: 1}, the unsharded run's losses and LoRA and heads
+           digests bit for bit; then a world of two processes sharing the
+           card over gloo takes one step of -S {data: 2} (bf16 and f32),
+           -S {fsdp: 2} (the UNet placed), -F {data: 2} at 2 + 2 blocks (bf16
+           at 1024 px, f32 at 512 px) and -F {fsdp: 2} at full depth (the
+           DiT placed block by block as it is drawn), each against the
+           one-process step on the same global batch (bf16 deviations
+           reported; f32 within rtol 1e-3 on the metrics and rel L2 1e-4 on
+           the LoRA; FSDP the same bits, at worst the f32 bound); s a
+           micro-step, all-reduce and gather ms (gloo, host-staged), peak per
+           rank; launch counts and shapes
 
 Every phase that serves, trains or runs a CLI records the shapes at which K1,
 K2a/K2b and K3a/K3b launched and holds each shape that the kernels phase does
@@ -4165,6 +4179,420 @@ def phase_shard(card, vae_params, unet_params, flux_vae, flux_params, ckpt_dir, 
     return {k: counts[k] + counts2[k] for k in counts}, timings
 
 
+# ----------------------------------------------------------------------------
+# phase: train-dist (multi-GPU LoRA-GAN training on a one-rank NCCL group, and two ranks on the one card)
+# ----------------------------------------------------------------------------
+
+# the two-rank holds in f32 (TF32 off): the gradient is a mean of two halves, so only the order of the f32
+# sums differs from the one-process step on the whole batch
+TD_METRIC_RTOL = 1e-3
+TD_LORA_REL_L2 = 1e-4
+TD_F_DEPTH = F_LOAD_DEPTH  # -F {data: 2}: two whole bf16 DiTs and two steps do not fit one card
+TD_F32_F_RES = 512  # the -F {data: 2} f32 hold: two f32 steps of the 2 + 2-block DiT share the card
+TD_WORLD_TIMEOUT_S = 600.0
+# the cases of the world of two: (name, kind, dtype, resolution, global batch, mesh axis); the batch of an
+# "fsdp" case is replicated, so each rank runs the train phases' shapes at batch 1
+TD_CASES = [("-S {data: 2} bf16", "s", torch.bfloat16, 512, 2, "data"),
+            ("-S {fsdp: 2} bf16", "s", torch.bfloat16, 512, 1, "fsdp"),
+            ("-S {data: 2} f32", "s", torch.float32, 512, 2, "data"),
+            ("-F {data: 2} bf16", "f", torch.bfloat16, F_TRAIN_RES, 2, "data"),
+            ("-F {data: 2} f32", "f", torch.float32, TD_F32_F_RES, 2, "data"),
+            ("-F {fsdp: 2} bf16", "f", torch.bfloat16, F_TRAIN_RES, 1, "fsdp")]
+
+
+def collective_summary(ct, micro_steps, forwards):
+    """The gradient and metric means a micro-step and the gathers a forward,
+    with their counts and medians, from ``collective_times``' lists."""
+    def med(xs):
+        return statistics.median(xs) if xs else 0.0
+
+    return (f"gradient and metric means {sum(ct['all_reduce']) / micro_steps:.2f} ms a micro-step "
+            f"({len(ct['all_reduce'])} all-reduces, median {med(ct['all_reduce']):.2f} ms); FSDP gathers "
+            f"{sum(ct['gather']) / forwards:.1f} ms a forward ({len(ct['gather'])} gathers of "
+            f"{ct['gather_bytes'] / forwards / 1e9:.3f} GB, median {med(ct['gather']):.2f} ms)")
+
+
+def case_key(name):
+    return re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
+
+
+def fsdp_bytes(tree):
+    """Bytes of the whole leaves that gathering ``tree``'s FSDP chunks makes."""
+    from omgsr_tpu_torch.parallel.sharding import FSDPLeaf
+
+    if isinstance(tree, dict):
+        return sum(fsdp_bytes(v) for v in tree.values())
+    return math.prod(tree.shape) * tree.dtype.itemsize if isinstance(tree, FSDPLeaf) else 0
+
+
+@contextlib.contextmanager
+def collective_times():
+    """Inside, the ms of every mean over "data" of the trainers (gradients
+    and metrics) and of every FSDP gather of a subtree, listed in the dict
+    this yields once the block has ended, with the bytes the gathers made.
+    Each call is bracketed by two CUDA events on the current stream, read
+    after the block: no host sync is added, so a step timed inside runs as
+    it runs without them (a gloo collective blocks the host by itself)."""
+    from omgsr_tpu_torch.parallel import sharding as SH
+    from omgsr_tpu_torch.training import trainer as TR
+
+    out = {"all_reduce": [], "gather": [], "gather_bytes": 0}
+    pending = {"all_reduce": [], "gather": []}
+    reduce, gather = TR.all_reduce_mean_tree, SH.Sharding.gather
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if key == "gather":
+                out["gather_bytes"] += fsdp_bytes(a[1])
+            start.record()
+            r = fn(*a, **kw)
+            end.record()
+            pending[key].append((start, end))
+            return r
+
+        return call
+
+    TR.all_reduce_mean_tree, SH.Sharding.gather = timed(reduce, "all_reduce"), timed(gather, "gather")
+    try:
+        yield out
+    finally:
+        TR.all_reduce_mean_tree, SH.Sharding.gather = reduce, gather
+        torch.cuda.synchronize()
+        for key, events in pending.items():
+            out[key] = [a.elapsed_time(b) for a, b in events]
+
+
+def td_forwards(kind):
+    """Denoiser forwards a micro-step runs: -F recomputes each DiT block in
+    its backward (the gathers run again), -S trains without recompute."""
+    return 2 if kind == "f" else 1
+
+
+def td_frozen(kind, dtype, flux_cfg=FLUX_DEV, vae_params=None, denoiser=None, finish=None):
+    """The frozen bundle of the train (-S) and train-f (-F) phases from their
+    seeds in ``dtype`` (or the weights handed in): SD2.1 or FLUX.1-dev at
+    ``flux_cfg``'s depth, ConvNeXt-L, the prompt. ``finish`` places each DiT
+    block as it is drawn. A denoiser handed in enters the bundle as a copy
+    of its dicts (the same tensors): run_training consumes the tree it
+    places. Returns (bundle, the ConvNeXt config)."""
+    cn_cfg = CONVNEXT_SIZES["large"]
+    if denoiser is not None:
+        denoiser = unflatten_dict(flatten_dict(denoiser))
+    backbone = init_convnext(2, cn_cfg, dtype, "cuda")
+    frozen = {"backbone": backbone, "dists": init_dists(backbone, cn_cfg.dims)}
+    if kind == "s":
+        prompt = np.random.default_rng(3).standard_normal((1, 77, 1024)).astype(np.float32)
+        frozen.update(vae=vae_params if vae_params is not None else init_vae(0, SD21_VAE, dtype, "cuda"),
+                      vae_cfg=SD21_VAE, unet=denoiser if denoiser is not None else init_unet(1, SD21_UNET, dtype, "cuda"),
+                      unet_cfg=SD21_UNET, prompt_embeds=torch.from_numpy(prompt).to("cuda", dtype))
+    else:
+        prompt, pooled = flux_prompt(17)
+        frozen.update(vae=vae_params if vae_params is not None else init_vae(9, FLUX_VAE, dtype, "cuda"),
+                      vae_cfg=FLUX_VAE,
+                      flux=denoiser if denoiser is not None else init_flux(8, flux_cfg, dtype, "cuda", finish=finish),
+                      flux_cfg=flux_cfg, prompt_embeds=torch.from_numpy(prompt).to("cuda", dtype),
+                      pooled_prompt_embeds=torch.from_numpy(pooled).to("cuda", dtype))
+    return frozen, cn_cfg
+
+
+def td_cfg(kind, dtype, res, out_dir, accumulation=1, steps=1):
+    """The train / train-f phases' configuration (LoRA ranks 16 / 32 and 64 /
+    64, -F under per-block recompute, seed 123)."""
+    kw = dict(output_dir=out_dir, resolution=res, train_batch_size=1, gradient_accumulation_steps=accumulation,
+              max_train_steps=steps, lr_warmup_steps=0, checkpointing_steps=1000, save_img_steps=1000, seed=123,
+              mixed_precision="bf16" if dtype == torch.bfloat16 else "no",
+              extra={"disc_channels": list(CONVNEXT_SIZES["large"].dims[:3]),
+                     "metrics_jsonl": os.path.join(out_dir, "metrics.jsonl")})
+    if kind == "s":
+        kw.update(vae_lora_rank=16, unet_lora_rank=32)
+    else:
+        kw.update(model="omgsr_f_1024", vae_lora_rank=64, flux_transformer_lora_rank=64, gradient_checkpointing=True,
+                  mid_timestep=244)
+    return TrainConfig(**kw)
+
+
+def td_pairs(kind, n, res, seed=60):
+    """A global batch of ``n`` synthetic pairs (numpy, [-1, 1])."""
+    pairs = [f_pair(seed + i, res) for i in range(n)]
+    return {k: np.concatenate([p[k] for p in pairs]) for k in ("lq", "hq")}
+
+
+def td_step(kind, cfg, frozen, cn_cfg, batch, mesh=None):
+    """One micro-step (accumulation 1) of a fresh trainer drawn as
+    run_training draws it (the VAE-encoder LoRA, the denoiser's, the heads,
+    then the step's noise for the global batch, from one generator seeded
+    with cfg.seed), on this rank's rows of ``batch``; the frozen denoiser is
+    placed already where the mesh has "fsdp". Returns (metrics, trainer, s)."""
+    from omgsr_tpu_torch.convert.params import init_discriminator
+    from omgsr_tpu_torch.lora import SD_TARGET_MODULES, init_lora_tree
+    from omgsr_tpu_torch.parallel.sharding import data_rows
+    from omgsr_tpu_torch.training.trainer import TrainerF, TrainerS, step_noise_rows
+
+    dtype = torch.bfloat16 if cfg.mixed_precision == "bf16" else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.seed))
+    key, targets, rank = (("unet", SD_TARGET_MODULES, cfg.unet_lora_rank) if kind == "s"
+                          else ("flux", FLUX_TARGET_MODULES, cfg.flux_transformer_lora_rank))
+    lora = {"vae_encoder": init_lora_tree(gen, frozen["vae"]["encoder"], SD_TARGET_MODULES, cfg.vae_lora_rank, dtype),
+            "denoiser": init_lora_tree(gen, frozen[key], targets, rank, dtype)}
+    disc = init_discriminator(gen, cn_cfg.dims[:3], cfg.resolution, dtype, "cuda")
+    trainer = (TrainerS if kind == "s" else TrainerF)(cfg, frozen, lora, disc, mesh)
+    b, res, vcfg = batch["hq"].shape[0], cfg.resolution, frozen["vae_cfg"]
+    noise = draw_step_noise(gen, (b, res, res, 3), (b, res // vcfg.downscale, res // vcfg.downscale,
+                                                    vcfg.latent_channels), "cuda", dtype)
+    start, count = data_rows(b, mesh)
+    rows = {k: torch.from_numpy(v[start:start + count]).to("cuda", dtype) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, _ = trainer.train_step(rows, step_noise_rows(noise, start, count))
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in metrics.items()}, trainer, time.perf_counter() - t0
+
+
+def td_outputs(metrics, trainer):
+    """The metrics, LoRA and heads after a step, on the host."""
+    return {"metrics": metrics, **{what: {p: v.detach().cpu() for p, v in flatten_dict(tree).items()}
+                                   for what, tree in (("lora", trainer.state["gen"]["lora"]),
+                                                      ("heads", trainer.state["disc"]["params"]))}}
+
+
+def td_against(got, ref):
+    """(the same bits, max relative metric difference, LoRA rel L2, heads rel
+    L2) of a step's outputs against the reference step's."""
+    same = got["metrics"] == ref["metrics"] and all(
+        torch.equal(got[w][p], ref[w][p]) for w in ("lora", "heads") for p in ref[w])
+    rel = max(abs(got["metrics"][k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-6) for k in METRICS)
+
+    def l2(what):
+        d = sum(float((got[what][p].double() - ref[what][p].double()).square().sum()) for p in ref[what])
+        n = sum(float(ref[what][p].double().square().sum()) for p in ref[what])
+        return math.sqrt(d / n)
+
+    return same, rel, l2("lora"), l2("heads")
+
+
+def td_run_training(kind, frozen, cn_cfg, work_dir, name, mesh):
+    """run_training (2 optimizer steps at accumulation 2) with the train or
+    train-f phase's pairs; returns (losses of the two steps, LoRA and heads
+    digests, wall s, collective times)."""
+    res = 512 if kind == "s" else F_TRAIN_RES
+    out_dir = os.path.join(work_dir, f"train_dist_{kind}_{name}")
+    cfg = td_cfg(kind, torch.bfloat16, res, out_dir, accumulation=2, steps=2)
+    loader = [f_pair((10 if kind == "s" else 30) + i, res) for i in range(4)]
+    cli = train_cli if kind == "s" else train_f_cli
+    with collective_times() as ct:
+        t0 = time.perf_counter()
+        trainer = cli.run_training(cfg, frozen=frozen, loader=loader, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses = [[l[k] for k in METRICS] for l in map(json.loads, open(os.path.join(out_dir, "metrics.jsonl")))]
+    assert len(losses) == 2 and all(math.isfinite(x) for l in losses for x in l), losses
+    out = (losses, digest(trainer.state["gen"]["lora"]), digest(trainer.state["disc"]["params"]), wall, ct)
+    del trainer
+    return out
+
+
+def train_dist_one_rank(card, vae_params, unet_params, flux_vae, flux_params, work_dir, timings):
+    """-S at 512 px and -F at 1024 px at full width and depth through
+    run_training (2 optimizer steps at accumulation 2) unsharded, on {data: 1}
+    and on {fsdp: 1} of a one-rank NCCL group formed in-process: the same
+    losses and LoRA and heads digests. Then the reference of the world's -F
+    {fsdp: 2} case: one micro-step on the serve-f DiT. Returns it, with the
+    launch counts and shapes."""
+    from omgsr_tpu_torch.parallel import create_mesh, distributed
+
+    assert distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", timeout_s=600)
+    try:
+        reset_counts()
+        with launch_shapes() as seen:
+            for kind in ("s", "f"):
+                runs = {}
+                for name, shape in (("unsharded", None), ("data", {"data": 1}), ("fsdp", {"fsdp": 1})):
+                    frozen, cn_cfg = td_frozen(kind, torch.bfloat16, vae_params=vae_params if kind == "s" else flux_vae,
+                                               denoiser=unet_params if kind == "s" else flux_params)
+                    rest = torch.cuda.memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+                    runs[name] = td_run_training(kind, frozen, cn_cfg, work_dir, name,
+                                                 create_mesh(shape) if shape else None)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    del frozen
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    losses, lora_d, heads_d, wall, ct = runs[name]
+                    same = name == "unsharded" or (losses, lora_d, heads_d) == runs["unsharded"][:3]
+                    label = f"-{kind.upper()} " + (name if shape is None else "{%s: 1}" % name)
+                    timings[f"train_dist_one_rank_{kind}_{name}_s"] = wall
+                    print(f"train-dist: {label} on the one-rank NCCL group: run_training 2 optimizer steps (4 "
+                          f"micro-steps) in {wall:.2f} s ({wall / 4:.4f} s a micro-step, the loop's host work "
+                          f"included); {collective_summary(ct, 4, 4 * td_forwards(kind))}; peak {peak:.2f} GiB ("
+                          f"{rest:.2f} GiB allocated before it, earlier phases' weights included); "
+                          f"losses, LoRA and heads digests "
+                          f"{'the unsharded run_training bits' if same else 'DIFFER'} [{card}]", flush=True)
+                    assert same, (label, losses, runs["unsharded"][0])
+            # the reference of the world's -F {fsdp: 2} case: one micro-step on the whole DiT, unsharded
+            frozen, cn_cfg = td_frozen("f", torch.bfloat16, vae_params=flux_vae, denoiser=flux_params)
+            name, kind, dtype, res, b, _ = TD_CASES[-1]
+            metrics, trainer, s = td_step(kind, td_cfg(kind, dtype, res, work_dir), frozen, cn_cfg,
+                                          td_pairs(kind, b, res))
+            f_ref = td_outputs(metrics, trainer)
+            del trainer, frozen
+        counts = read_counts()
+    finally:
+        distributed.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train-dist: the one-rank group's launches {counts}; the reference micro-step of {name} (the whole DiT "
+          f"on one process) {s:.4f} s [{card}]", flush=True)
+    return f_ref, counts, seen
+
+
+def td_tree_digest(trainer):
+    """One int64 tensor on the card: the word sums of the LoRA, the heads and
+    the spectral-norm u (for the ranks' all-gather)."""
+    words = [sum(digest(trainer.state[a][b]).values(), ()) for a, b in (("gen", "lora"), ("disc", "params"),
+                                                                         ("disc", "sn"))]
+    return torch.tensor([sum(w[0::2]) for w in words] + [sum(w[1::2]) for w in words], dtype=torch.float64,
+                        device="cuda")
+
+
+def train_dist_rank(rank, world, port, work_dir):
+    """One rank of the world of two sharing the card over gloo: every case
+    of TD_CASES from the seeds of the references (the -F {fsdp: 2} DiT drawn
+    block by block and placed as each block is drawn); rank 0 saves each
+    case's outputs, both ranks their times, peaks, launch counts and shapes."""
+    import torch.distributed as dist
+
+    from omgsr_tpu_torch.parallel import create_mesh, distributed
+    from omgsr_tpu_torch.parallel.sharding import shard_params_fsdp
+
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device="cuda:0", backend="gloo",
+                           timeout_s=TD_WORLD_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    reset_counts()
+    with launch_shapes() as seen:
+        for name, kind, dtype, res, b, axis in TD_CASES:
+            mesh = create_mesh({axis: world})
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if kind == "f" and axis == "fsdp":
+                frozen, cn_cfg = td_frozen(kind, dtype, finish=lambda _, part: shard_params_fsdp(part, mesh, consume=True))
+            else:
+                depth = {} if kind == "s" else dict(num_layers=TD_F_DEPTH[0], num_single_layers=TD_F_DEPTH[1])
+                frozen, cn_cfg = td_frozen(kind, dtype, dataclasses.replace(FLUX_DEV, **depth))
+                if axis == "fsdp":
+                    frozen["unet"] = shard_params_fsdp(frozen["unet"], mesh, consume=True)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            rest = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()  # the step's peak, not the build's
+            with collective_times() as ct:
+                metrics, trainer, s = td_step(kind, td_cfg(kind, dtype, res, work_dir), frozen, cn_cfg,
+                                              td_pairs(kind, b, res), mesh)
+            parts = distributed.all_gather(td_tree_digest(trainer), None)
+            rows[name] = {"s": s, "build_s": build_s, "ct": ct, "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                          "rest_GiB": rest / 2**30, "before_GiB": before / 2**30,
+                          "same_on_ranks": all(torch.equal(parts[0], p) for p in parts[1:])}
+            if rank == 0:
+                torch.save(td_outputs(metrics, trainer), os.path.join(work_dir, f"td_{case_key(name)}.pt"))
+            del frozen, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.synchronize()
+    torch.save({"rows": rows, "seen": seen, "counts": read_counts()}, os.path.join(work_dir, f"td_rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def train_dist_worlds(card, vae_params, unet_params, work_dir, f_ref, timings):
+    """The references of the world's cases on this process (no group; the
+    -F {fsdp: 2} one from train_dist_one_rank), then the world of two on the
+    card over gloo, each case against its reference: bf16 deviations
+    reported, f32 held to TD_METRIC_RTOL and TD_LORA_REL_L2, FSDP the same
+    bits (at worst the f32 bound). Returns the launch counts and shapes of
+    both ranks."""
+    import multiprocessing
+
+    refs = {TD_CASES[-1][0]: f_ref}
+    t0 = time.perf_counter()
+    for name, kind, dtype, res, b, axis in TD_CASES[:-1]:
+        depth = {} if kind == "s" else dict(num_layers=TD_F_DEPTH[0], num_single_layers=TD_F_DEPTH[1])
+        frozen, cn_cfg = td_frozen(kind, dtype, dataclasses.replace(FLUX_DEV, **depth),
+                                   vae_params=vae_params if (kind, dtype) == ("s", torch.bfloat16) else None,
+                                   denoiser=unet_params if (kind, dtype) == ("s", torch.bfloat16) else None)
+        metrics, trainer, _ = td_step(kind, td_cfg(kind, dtype, res, work_dir), frozen, cn_cfg, td_pairs(kind, b, res))
+        refs[name] = td_outputs(metrics, trainer)
+        del frozen, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"train-dist: the one-process references of the world's cases in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=train_dist_rank, args=(r, 2, port, work_dir)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TD_WORLD_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    wall = time.perf_counter() - t0
+    assert not alive and codes == [0, 0], f"train-dist world of two: ranks {alive} still running, exit codes {codes}"
+    ranks = [torch.load(os.path.join(work_dir, f"td_rank{r}.pt"), weights_only=False) for r in range(2)]
+    timings["train_dist_world_s"] = wall
+    print(f"train-dist: a world of two processes on the one card over gloo ran {len(TD_CASES)} cases in {wall:.1f} s "
+          f"(spawn and every model from seeds included) [{card}]", flush=True)
+    for name, kind, dtype, res, b, axis in TD_CASES:
+        got = torch.load(os.path.join(work_dir, f"td_{case_key(name)}.pt"), weights_only=False)
+        same, rel, lora_l2, heads_l2 = td_against(got, refs[name])
+        rows = [rk["rows"][name] for rk in ranks]
+        key = case_key(name)
+        timings.update({f"train_dist_{key}_s_rank{r}": row["s"] for r, row in enumerate(rows)})
+        timings.update({f"train_dist_{key}_peak_GiB_rank{r}": row["peak_GiB"] for r, row in enumerate(rows)})
+        timings.update({f"train_dist_{key}_rest_GiB_rank{r}": row["rest_GiB"] for r, row in enumerate(rows)})
+        timings[f"train_dist_{key}_all_reduce_ms"] = sum(rows[0]["ct"]["all_reduce"])
+        timings[f"train_dist_{key}_gather_ms_per_forward"] = sum(rows[0]["ct"]["gather"]) / td_forwards(kind)
+        against = "the same bits" if same else \
+            f"max metric rel diff {rel:.3g}, LoRA rel L2 {lora_l2:.3g}, heads rel L2 {heads_l2:.3g}"
+        print(f"train-dist: {name}, {res} px, global batch {b}: against the one-process step {against}; ranks "
+              f"equal after the step {[row['same_on_ranks'] for row in rows]}; s a micro-step per rank "
+              f"{', '.join('%.3f' % row['s'] for row in rows)} (built in "
+              f"{', '.join('%.1f' % row['build_s'] for row in rows)} s); "
+              f"{collective_summary(rows[0]['ct'], 1, td_forwards(kind))} (gloo, host-staged: no NCCL or NVLink "
+              f"figure); peak per rank in the step {', '.join('%.2f' % row['peak_GiB'] for row in rows)} GiB, "
+              f"at rest after the build {', '.join('%.2f' % row['rest_GiB'] for row in rows)} GiB (before it "
+              f"{', '.join('%.2f' % row['before_GiB'] for row in rows)}) [{card}]",
+              flush=True)
+        assert all(row["same_on_ranks"] for row in rows), name
+        assert all(math.isfinite(x) for x in got["metrics"].values()), got["metrics"]
+        if dtype == torch.float32 or axis == "fsdp":
+            assert same or (rel <= TD_METRIC_RTOL and lora_l2 <= TD_LORA_REL_L2), (name, rel, lora_l2)
+    seen = merge_seen(merge_seen({"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}, ranks[0]["seen"]),
+                      ranks[1]["seen"])
+    counts = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k] for k in ranks[0]["counts"]}
+    return counts, seen
+
+
+def phase_train_dist_report(counts, seen, counts2, seen2):
+    """The launch counts of the phase; each launch shape that no earlier
+    phase held against its plain version."""
+    print(f"train-dist: launches on the one-rank group {counts}, of the two ranks {counts2}", flush=True)
+    for c in (counts, counts2):
+        assert min(c["flash_attention_fwd"], c["flash_attention_bwd_dq"], c["flash_attention_bwd_dkv"],
+                   c["group_norm_stats"], c["group_norm_apply"]) > 0, c
+    report_launch_shapes("train-dist", "the one-rank group", seen, 16000)
+    report_launch_shapes("train-dist", "the two ranks on the one card", seen2, 17000)
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
 KERNELS = [
     # name (also its launch counter's), source, the TPU kernel it replaces, the CUDA kernels its
     # wrapper launches (bf16 at D = 64/128 first)
@@ -4244,9 +4672,17 @@ def main():
         assert not any(eval_counts.values()), eval_counts
         shard_counts, shard_timings = phase_shard(card, vae_params, unet_params, flux_vae, flux_params,
                                                   ckpt["sd_path"], export["dir"], work_dir)
-        del flux_vae, flux_params  # the -F weights: 23.8 GB
+        train_dist_timings = {}
+        f_ref, td_counts, td_seen = train_dist_one_rank(card, vae_params, unet_params, flux_vae, flux_params, work_dir,
+                                                        train_dist_timings)
+        del flux_vae, flux_params  # the -F weights: 23.8 GB, freed before two ranks share the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        td_counts2, td_seen2 = train_dist_worlds(card, vae_params, unet_params, work_dir, f_ref, train_dist_timings)
+        train_dist_counts = phase_train_dist_report(td_counts, td_seen, td_counts2, td_seen2)
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
-                 quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings, shard_timings):
+                 quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings, shard_timings,
+                 train_dist_timings):
         timings.update(more)
 
     kernels = []
@@ -4261,22 +4697,27 @@ def main():
         launches_train_f = train_f_counts.get(name, 0)
         launches_quant_f = quant_f_counts.get(name, 0)
         launches_shard = shard_counts.get(name, 0)
+        launches_train_dist = train_dist_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
-                    + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f + launches_shard)
+                    + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f + launches_shard
+                    + launches_train_dist)
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
             assert launches_fused > 0 and launches_serve == launches_train == launches_load == launches_data == 0, name
             assert launches_serve_f == launches_quant_f == launches_train_f == launches_load_f == 0, name
             assert launches_shard == 0, name  # the sharded VAE runs no fused resblock, as in the JAX package
+            assert launches_train_dist == 0, name  # nor does training
         elif name == "flash_attention_fwd_merge":  # the 512-px bf16 mid heads split their kv loop
             assert min(launches_serve, launches_fused, launches_train, launches_load, launches_data) > 0, name
         elif "bwd" in name:  # training only: -S in train and data, -F in train-f and load-f's train_omgsr_f.main
-            assert min(launches_train, launches_data, launches_train_f, launches_load_f, launches_quant_f) > 0, name
+            assert min(launches_train, launches_data, launches_train_f, launches_load_f, launches_quant_f,
+                       launches_train_dist) > 0, name
             assert launches_serve_f == 0, name
         else:
             assert min(launches_train, launches_data, launches_serve, launches_fused, launches_load,
-                       launches_serve_f, launches_quant_f, launches_train_f, launches_load_f, launches_shard) > 0, name
+                       launches_serve_f, launches_quant_f, launches_train_f, launches_load_f, launches_shard,
+                       launches_train_dist) > 0, name
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "cuda_kernels": cuda_kernels,
             "launches": launches,
@@ -4285,7 +4726,7 @@ def main():
             "launches_data": launches_data, "launches_serve_f": launches_serve_f,
             "launches_quant_f": launches_quant_f, "launches_train_f": launches_train_f,
             "launches_load_f": launches_load_f, "launches_eval": eval_counts.get(name, 0),
-            "launches_shard": launches_shard,
+            "launches_shard": launches_shard, "launches_train_dist": launches_train_dist,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

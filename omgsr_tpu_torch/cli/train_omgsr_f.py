@@ -1,6 +1,7 @@
 """OMGSR-F training CLI.
 
     python -m omgsr_tpu_torch.cli.train_omgsr_f --config omgsr_tpu_torch/configs/omgsr_f_1024.yml [key=value ...]
+    torchrun --nproc_per_node=N -m omgsr_tpu_torch.cli.train_omgsr_f --config ... "mesh_shape={fsdp: N}"
 
 Mirrors train/train_omgsr_f.py with the intended behaviour at its two shipped
 bugs (accelerate.device NameError :247, missing weight_dtype argument :540):
@@ -21,6 +22,12 @@ trained under per-block recompute when ``gradient_checkpointing`` is set (see
 to the CPU and freezes only its codes on the card (utils/quantize.py), the
 LoRA training on top in the compute dtype; a quantised dense layer keeps no
 float copy of its weight for the backward (``models/layers.dense``).
+
+Under torchrun the world trains over ``cfg.mesh_shape`` as
+``train_omgsr_s`` describes; with an "fsdp" axis the DiT (float, or its
+``quantize_base`` codes, block by block) is ported to the host and placed on
+the card leaf by leaf, so no rank holds the whole 23.8 GB tree, and each
+block is gathered as it runs and again in its recompute.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import os
 
 import torch
 
-from omgsr_tpu_torch.cli.train_omgsr_s import train_loop
-from omgsr_tpu_torch.config import TrainConfig, load_config, save_config
+from omgsr_tpu_torch.cli.train_omgsr_s import place_frozen, start_run, train_loop
+from omgsr_tpu_torch.config import TrainConfig, load_config
+from omgsr_tpu_torch.parallel.distributed import local_device
+from omgsr_tpu_torch.parallel.sharding import cli_train_mesh, uses_fsdp
 from omgsr_tpu_torch.utils.devices import resolve_device
 
 logger = logging.getLogger("omgsr_tpu_torch.train_f")
@@ -41,9 +50,34 @@ DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__
                               "omgsr_f_1024.yml")
 
 
-def build_frozen_f(cfg: TrainConfig, dtype, device="cuda"):
+def _place_quantized_dit(flux_cpu, bits, mesh, device):
+    """A DiT ported to the host, quantised to ``bits`` (8 / 4) and placed by
+    FSDP on ``device`` block by block (and each top-level part): every part
+    leaves the host tree as its codes are placed, so no rank holds the whole
+    tree of codes."""
+    from omgsr_tpu_torch.parallel.sharding import shard_params_fsdp
+    from omgsr_tpu_torch.utils import quantize
+
+    def place(part):
+        return shard_params_fsdp(quantize.quantize_flux_for_serving(part, bits=bits, device=device), mesh,
+                                 consume=True)
+
+    out = {}
+    for name in list(flux_cpu):
+        part = flux_cpu.pop(name)
+        if name in ("transformer_blocks", "single_transformer_blocks"):
+            out[name] = {i: place(part.pop(i)) for i in list(part)}
+        else:
+            out[name] = place(part)
+    return out
+
+
+def build_frozen_f(cfg: TrainConfig, dtype, device="cuda", mesh=None):
     """Load the frozen model bundle for -F from cfg.flux_path: (bundle, the
-    ConvNeXt config)."""
+    ConvNeXt config). With an "fsdp" axis in ``mesh`` the DiT is ported to
+    the host, for ``place_frozen`` to place on ``device`` leaf by leaf; a
+    ``quantize_base`` DiT is quantised and placed here block by block
+    (``_place_quantized_dit``)."""
     from omgsr_tpu_torch.convert.hf_config import flux_config_from_json, vae_config_from_json
     from omgsr_tpu_torch.convert.params import init_convnext
     from omgsr_tpu_torch.convert.porters import port_diffusers_vae, port_dinov3_convnext, port_flux_transformer
@@ -62,13 +96,17 @@ def build_frozen_f(cfg: TrainConfig, dtype, device="cuda"):
     vae_cfg = vae_config_from_json(vae_dir)
     flux_cfg = flux_config_from_json(flux_dir)
     vae_params = port_diffusers_vae(vae_dir, cfg=vae_cfg, dtype=dtype, device=device)
-    if cfg.quantize_base in ("int8", "int4"):
+    bits = {"int8": 8, "int4": 4}.get(cfg.quantize_base)
+    if uses_fsdp(mesh):
+        flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device="cpu")
+        if bits:
+            flux_params = _place_quantized_dit(flux_params, bits, mesh, device)
+    elif bits:
         # the float DiT stays on the CPU; only its codes are placed on the card
         from omgsr_tpu_torch.utils.quantize import quantize_flux_for_serving
 
         flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device="cpu")
-        flux_params = quantize_flux_for_serving(flux_params, bits=4 if cfg.quantize_base == "int4" else 8,
-                                                device=device)
+        flux_params = quantize_flux_for_serving(flux_params, bits=bits, device=device)
     else:
         flux_params = port_flux_transformer(flux_dir, cfg=flux_cfg, dtype=dtype, device=device)
 
@@ -106,7 +144,7 @@ def encode_fixed_prompt_f(cfg: TrainConfig, dtype, device="cuda"):
 
 
 def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, trainer=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Programmatic entry (also used by tests with tiny models).
 
     frozen: {"vae", "vae_cfg", "flux", "flux_cfg", "backbone", "dists",
@@ -115,27 +153,28 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
     loader, trainer and the random numbers as in
     ``train_omgsr_s.run_training``: one torch.Generator on ``device`` seeded
     with cfg.seed draws the LoRA (VAE encoder, then DiT), the discriminator
-    and every step's noise."""
+    and every step's noise. mesh: as in ``train_omgsr_s.run_training`` (the
+    DiT is placed by FSDP where the mesh has "fsdp", and the tree handed in
+    is consumed)."""
     from omgsr_tpu_torch.convert.params import init_discriminator
     from omgsr_tpu_torch.lora import FLUX_TARGET_MODULES, SD_TARGET_MODULES, init_lora_tree
     from omgsr_tpu_torch.training.trainer import TrainerF
     from omgsr_tpu_torch.utils.dtypes import resolve_dtype
 
     device = resolve_device(device)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.output_dir, "cfg.yml"))
+    start_run(cfg, mesh)
     dtype = resolve_dtype(cfg.mixed_precision)
 
     generator = torch.Generator(device=device)
     generator.manual_seed(int(cfg.seed))
     if trainer is None:
         if frozen is None:
-            frozen, cn_cfg = build_frozen_f(cfg, dtype, device)
+            frozen, cn_cfg = build_frozen_f(cfg, dtype, device, mesh)
             frozen["prompt_embeds"], frozen["pooled_prompt_embeds"] = encode_fixed_prompt_f(cfg, dtype, device)
             channels = cn_cfg.dims[:3]
         else:
             channels = cfg.extra["disc_channels"]
+        place_frozen(frozen, "flux", mesh, device)
 
         gen_lora = {
             "vae_encoder": init_lora_tree(
@@ -148,7 +187,7 @@ def run_training(cfg: TrainConfig, frozen=None, loader=None, disc_bundle=None, t
         if disc_bundle is None:
             disc_bundle = init_discriminator(generator, channels, cfg.resolution, dtype, device)
 
-        trainer = TrainerF(cfg, frozen, gen_lora, disc_bundle)
+        trainer = TrainerF(cfg, frozen, gen_lora, disc_bundle, mesh)
 
     # reference -F adapter names: train/train_omgsr_f.py:150,176
     adapter_names = {"vae_encoder": "vae_encoder_adapter", "denoiser": "flux_adapter"}
@@ -162,7 +201,8 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    return run_training(cfg, device=args.device)
+    mesh = cli_train_mesh(cfg.mesh_shape, resolve_device(args.device))
+    return run_training(cfg, device=local_device(args.device), mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -79,8 +79,12 @@ class TrainConfig:
     mixed_precision: str = "bf16"
 
     # extensions of the JAX package (absent from the reference); accepted so
-    # that its configs load unchanged; of these the port reads degradation_params
-    # (default: the package's params_realesrgan.yml)
+    # that its configs load unchanged. The port reads degradation_params
+    # (default: the package's params_realesrgan.yml), quantize_base (-F), and
+    # mesh_shape: the training CLIs' mesh over a torchrun world, the global
+    # batch split over "data" and the frozen UNet / DiT placed by FSDP over
+    # "fsdp" (None: every rank on "data"; one process without torchrun
+    # trains unsharded)
     mesh_shape: Optional[dict] = None  # e.g. {"data": 4} or {"data": 2, "fsdp": 4}
     degradation_params: Optional[str] = None  # path to params_realesrgan.yml
     degrade_on_device: bool = True

@@ -11,6 +11,12 @@ Generators seeded as in the JAX package, so one seed gives its arrays and
 order. The degradation runs batched on the device (RealESRGANDegrader). A
 producer thread decodes batches ahead of the consumer; the counterpart of the
 reference's DataLoader(num_workers=8).
+
+On a world of processes each rank's loader takes its contiguous rows of each
+global batch from one global order (shuffled alike on every rank), and
+crops and degrades them with generators of its own, seeded by ``rank_seed``:
+the reference's per-rank DataLoader. The JAX loader has no multi-process
+mode; with one rank everything is as it is there.
 """
 
 from __future__ import annotations
@@ -60,6 +66,15 @@ def _random_crop_reflect(arr: np.ndarray, size: int, rng: np.random.Generator) -
     y = int(rng.integers(0, h - size + 1))
     x = int(rng.integers(0, w - size + 1))
     return arr[y : y + size, x : x + size]
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of a rank's crop and degradation generators: ``seed`` itself
+    on rank 0 (so one process draws what it always drew), a seed derived from
+    (seed, rank) on the others."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1)[0])
 
 
 class PairedDataset:
@@ -113,6 +128,12 @@ class PairedLoader:
     N, and nothing in that dispatch waits for the device. An error in the
     producer is raised in the consumer; a consumer that stops early stops the
     producer. degrader: RealESRGANDegrader, or None for identity pairs.
+
+    ``batch_size`` is the global batch. With ``world`` ranks over "data" this
+    loader yields rows [rank * b, (rank + 1) * b) of each global batch, b =
+    batch_size / world, of one order that every rank shuffles alike from
+    ``seed``; ``len()`` counts global batches. The dataset's crop generator
+    and the degrader are the caller's to seed per rank (``rank_seed``).
     """
 
     def __init__(
@@ -125,9 +146,14 @@ class PairedLoader:
         prefetch: int = 2,
         drop_last: bool = True,
         device="cuda",
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"train_batch_size {batch_size} does not split over {world} ranks of \"data\"")
         self.ds = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.degrader = degrader
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
@@ -149,6 +175,8 @@ class PairedLoader:
             idxs = order[i : i + self.batch_size]
             if self.drop_last and len(idxs) < self.batch_size:
                 return
+            share = len(idxs) // self.world
+            idxs = idxs[self.rank * share : (self.rank + 1) * share]
             yield np.stack([self.ds[int(j)] for j in idxs])
 
     def _dispatch(self, hq: torch.Tensor) -> dict:

@@ -74,7 +74,7 @@ def path_matches_targets(module_path: str, targets) -> bool:
 
 def _iter_matched_weights(params, targets):
     for path, leaf in flatten_dict(params).items():
-        if path[-1] not in ("weight", "weight_q", "weight_q4") or leaf.dim() not in (2, 4):
+        if path[-1] not in ("weight", "weight_q", "weight_q4") or len(leaf.shape) not in (2, 4):
             continue  # norm weights are rank 1 and never a target
         if path_matches_targets(".".join(path[:-1]), targets):
             yield path[:-1], leaf, path[-1] == "weight_q4"
@@ -85,14 +85,16 @@ def init_lora_tree(generator: torch.Generator, params, targets, rank: int, dtype
     or quantised: A ~ N(0, 1) / rank drawn from ``generator`` (which must
     live on the parameters' device), B = 0, in ``dtype``, else the base
     weight's, else bf16 over quantised codes (int4's in dim is the packed dim
-    doubled)."""
+    doubled). Only the weights' shape, dtype and device are read, so a tree
+    placed by FSDP (``parallel.sharding.FSDPLeaf``, whose shape is the whole
+    leaf's) gets the draws of the whole tree."""
     out = {}
     matched = list(_iter_matched_weights(params, targets))
     if not matched:
         raise ValueError(f"no modules matched targets {targets}")
     for mpath, weight, packed4 in matched:
-        kdtype = dtype or (weight.dtype if weight.is_floating_point() else torch.bfloat16)
-        if weight.dim() == 2:  # dense (out, in)
+        kdtype = dtype or (weight.dtype if weight.dtype.is_floating_point else torch.bfloat16)
+        if len(weight.shape) == 2:  # dense (out, in)
             out_dim, in_dim = weight.shape
             in_dim *= 2 if packed4 else 1
             a_shape, b_shape = (rank, in_dim), (out_dim, rank)
@@ -106,7 +108,9 @@ def init_lora_tree(generator: torch.Generator, params, targets, rank: int, dtype
 
 
 def attach_lora(base_params, lora_tree):
-    """Combined tree: matched module dicts gain lora_A/lora_B keys."""
+    """Combined tree: matched module dicts gain lora_A/lora_B keys. Any
+    non-dict is a leaf, so a placed base keeps its ``FSDPLeaf`` chunks beside
+    the LoRA keys and a block's gather yields base plus LoRA."""
     flat = flatten_dict(base_params)
     flat.update(flatten_dict(lora_tree))
     return unflatten_dict(flat)

@@ -171,7 +171,7 @@ def flux_apply(params, cfg: FluxConfig, hidden_states, timestep, guidance, poole
     in [0, 1] (scalars or (B,)), pooled (B, 768), encoder_hidden_states
     (B, S_txt, 4096), txt_ids (S_txt, 3), img_ids (S_img, 3) -> the velocity
     prediction (B, S_img, 64) in the input's dtype. ``sharding``: the
-    ``parallel.sharding.FluxSharding`` of a tree that ``shard_flux_params``
+    ``parallel.sharding.Sharding`` of a tree that ``shard_flux_params``
     placed (every rank of its groups makes the same call)."""
     dtype, device = hidden_states.dtype, hidden_states.device
     blocks = {k: params[k] for k in ("transformer_blocks", "single_transformer_blocks")}

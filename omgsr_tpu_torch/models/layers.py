@@ -77,7 +77,7 @@ def dense(p, x, tp=None):
     dequantises to x's dtype at the call, or with an ``act_quant`` marker
     takes the w8a8 route.
 
-    ``tp`` (a ``parallel.sharding.FluxSharding``) makes the product
+    ``tp`` (a ``parallel.sharding.Sharding``) makes the product
     row-parallel: x holds this rank's slice of the contraction and p the
     matching input columns; the partial products are summed over the
     tensor-parallel group. The bias enters the product of the group's first

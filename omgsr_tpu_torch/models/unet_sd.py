@@ -77,14 +77,25 @@ def _spatial_transformer(p, x, context, heads, groups):
     return res + h.reshape(b, hh, ww, c)
 
 
-def unet_apply(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states):
+_BLOCKS = ("down_blocks", "mid_block", "up_blocks")
+
+
+def unet_apply(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states, sharding=None):
     """sample (B,h,w,4) latent, timesteps scalar or (B,), context (B,77,1024)
     -> epsilon prediction (B,h,w,4). Mirrors diffusers
-    UNet2DConditionModel.forward dataflow."""
+    UNet2DConditionModel.forward dataflow. ``sharding``: the
+    ``parallel.sharding.Sharding`` of a tree that ``shard_params_fsdp``
+    placed; the leaves outside the blocks are gathered once a forward, each
+    down, mid and up block's as it enters the block (every rank of the group
+    makes the same call)."""
     g = cfg.norm_num_groups
     eps = cfg.norm_eps
     bo = list(cfg.block_out_channels)
     dtype = sample.dtype
+    gather = sharding.gather if sharding is not None else (lambda tree: tree)
+    if sharding is not None:
+        params = {**gather({k: v for k, v in params.items() if k not in _BLOCKS}),
+                  **{k: params[k] for k in _BLOCKS}}
 
     timesteps = torch.as_tensor(timesteps, device=sample.device).expand(sample.shape[0])
     temb = timestep_embedding(timesteps, bo[0], cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -95,7 +106,7 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states
     skips = [h]
 
     for i in range(len(cfg.down_block_types)):
-        blk = params["down_blocks"][str(i)]
+        blk = gather(params["down_blocks"][str(i)])
         heads = cfg.num_attention_heads[i]
         for j in range(cfg.layers_per_block):
             h = _resnet(blk["resnets"][str(j)], h, temb, g, eps)
@@ -106,14 +117,14 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, encoder_hidden_states
             h = conv2d(blk["downsamplers"]["0"]["conv"], h, stride=2, padding=1)
             skips.append(h)
 
-    mid = params["mid_block"]
+    mid = gather(params["mid_block"])
     h = _resnet(mid["resnets"]["0"], h, temb, g, eps)
     h = _spatial_transformer(mid["attentions"]["0"], h, encoder_hidden_states, cfg.num_attention_heads[-1], g)
     h = _resnet(mid["resnets"]["1"], h, temb, g, eps)
 
     rheads = list(reversed(cfg.num_attention_heads))
     for i in range(len(cfg.up_block_types)):
-        blk = params["up_blocks"][str(i)]
+        blk = gather(params["up_blocks"][str(i)])
         for j in range(cfg.layers_per_block + 1):
             h = torch.cat([h, skips.pop()], dim=-1)
             h = _resnet(blk["resnets"][str(j)], h, temb, g, eps)

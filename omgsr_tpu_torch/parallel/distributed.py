@@ -1,13 +1,18 @@
 """Multi-process bootstrap: one process per GPU under ``torchrun``.
 
     torchrun --nproc_per_node=8 -m omgsr_tpu_torch.cli.infer_omgsr_f --shard tp ...
+    torchrun --nproc_per_node=8 -m omgsr_tpu_torch.cli.train_omgsr_s --config cfg.yml "mesh_shape={data: 8}"
 
 ``initialize`` forms the default process group from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``)
 or from explicit arguments: NCCL for CUDA devices, gloo for the CPU. Every
 group gets a finite timeout, so a rank that dies ends the others' collectives
 in an error instead of a hang. The collectives of the sharded paths go
-through the small wrappers below, which take the group they run on.
+through the small wrappers below, which take the group they run on; those of
+a data-parallel train step (``broadcast_tree`` of the initial state,
+``all_reduce_mean_tree`` of the gradients and metrics) are written here by
+hand, since the trainers take their gradients with ``torch.autograd.grad``
+over trees of tensors that no ``DistributedDataParallel`` module sees.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
 
 logger = logging.getLogger("omgsr_tpu_torch.distributed")
 
@@ -97,3 +104,65 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
 def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order."""
     return torch.cat(all_gather(t, group), dim=dim)
+
+
+def barrier(group=None):
+    """Every rank of ``group`` (default: the world) waits for the others;
+    a no-op without a process group."""
+    if dist.is_initialized():
+        dist.barrier(group=group)
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """``obj`` of rank ``src`` (a picklable value) on every rank of the group."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def _flat_views(buf: torch.Tensor, leaves: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``buf`` cut into one view per leaf, of the leaf's shape."""
+    return [part.view(t.shape) for part, t in zip(buf.split([t.numel() for t in leaves]), leaves)]
+
+
+def broadcast_tree(tree, src: int = 0, group=None):
+    """In place: every tensor of ``tree`` takes the values of rank ``src`` of
+    ``group`` (default: the world), one
+    broadcast per dtype of one flat buffer. Non-tensor leaves (step counters)
+    are left as they are: every rank counts them alike. Returns ``tree``."""
+    by_dtype: dict = {}
+    for t in flatten_dict(tree).values():  # the same order on every rank that built the tree alike
+        if isinstance(t, torch.Tensor):
+            by_dtype.setdefault(t.dtype, []).append(t.detach())
+    with torch.no_grad():
+        for dtype, ts in by_dtype.items():
+            flat = torch.empty(sum(t.numel() for t in ts), dtype=dtype, device=ts[0].device)
+            views = _flat_views(flat, ts)
+            torch._foreach_copy_(views, ts)
+            dist.broadcast(flat, group=group, group_src=src)
+            torch._foreach_copy_(ts, views)
+    return tree
+
+
+def all_reduce_mean_tree(tree, group):
+    """A new tree of the same structure: the mean of every leaf over the
+    group. One all-reduce of one flat f32 buffer, divided by the group size,
+    each leaf cast back to its dtype and strides (a bf16 gradient is rounded
+    once, after the sum; on one rank the mean is the leaf, bit for bit). The
+    copies in and out are one multi-tensor launch each: a LoRA tree has
+    hundreds of leaves."""
+    flat = flatten_dict(tree)
+    leaves = [v.detach() for v in flat.values()]
+    with torch.no_grad():
+        buf = torch.empty(sum(t.numel() for t in leaves), dtype=torch.float32, device=leaves[0].device)
+        views = _flat_views(buf, leaves)
+        torch._foreach_copy_(views, leaves)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        buf /= dist.get_world_size(group)
+        # in each leaf's own strides (a conv gradient is channels-last): a norm over the mean then
+        # sums in the order it sums over the leaf
+        means = [torch.empty_like(t) for t in leaves]
+        torch._foreach_copy_(means, views)
+    return unflatten_dict(dict(zip(flat, means)))

@@ -210,6 +210,10 @@ class SRServer:
                 ok = self._run_group(group, fused_fn, plain_fn, lq, hw, align)
                 if not ok and mirrored and self._sync.world > 1:  # one rank alone cannot fall out of step
                     self._rank_failure = self._sync.report_failure(str(group[0].error))
+                    # the first failure any rank reported is the cause: a follower that raised reports
+                    # before it leaves, and this rank's error may be its echo (a closed connection)
+                    for r in group:
+                        r.error = DispatchError(self._failed_message())
         for r in group:
             r.done.set()
         with self._lock:

@@ -23,6 +23,22 @@ sampling noises, the mid-timestep noise and the three sets of DiffAugment
 draws; ``draw_step_noise`` makes them from a ``torch.Generator``. Frozen
 parameters must not require grad.
 
+On a world of processes (one per GPU, ``parallel.create_mesh``) each rank
+runs its rows of the global batch (``parallel.sharding.data_rows``; the
+batch is replicated over an "fsdp" axis) and of the global ``StepNoise``
+(``step_noise_rows``); the G and D gradients are averaged over the mesh's
+"data" group before the optimizers see them, so the global-norm clip and
+the reported norms are the global gradient's, and the ten metrics are
+averaged over "data" in one collective. The state starts as rank 0's on
+every rank (``broadcast_tree``) and stays equal: every rank applies the same
+averaged update, and the spectral-norm u vectors depend on the heads alone.
+The frozen UNet or DiT may be placed by FSDP (``shard_params_fsdp``); its
+apply gathers each block as it enters it, and again in its recompute. The
+JAX package gets the same step from XLA's gradient psum over a "data" mesh
+axis; here the collectives are written by hand because the gradients are
+taken with ``torch.autograd.grad`` over trees that no
+``DistributedDataParallel`` module sees.
+
 Under ``cfg.gradient_checkpointing`` both trainers recompute the LoRA encode
 and the decode. ``TrainerF`` also recomputes the DiT block by block
 (``FluxConfig.remat_blocks``: one saved carry a block, the JAX package's
@@ -51,6 +67,8 @@ from omgsr_tpu_torch.losses.discriminator import discriminator_loss
 from omgsr_tpu_torch.losses.dists import dists_loss
 from omgsr_tpu_torch.models import flux as flux_mod
 from omgsr_tpu_torch.models import unet_sd, vae
+from omgsr_tpu_torch.parallel.distributed import all_reduce_mean_tree, broadcast_tree
+from omgsr_tpu_torch.parallel.sharding import Sharding, uses_fsdp
 from omgsr_tpu_torch.training.optim import global_norm, make_optimizer
 from omgsr_tpu_torch.utils.tree import flatten_dict, unflatten_dict
 
@@ -99,6 +117,16 @@ def draw_step_noise(generator: torch.Generator, image_shape, latent_shape, devic
                                       for _ in range(3)))
 
 
+def step_noise_rows(noise: StepNoise, start: int, count: int) -> StepNoise:
+    """Rows [start, start + count) of every field of a global ``StepNoise``
+    (all of them lead with the batch)."""
+    def rows(t):
+        return t.narrow(0, start, count)
+
+    return StepNoise(rows(noise.hq), rows(noise.noise), rows(noise.lq),
+                     *(DiffAugDraws(*map(rows, d)) for d in (noise.disc_g, noise.disc_fake, noise.disc_real)))
+
+
 def _tree_map(fn, tree):
     return unflatten_dict({p: fn(v) for p, v in flatten_dict(tree).items()})
 
@@ -116,14 +144,22 @@ def grads_of(loss, tree):
 class BaseTrainer:
     """Shared G/D optimization skeleton; subclasses provide encode/predict."""
 
-    def __init__(self, cfg: TrainConfig, frozen, gen_lora, disc_bundle):
+    def __init__(self, cfg: TrainConfig, frozen, gen_lora, disc_bundle, mesh=None):
         """frozen: dict with model params/cfgs the step reads (tensors that
         do not require grad). gen_lora: {"vae_encoder": tree, "denoiser":
         tree}. disc_bundle: (disc_params, sn_state, strides_meta). The
         trainer owns gen_lora, disc_params and sn_state from here on and
-        updates them in place."""
+        updates them in place. mesh: the ``parallel.sharding.Mesh`` of a
+        world of processes (every rank then builds its trainer, and steps,
+        in lockstep): the state is broadcast from rank 0, and the gradients
+        and metrics are averaged over its "data" axis, if it has one; where
+        it has "fsdp", the frozen UNet / DiT is one that
+        ``shard_params_fsdp`` placed, and its apply gathers it."""
         self.cfg = cfg
         self.frozen = frozen
+        self.mesh = mesh
+        self.sharding = Sharding() if uses_fsdp(mesh) else None
+        self.data_group = mesh.group("data") if mesh is not None and "data" in mesh.axis_names else None
         disc_params, sn_state, self.disc_meta = disc_bundle
         self.gen_tx = make_optimizer(cfg)
         self.disc_tx = make_optimizer(cfg)
@@ -138,6 +174,8 @@ class BaseTrainer:
                 "opt": self.disc_tx.init(disc_params),
             },
         }
+        if mesh is not None:
+            broadcast_tree(self.state)
 
     # ---- model hooks -------------------------------------------------------
     def encode_fixed(self, frozen, img, noise):
@@ -207,24 +245,31 @@ class BaseTrainer:
         total = l_fake * cfg.lambda_GAN + l_real * cfg.lambda_GAN
         return total, (sn, {"loss_D_fake": l_fake * cfg.lambda_GAN, "loss_D_real": l_real * cfg.lambda_GAN})
 
+    def data_mean(self, tree):
+        """``tree``'s leaves averaged over the "data" group (one collective);
+        ``tree`` itself without one."""
+        return tree if self.data_group is None else all_reduce_mean_tree(tree, self.data_group)
+
     def train_step(self, batch, noise: StepNoise):
         """One micro-step. batch: {"lq": (B,H,W,3), "hq": (B,H,W,3)} in
-        [-1,1]. Returns (metrics, pred): ten scalar tensors (six losses, two
-        totals, the pre-clip global norms of the two micro-step gradients)
-        and the detached prediction."""
+        [-1,1], with ``noise`` this rank's rows of the global batch on a
+        "data" axis. Returns (metrics, pred): ten scalar tensors (six
+        losses, two totals, the pre-clip global norms of the two micro-step
+        gradients), the global batch's on every rank, and this rank's
+        detached prediction."""
         state, frozen = self.state, self.frozen
         lora, heads = state["gen"]["lora"], state["disc"]["params"]
 
         g_total, (g_metrics, pred) = self._gen_loss(
             lora, batch, noise, frozen, heads, state["disc"]["sn"])
-        g_grads = grads_of(g_total, lora)
+        g_grads = self.data_mean(grads_of(g_total, lora))
         fake = pred.detach()
         del pred
         self.gen_tx.update(g_grads, state["gen"]["opt"], lora)
 
         d_total, (sn, d_metrics) = self._disc_loss(
             heads, state["disc"]["sn"], fake, batch["hq"], noise, frozen)
-        d_grads = grads_of(d_total, heads)
+        d_grads = self.data_mean(grads_of(d_total, heads))
         self.disc_tx.update(d_grads, state["disc"]["opt"], heads)
         state["disc"]["sn"] = sn
         state["step"] += 1
@@ -232,6 +277,7 @@ class BaseTrainer:
         metrics = {"loss_total_G": g_total, "loss_total_D": d_total}
         metrics.update(g_metrics)
         metrics.update(d_metrics)
+        metrics = self.data_mean({k: v.detach() for k, v in metrics.items()})
         # pre-clip global grad norms: the observability signal for GAN balance
         metrics["grad_norm_G"] = global_norm(g_grads)
         metrics["grad_norm_D"] = global_norm(d_grads)
@@ -241,11 +287,11 @@ class BaseTrainer:
 class TrainerS(BaseTrainer):
     """OMGSR-S: SD2.1 UNet, DDPM mid-timestep 273 (train/train_omgsr_s.py)."""
 
-    def __init__(self, cfg, frozen, gen_lora, disc_bundle):
+    def __init__(self, cfg, frozen, gen_lora, disc_bundle, mesh=None):
         a = float(ddpm_alphas_cumprod()[cfg.mid_timestep])
         self.sqrt_a = math.sqrt(a)
         self.sqrt_1ma = math.sqrt(1 - a)
-        super().__init__(cfg, frozen, gen_lora, disc_bundle)
+        super().__init__(cfg, frozen, gen_lora, disc_bundle, mesh)
 
     def encode_fixed(self, frozen, img, noise):
         return vae.vae_encode(frozen["vae"], frozen["vae_cfg"], img, noise=noise)
@@ -266,7 +312,8 @@ class TrainerS(BaseTrainer):
         ctx = frozen["prompt_embeds"].to(lq_latent.dtype)
         ctx = ctx.expand((lq_latent.shape[0],) + tuple(ctx.shape[-2:]))
         apply = self._checkpointed(
-            lambda z: unet_sd.unet_apply(unet_params, frozen["unet_cfg"], z, self.cfg.mid_timestep, ctx))
+            lambda z: unet_sd.unet_apply(unet_params, frozen["unet_cfg"], z, self.cfg.mid_timestep, ctx,
+                                         sharding=self.sharding))
         eps = apply(lq_latent)
         x0 = (lq_latent - self.sqrt_1ma * eps) / self.sqrt_a
         decode = self._checkpointed(lambda z: vae.vae_decode(frozen["vae"], frozen["vae_cfg"], z))
@@ -278,9 +325,9 @@ class TrainerF(BaseTrainer):
     (train/train_omgsr_f.py; the intended behaviour at :247 and :540, not the
     shipped NameError / missing argument)."""
 
-    def __init__(self, cfg, frozen, gen_lora, disc_bundle):
+    def __init__(self, cfg, frozen, gen_lora, disc_bundle, mesh=None):
         self.sigma_t = flux_sigma_at_mid_timestep(cfg.mid_timestep)
-        super().__init__(cfg, frozen, gen_lora, disc_bundle)
+        super().__init__(cfg, frozen, gen_lora, disc_bundle, mesh)
 
     def encode_fixed(self, frozen, img, noise):
         return vae.vae_encode(frozen["vae"], frozen["vae_cfg"], img, noise=noise)
@@ -308,7 +355,8 @@ class TrainerF(BaseTrainer):
         flux_cfg = frozen["flux_cfg"]
         if self.cfg.gradient_checkpointing:
             flux_cfg = dataclasses.replace(flux_cfg, remat_blocks=True)
-        v = flux_mod.flux_apply(flux_params, flux_cfg, packed, self.sigma_t, 1.0, pooled, ctx, txt_ids, img_ids)
+        v = flux_mod.flux_apply(flux_params, flux_cfg, packed, self.sigma_t, 1.0, pooled, ctx, txt_ids, img_ids,
+                                sharding=self.sharding)
         z0 = unpack_latents(packed - self.sigma_t * v, h, w)
         dec_cfg = _vae_cfg_for_grad(self.cfg, frozen["vae_cfg"])
         # the -F reference decodes without clamping (train/train_omgsr_f.py:525)

@@ -109,6 +109,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from omgsr_tpu_torch.models.clip_vision import CLIP_L_VISION, init_clip_vision
     from omgsr_tpu_torch.utils.lpips import init_lpips
     from omgsr_tpu_torch.utils.quantize import init_flux_quantized, quantize_flux_for_serving
+    from omgsr_tpu_torch.tools import multiproc_check
 
     vc = VAEConfig(block_out_channels=(8, 16), norm_num_groups=4)
     uc = UNetConfig(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
@@ -192,6 +193,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "port_clip_vision": lambda: porters.port_clip_vision(str(tmp_path)),
         "init_clip_vision": lambda: init_clip_vision(0, CLIP_L_VISION),
         "init_lpips": lambda: init_lpips(0),
+        # multi-GPU training: the multi-process check raises before it starts a process
+        "multiproc_check.main": lambda: multiproc_check.main(["--nprocs", "2"]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
