@@ -153,6 +153,24 @@ them. Phases, each of which must pass:
            micro-step, all-reduce and gather ms (gloo, host-staged), peak per
            rank; launch counts and shapes
 
+  dinov3   the DINOv3 ViTs through the hub entries (random bf16 weights from
+           seeds): ViT-L (0.3B) at batch 8 / 224 px and batch 1 / 512 px and
+           ViT-7B (6.7B) at batch 1 / 224 and 512 px at full width and depth,
+           apply and get_intermediate_layers(n=4), the ViT-7B linear
+           classifier's logits against its head over the backbone's features;
+           ms a forward, images/s, peak memory, K1 launches a forward (the
+           depth); each K1 shape of the ViTs (201 and 1029 tokens, q and k
+           fresh after RoPE, v a view of the packed qkv) timed and held against
+           its plain version; ViT-L in f32 on the card against the plain
+           versions on the CPU (rel L2 of the tokens <= 1e-4); with
+           --profile one forward traced by utils.observability.trace
+  drill    cli.fire_drill --family sd (the SD2.1 VAE and UNet in f32, sharded
+           at 2 GB with an index) and --family flux (19 + 38 blocks at width
+           512, bf16) on the card: fabricate with the port's writers, the
+           infer CLI, eval_sr, the adapter round trip, validate_checkpoint
+           against the CPU reference; passed and worst parity <= 1e-3, stage
+           times
+
 Every phase that serves, trains or runs a CLI records the shapes at which K1,
 K2a/K2b and K3a/K3b launched and holds each shape that the kernels phase does
 not list (and no earlier phase held) against its plain version.
@@ -405,7 +423,12 @@ def check_flash(shape, skv, dtype, seed, packed=False, timed=True):
     """K1 through its wrapper (with the kv split and merge it picks) against the
     plain version at one shape; with ``timed`` also its times and bound."""
     b, sq, h, d = shape
-    if packed:  # (B, S, 3, H, D): the kernel must take the views as they are
+    if packed == "v":  # the DINOv3 ViT's operands: q and k fresh after RoPE, v a view of the packed qkv
+        assert skv == sq
+        q, k = randn(shape, dtype, seed), randn(shape, dtype, seed + 1)
+        v = randn((b, sq, 3, h, d), dtype, seed + 2)[:, :, 2]
+        assert not v.is_contiguous() and FA._kernel_operand(v) is v
+    elif packed:  # (B, S, 3, H, D): the kernel must take the views as they are
         assert skv == sq
         q, k, v = randn((b, sq, 3, h, d), dtype, seed).unbind(2)
         assert not q.is_contiguous() and FA._kernel_operand(q) is q
@@ -425,7 +448,7 @@ def check_flash(shape, skv, dtype, seed, packed=False, timed=True):
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     assert scaled <= TOL[dtype], f"flash_attention {shape} kv {skv} {dtype}: scaled err {scaled}"
     assert err_lse <= TOL_LSE, f"flash_attention lse {shape} kv {skv}: max abs err {err_lse}"
-    label = f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + (" packed qkv" if packed else "")
+    label = f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + {"v": " v packed", True: " packed qkv"}.get(packed, "")
     if not timed:
         return {"shape": label, "max_abs_err": err, "max_err_over_max_ref": scaled, "max_abs_err_lse": err_lse}
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
@@ -4593,6 +4616,249 @@ def phase_train_dist_report(counts, seen, counts2, seen2):
     return {k: counts[k] + counts2[k] for k in counts}
 
 
+# ----------------------------------------------------------------------------
+# phase: dinov3 (the DINOv3 ViT backbones through the hub, their heads on K1 at the ViT's token counts)
+# ----------------------------------------------------------------------------
+
+# (batch, px) of each backbone's counted forwards: ViT-L at batch 8 / 224 px and batch 1 / 512 px,
+# ViT-7B at batch 1 / 224 and 512 px
+DINO_RUNS = {"vitl16": [(8, 224), (1, 512)], "vit7b16": [(1, 224), (1, 512)]}
+# ViT-L in f32 on the card (TF32 off) against the same tree through the plain versions on the CPU:
+# ||card - CPU|| / ||CPU|| of the patch, class and register tokens at batch 1 / 224 px; summation
+# order and the f32 kernel's fast exp only
+DINO_F32_REL_L2 = 1e-4
+DINO_ITERS = {"vitl16": 10, "vit7b16": 5}
+
+
+def vit_k1_shape(cfg, batch, px):
+    """((B, Sq, H, D), Skv) of the ViT's heads: 1 + registers + h*w tokens."""
+    tokens = 1 + cfg.n_storage_tokens + (px // cfg.patch_size) ** 2
+    return (batch, tokens, cfg.num_heads, cfg.head_dim), tokens
+
+
+def counted(seen_all, counts_all, fn, inference=True):
+    """fn() with the counts set to 0 just before it and read just after (the
+    main path's window), its launch shapes merged into ``seen_all``."""
+    reset_counts()
+    with launch_shapes() as seen, torch.inference_mode(inference):
+        out = fn()
+        torch.cuda.synchronize()
+    c = read_counts()
+    merge_seen(seen_all, seen)
+    for k, v in c.items():
+        counts_all[k] = counts_all.get(k, 0) + v
+    return out, c
+
+
+def vit_forwards(card, name, m, seed, seen_all, counts_all, timings, profile_dir=None):
+    """The counted apply and get_intermediate_layers(n=4) forwards of one hub
+    ViT at DINO_RUNS[name]; each K1 launch count per forward is the depth and
+    nothing else launches. -> {(batch, px): apply output}."""
+    cfg = m.cfgs["backbone"]
+    outs = {}
+    for i, (batch, px) in enumerate(DINO_RUNS[name]):
+        x = randn((batch, px, px, 3), torch.bfloat16, seed + i)
+        hw = (px // cfg.patch_size) ** 2
+        out, c = counted(seen_all, counts_all, lambda: m.apply(m.params, x))
+        assert c["flash_attention_fwd"] == cfg.depth and sum(c.values()) == cfg.depth, (name, batch, px, c)
+        assert out["x_norm_patchtokens"].shape == (batch, hw, cfg.embed_dim), out["x_norm_patchtokens"].shape
+        assert out["x_storage_tokens"].shape == (batch, cfg.n_storage_tokens, cfg.embed_dim)
+        assert all(torch.isfinite(v.float()).all() for v in out.values()), (name, batch, px)
+        feats, c2 = counted(seen_all, counts_all, lambda: m.extras["get_intermediate_layers"](
+            m.params, x, n=4, reshape=True, return_class_token=True))
+        assert c2 == c, (c2, c)
+        assert len(feats) == 4 and feats[-1][0].shape == (batch, px // cfg.patch_size, px // cfg.patch_size,
+                                                          cfg.embed_dim)
+        # the last block's patch map, normed, is the apply's patch tokens: the same kernels, the same bits
+        assert torch.equal(feats[-1][0].reshape(batch, hw, -1), out["x_norm_patchtokens"]), name
+        assert all(torch.isfinite(f.float()).all() and torch.isfinite(cl.float()).all() for f, cl in feats)
+        outs[(batch, px)] = out
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            at_rest = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: m.apply(m.params, x), DINO_ITERS[name], warmup=2)
+            peak = torch.cuda.max_memory_allocated()
+        shape, _ = vit_k1_shape(cfg, batch, px)
+        blocks = -(-shape[1] // 128) * shape[2] * batch  # K1's wgmma grid: 128-row q tiles x heads x batch
+        key = f"dinov3 {name} b{batch} {px}px"
+        timings[key] = {"ms_per_forward": ms, "images_per_s": batch * 1e3 / ms, "k1_launches_per_forward": cfg.depth,
+                        "peak_gib": peak / 2 ** 30, "at_rest_gib": at_rest / 2 ** 30, "k1_grid_blocks": blocks}
+        print(f"dinov3: {name} batch {batch} at {px} px ({shape[1]} tokens): {ms:.3f} ms a forward (CUDA events, "
+              f"warm, {DINO_ITERS[name]} forwards), {batch * 1e3 / ms:.1f} images/s, peak {peak / 2 ** 30:.2f} GiB "
+              f"({at_rest / 2 ** 30:.2f} at rest), K1 {cfg.depth} launches a forward on a grid of {blocks} blocks "
+              f"({-(-shape[1] // 128)} q tiles x {shape[2]} heads x {batch}) for {FA.sm_count(x.device)} SMs; "
+              f"get_intermediate_layers(n=4) the same launches, its last map the apply's bits [{card}]", flush=True)
+        if profile_dir is not None:
+            from torch.autograd import DeviceType
+
+            from omgsr_tpu_torch.utils.observability import trace
+
+            with torch.inference_mode(), trace(profile_dir) as prof:
+                m.apply(m.params, x)
+                torch.cuda.synchronize()
+            by_kernel = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:
+                    us = getattr(e, "self_device_time_total", None)
+                    n, t = by_kernel.get(e.key, (0, 0.0))
+                    by_kernel[e.key] = (n + e.count, t + (e.self_cuda_time_total if us is None else us))
+            busy = sum(t for _, t in by_kernel.values()) / 1e3
+            k1_n, k1_us = map(sum, zip(*[v for k, v in by_kernel.items() if "flash_fwd" in k]))
+            size = os.path.getsize(prof.trace_path)
+            timings[key].update(trace_mib=size / 2 ** 20, busy_ms=busy, idle_share=1 - busy / ms,
+                                k1_device_ms=k1_us / 1e3 / k1_n)
+            print(f"profile: dinov3 {name} b{batch} {px}px one forward traced by utils.observability.trace: "
+                  f"{os.path.basename(prof.trace_path)}, {size / 2 ** 20:.2f} MiB; kernels busy {busy:.3f} ms of "
+                  f"{ms:.3f} ms a forward (idle share {1 - busy / ms:.3f}); K1 {k1_n} launches, "
+                  f"{k1_us / 1e3 / k1_n:.5f} ms of device time each [{card}]", flush=True)
+            for k, (n, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]:
+                print(f"profile: dinov3 {name} b{batch} {px}px {t / 1e3:8.3f} ms {t / 1e3 / busy:6.1%} {n:4d} x "
+                      f"{k[:90]}", flush=True)
+    return outs
+
+
+def phase_dinov3(card, work_dir, profile=False):
+    """The DINOv3 ViTs through the hub entries on the card, bf16, random
+    weights from seeds: ViT-L (0.3B) and ViT-7B (6.7B) at full width and
+    depth, apply and get_intermediate_layers(n=4) at DINO_RUNS, the ViT-7B
+    linear classifier; each new K1 shape timed and held against its plain
+    version; ViT-L in f32 against the CPU."""
+    from omgsr_tpu_torch import hub
+    from omgsr_tpu_torch.models.dinov3_vit import dinov3_vit_apply
+    from omgsr_tpu_torch.models.layers import dense
+    from omgsr_tpu_torch.utils.devices import tree_to
+
+    seen_all = {"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}
+    counts_all, timings = {}, {}
+    profile_dir = os.path.join(work_dir, "dinov3_trace") if profile else None
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = hub.dinov3_vitl16(seed=40, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    cfg_l = m.cfgs["backbone"]
+    print(f"dinov3: hub.dinov3_vitl16 drew {count_params(m.params) / 1e9:.3f}B parameters in bf16 in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    vit_forwards(card, "vitl16", m, 4000, seen_all, counts_all, timings, profile_dir)
+
+    # f32 on the card (TF32 off, phase device) against the plain versions on the CPU, same tree
+    x = randn((1, 224, 224, 3), torch.float32, 4100)
+    p32 = tree_to(m.params, dtype=torch.float32)
+    out32, c = counted(seen_all, counts_all, lambda: m.apply(p32, x))
+    assert c["flash_attention_fwd"] == cfg_l.depth, c
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = dinov3_vit_apply(tree_to(p32["backbone"], device="cpu"), cfg_l, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    rels = {k: rel_l2(out32[k].cpu(), ref[k]) for k in ("x_norm_patchtokens", "x_norm_clstoken", "x_storage_tokens")}
+    print(f"dinov3: vitl16 f32 batch 1 at 224 px on the card (K1's f32 kernel, TF32 off) against the plain versions "
+          f"on the CPU ({cpu_s:.2f} s): rel L2 " + ", ".join(f"{k} {v:.3g}" for k, v in rels.items())
+          + f" (bound {DINO_F32_REL_L2} on each)", flush=True)
+    assert max(rels.values()) <= DINO_F32_REL_L2, rels
+    timings["dinov3 vitl16 f32 rel_l2"] = rels
+    del m, p32, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = hub.dinov3_vit7b16(seed=41, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    cfg_7b = m.cfgs["backbone"]
+    weights_gb = sum(t.numel() * t.element_size() for t in flatten_dict(m.params).values()) / 1e9
+    print(f"dinov3: hub.dinov3_vit7b16 drew {count_params(m.params) / 1e9:.3f}B parameters ({weights_gb:.2f} GB "
+          f"in bf16) in {time.perf_counter() - t0:.2f} s", flush=True)
+    outs = vit_forwards(card, "vit7b16", m, 4200, seen_all, counts_all, timings, profile_dir)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the linear classifier draws the same backbone from the same seed: its logits are its head over the
+    # features of the backbone's forward above
+    lc = hub.dinov3_vit7b16_lc(seed=41, dtype=torch.bfloat16, device="cuda")
+    batch, px = DINO_RUNS["vit7b16"][0]
+    x = randn((batch, px, px, 3), torch.bfloat16, 4200)  # the backbone's first input above
+    logits, c = counted(seen_all, counts_all, lambda: lc.apply(lc.params, x))
+    assert c["flash_attention_fwd"] == cfg_7b.depth, c
+    f = outs[(batch, px)]
+    with torch.inference_mode():
+        z = torch.cat([f["x_norm_clstoken"], f["x_norm_patchtokens"].mean(dim=1)], dim=-1)
+        want = dense(lc.params["linear_head"], z)
+    err = (logits.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    assert logits.shape == (batch, 1000) and torch.isfinite(logits.float()).all() and err <= TOL[torch.bfloat16], err
+    ms = time_ms(lambda: lc.apply(lc.params, x), DINO_ITERS["vit7b16"], warmup=2)
+    timings[f"dinov3 vit7b16_lc b{batch} {px}px"] = {"ms_per_forward": ms}
+    print(f"dinov3: dinov3_vit7b16_lc logits ({batch}, 1000) at {px} px finite, {err:.3g} of max |logit| from the head over the "
+          f"backbone's features; {ms:.3f} ms a forward [{card}]", flush=True)
+    del lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each K1 shape of the bf16 forwards timed and held against the plain version, with the ViT's operands
+    rows = []
+    for i, (name, cfg) in enumerate((("vitl16", cfg_l), ("vit7b16", cfg_7b))):
+        for j, (batch, px) in enumerate(DINO_RUNS[name]):
+            shape, skv = vit_k1_shape(cfg, batch, px)
+            assert seen_all["flash_n"][(shape, skv, torch.bfloat16)] >= 2 * cfg.depth
+            r = check_flash(shape, skv, torch.bfloat16, 4300 + 20 * i + 10 * j, packed="v")
+            r.update(on_dinov3_path=True, launches_per_forward=cfg.depth, backbone=name)
+            HELD["flash"].add((shape, skv, torch.bfloat16))
+            rows.append(r)
+            print(f"dinov3: flash_attention_fwd {r['shape']} ({name}): err {r['max_abs_err']:.3g} "
+                  f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[torch.bfloat16]:.3g}) lse err "
+                  f"{r['max_abs_err_lse']:.3g}, two runs bit-identical; {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                  f"{r['bound_share']:.3f} of the bound), plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+                  f"(SDPA {r['library_backend']}), bound {r['bound_ms']:.5f} ({r['bound_by']}); {cfg.depth} a "
+                  f"forward [{card}]", flush=True)
+    report_launch_shapes("dinov3", "the DINOv3 ViTs", seen_all, 18000)
+    print(f"dinov3: launches {counts_all}", flush=True)
+    return counts_all, timings, rows
+
+
+# ----------------------------------------------------------------------------
+# phase: drill (cli.fire_drill at the published SD2.1 architecture and FLUX at full depth)
+# ----------------------------------------------------------------------------
+
+
+def phase_drill(card, work_dir):
+    """fire_drill.main --family sd (the SD2.1 VAE and UNet in f32, 2 GB shards
+    with an index) and --family flux (19 + 38 blocks at width 512, bf16) on the
+    card: fabricate, the infer CLI, eval_sr, the adapter round trip and
+    validate_checkpoint against the CPU reference; each must pass."""
+    from omgsr_tpu_torch.cli import fire_drill
+
+    seen_all = {"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}
+    counts_all, timings = {}, {}
+    for family in ("sd", "flux"):
+        root = os.path.join(work_dir, f"drill_{family}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report, c = counted(seen_all, counts_all, lambda: fire_drill.main(
+            ["--family", family, "--root", root, "--device", "cuda"]), inference=False)
+        wall = time.perf_counter() - t0
+        st = report["stages"]
+        assert report["passed"] and report["worst_parity_max_rel"] <= 1e-3 and st["adapter_roundtrip_exact"], report
+        assert c["flash_attention_fwd"] > 0 and c["group_norm_stats"] > 0 and c["group_norm_apply"] > 0, c
+        assert c["flash_attention_bwd_dq"] == c["flash_attention_bwd_dkv"] == 0, c
+        summary = st["eval_sr"]["summary"]
+        assert all(math.isfinite(summary[k]) for k in ("psnr_mean", "ssim_mean", "dists_mean", "lpips_mean",
+                                                         "niqe_mean")), summary
+        parity = {k: v["max_rel"] for k, v in st["torch_parity"].items() if "max_rel" in v}
+        timings[f"drill {family}"] = {"wall_s": wall, "worst_parity_max_rel": report["worst_parity_max_rel"],
+                                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                      **{k: v for k, v in st.items() if k.endswith("_s")}}
+        print(f"drill: fire_drill --family {family}: passed, worst parity max_rel "
+              f"{report['worst_parity_max_rel']:.3g} (bound 1e-3; " + ", ".join(f"{k} {v:.3g}" for k, v in parity.items())
+              + f"); files {st['checkpoint_files']}; stages fabricate {st['fabricate_s']} s, port and infer "
+              f"{st['port_and_infer_s']} s, eval_sr {st['eval_sr_s']} s, adapter round trip "
+              f"{st['adapter_roundtrip_s']} s, torch parity {st['torch_parity_s']} s; {wall:.1f} s in all, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {c} [{card}]", flush=True)
+        shutil.rmtree(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+    report_launch_shapes("drill", "the fire drills", seen_all, 19000)
+    return counts_all, timings
+
+
 KERNELS = [
     # name (also its launch counter's), source, the TPU kernel it replaces, the CUDA kernels its
     # wrapper launches (bf16 at D = 64/128 first)
@@ -4680,16 +4946,19 @@ def main():
         torch.cuda.empty_cache()
         td_counts2, td_seen2 = train_dist_worlds(card, vae_params, unet_params, work_dir, f_ref, train_dist_timings)
         train_dist_counts = phase_train_dist_report(td_counts, td_seen, td_counts2, td_seen2)
+        dinov3_counts, dinov3_timings, dinov3_rows = phase_dinov3(card, work_dir, args.profile)
+        shapes["flash_attention_fwd"] += dinov3_rows
+        drill_counts, drill_timings = phase_drill(card, work_dir)
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
                  quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings, shard_timings,
-                 train_dist_timings):
+                 train_dist_timings, dinov3_timings, drill_timings):
         timings.update(more)
 
     kernels = []
     for name, source, replaces, cuda_kernels in KERNELS:
         head = shapes[name][0]  # the largest shape of the serving and training paths
-        on_path = [r for r in shapes[name] if r.get("on_serving_path") or r.get("on_training_path")] \
-            or shapes[name]
+        on_path = [r for r in shapes[name]
+                   if r.get("on_serving_path") or r.get("on_training_path") or r.get("on_dinov3_path")] or shapes[name]
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
         launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
@@ -4698,9 +4967,17 @@ def main():
         launches_quant_f = quant_f_counts.get(name, 0)
         launches_shard = shard_counts.get(name, 0)
         launches_train_dist = train_dist_counts.get(name, 0)
+        launches_dinov3, launches_drill = dinov3_counts.get(name, 0), drill_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
                     + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f + launches_shard
-                    + launches_train_dist)
+                    + launches_train_dist + launches_dinov3 + launches_drill)
+        # the ViTs run K1 alone; the drills' VAE, UNet and DiT K1 and K3a/K3b, no fused resblock, no backward
+        if name == "flash_attention_fwd":
+            assert launches_dinov3 > 0 and launches_drill > 0, name
+        elif name.startswith("group_norm"):
+            assert launches_drill > 0 and launches_dinov3 == 0, name
+        elif name != "flash_attention_fwd_merge":
+            assert launches_dinov3 == launches_drill == 0, name
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
@@ -4727,6 +5004,7 @@ def main():
             "launches_quant_f": launches_quant_f, "launches_train_f": launches_train_f,
             "launches_load_f": launches_load_f, "launches_eval": eval_counts.get(name, 0),
             "launches_shard": launches_shard, "launches_train_dist": launches_train_dist,
+            "launches_dinov3": launches_dinov3, "launches_drill": launches_drill,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

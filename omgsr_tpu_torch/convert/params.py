@@ -10,7 +10,7 @@ rule: conv ``lora_A`` (kh,kw,in,r) -> (r,in,kh,kw), ``lora_B`` (1,1,r,out) ->
 a depthwise kernel (kh,kw,1,C) becomes (C,1,kh,kw). ``from_jax_tree`` converts
 a tree of numpy arrays and ``to_jax_tree`` goes back (torch -> numpy in the
 JAX layout); ``init_vae`` / ``init_unet`` / ``init_flux`` / ``init_convnext`` /
-``init_discriminator`` / ``init_t5_encoder`` build trees of the same structure from a seed
+``init_dinov3_vit`` / ``init_discriminator`` / ``init_t5_encoder`` build trees of the same structure from a seed
 (torch's default Linear/Conv2d distribution, and for the FLUX DiT the JAX
 package's wider weight bound; the values differ from the JAX initialisers',
 so parity tests always carry the JAX weights across the
@@ -27,7 +27,14 @@ import math
 import numpy as np
 import torch
 
-from omgsr_tpu_torch.models.configs import ConvNeXtConfig, FluxConfig, T5Config, UNetConfig, VAEConfig
+from omgsr_tpu_torch.models.configs import (
+    ConvNeXtConfig,
+    DinoV3ViTConfig,
+    FluxConfig,
+    T5Config,
+    UNetConfig,
+    VAEConfig,
+)
 from omgsr_tpu_torch.utils.devices import resolve_device
 
 
@@ -56,7 +63,8 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
     quantised layer's ``kernel_q`` / ``kernel_q4`` / ``kernel_scale`` become
     ``weight_q`` / ``weight_q4`` / ``weight_scale`` transposed to (out, ...)
     (int4's nibble pairs stay in their bytes) in their own dtypes, whatever
-    ``dtype`` says, and an ``act_quant`` marker is kept."""
+    ``dtype`` says, and an ``act_quant`` marker is kept. The DINOv3 ViT's
+    RoPE ``periods`` stay f32, as its initialiser makes them."""
     device = resolve_device(device)
 
     def leaf(key, arr):
@@ -68,6 +76,8 @@ def from_jax_tree(tree, dtype=None, device="cuda"):
             return "weight_scale", t.t().contiguous().to(device) if t.dim() == 2 else t.to(device)
         if key == "act_quant":
             return key, t.to(device)
+        if key == "periods":
+            return key, t.to(device=device, dtype=torch.float32)
         if key in ("lora_A", "lora_B"):
             if t.dim() == 4:
                 return key, _conv_weight(t.permute(3, 2, 0, 1).to(device=device, dtype=dtype))
@@ -530,6 +540,51 @@ def init_convnext(seed, cfg: ConvNeXtConfig, dtype=torch.float32, device="cuda",
             str(j): _convnext_block(it, dims[i], cfg.layer_scale_init_value)
             for j in range(cfg.depths[i])
         }
+    return params
+
+
+def _vit_block(it: _Init, cfg: DinoV3ViTConfig):
+    d = cfg.embed_dim
+    p = {
+        "norm1": it.norm(d),
+        "attn": {"qkv": it.dense(d, 3 * d, use_bias=cfg.qkv_bias), "proj": it.dense(d, d)},
+        "ls1": {"gamma": torch.full((d,), cfg.layerscale_init, dtype=it.dtype, device=it.device)},
+        "norm2": it.norm(d),
+        "ls2": {"gamma": torch.full((d,), cfg.layerscale_init, dtype=it.dtype, device=it.device)},
+    }
+    if cfg.ffn_layer == "mlp":
+        hidden = int(d * cfg.ffn_ratio)
+        p["mlp"] = {"fc1": it.dense(d, hidden), "fc2": it.dense(hidden, d)}
+    else:
+        hidden = cfg.swiglu_hidden
+        p["mlp"] = {"w1": it.dense(d, hidden), "w2": it.dense(d, hidden), "w3": it.dense(hidden, d)}
+    return p
+
+
+def init_dinov3_vit(seed, cfg: DinoV3ViTConfig, dtype=torch.float32, device="cuda"):
+    """Random DINOv3 ViT parameters with the hub state dict's paths
+    (``blocks.0.attn.qkv``, ...; blocks keyed "0".."depth-1") and the JAX
+    initialiser's shapes: the cls and register tokens N(0, 0.02), the mask
+    token 0, LayerScale ``layerscale_init``, the RoPE ``periods`` in f32
+    whatever ``dtype`` says, dense and conv layers torch's default. Each
+    tensor is drawn in f32 and cast before the next, so the 6.7B ViT-7B in
+    bf16 never exists in f32."""
+    from omgsr_tpu_torch.models.dinov3_vit import rope_periods
+
+    it = _Init(seed, dtype, device)
+    d = cfg.embed_dim
+    params = {
+        "cls_token": it.normal((1, 1, d), 0.02),
+        "mask_token": torch.zeros((1, d), dtype=dtype, device=it.device),
+        "patch_embed": {"proj": it.conv(cfg.patch_size, cfg.patch_size, cfg.in_chans, d)},
+        "rope_embed": {"periods": torch.as_tensor(rope_periods(cfg), dtype=torch.float32).to(it.device)},
+    }
+    if cfg.n_storage_tokens > 0:
+        params["storage_tokens"] = it.normal((1, cfg.n_storage_tokens, d), 0.02)
+    params["blocks"] = {str(i): _vit_block(it, cfg) for i in range(cfg.depth)}
+    params["norm"] = it.norm(d)
+    if cfg.untie_cls_and_patch_norms:
+        params["cls_norm"] = it.norm(d)
     return params
 
 

@@ -12,7 +12,7 @@ conversion is the identity on the key paths, with conv weights kept in
 ``channels_last`` memory. Each porter checks the leaf paths and shapes
 against the structure of the port's own ``init_*`` for the config, built on
 the ``meta`` device (nothing is allocated), so a missing or mistyped key
-fails loudly. The DINOv3 ViT's porter arrives with the DINOv3 slice.
+fails loudly.
 """
 
 from __future__ import annotations
@@ -208,4 +208,42 @@ def port_dinov3_convnext(pth_path, cfg=None, dtype=torch.float32, validate: bool
     if validate:
         expected = init_convnext(0, cfg, dtype, "meta", with_final_norm="norm" in params)
         _validate_against(params, expected, "dinov3_convnext")
+    return params
+
+
+def port_dinov3_vit(pth_path, cfg=None, dtype=torch.float32, validate: bool = True, device="cuda"):
+    """DINOv3 ViT hub .pth (or an already-loaded state dict) -> parameter
+    tree for ``models/dinov3_vit.py`` (the hub/backbones.py:63-146 load path).
+
+    The reference's LinearKMaskedBias stores a ``bias_mask`` buffer beside
+    the qkv bias and multiplies them at every forward (dinov3/layers/
+    attention.py:30-40); here the product is folded into the bias once, in
+    f32, and a non-finite mask is refused. ``local_cls_norm``
+    (untie_global_and_local_cls_norm) is a train-only head and is dropped
+    (vision_transformer.py:171 "never used during eval"); ``head`` is
+    Identity and stores nothing. The leaves are checked against
+    ``init_dinov3_vit``'s shapes."""
+    from omgsr_tpu_torch.convert.params import init_dinov3_vit
+    from omgsr_tpu_torch.models.configs import VIT_SIZES
+
+    device = resolve_device(device)
+    cfg = cfg or VIT_SIZES["vitl16"]
+    sd = pth_path if isinstance(pth_path, dict) else torch.load(pth_path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    tensors = {}
+    for k, v in sd.items():
+        if k.startswith("local_cls_norm") or k.endswith(".bias_mask"):
+            continue
+        w = v.float()
+        if k.endswith(".bias") and f"{k}_mask" in sd:
+            mask = sd[f"{k}_mask"].float()
+            if not torch.isfinite(mask).all():
+                raise ValueError(f"{k}_mask contains non-finite values (uninitialized buffer?): refusing to "
+                                 "fold it into the bias")
+            w = w * mask
+        tensors[k] = w
+    params = _convert(tensors, dtype=dtype, device=device)
+    if validate:
+        _validate_against(params, init_dinov3_vit(0, cfg, dtype, "meta"), "dinov3_vit")
     return params

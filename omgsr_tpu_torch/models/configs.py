@@ -1,12 +1,12 @@
 """Model architecture configs of the ported slices (SD2.1 VAE, UNet and CLIP
 text encoder, the FLUX.1-dev VAE, DiT and prompt encoders (CLIP-L, T5-XXL),
-DINOv3 ConvNeXt).
+DINOv3 ConvNeXt and ViT).
 
 Values mirror the HF checkpoint configs of
 stabilityai/stable-diffusion-2-1-base (vae/unet/text_encoder) and
 black-forest-labs/FLUX.1-dev (vae/transformer/text_encoder/text_encoder_2).
 The port keeps its own copy of these dataclasses. ConvNeXt sizes follow
-dinov3/models/convnext.py:309-326.
+dinov3/models/convnext.py:309-326, ViT sizes dinov3/hub/backbones.py:203-497.
 """
 
 from __future__ import annotations
@@ -170,4 +170,60 @@ CONVNEXT_SIZES = {
     "small": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(96, 192, 384, 768)),
     "base": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024)),
     "large": ConvNeXtConfig(depths=(3, 3, 27, 3), dims=(192, 384, 768, 1536)),
+}
+
+
+@dataclass(frozen=True)
+class DinoV3ViTConfig:
+    """DINOv3 ViT (dinov3/models/vision_transformer.py:55-177; size entry
+    points at dinov3/hub/backbones.py:203-497)."""
+
+    patch_size: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    ffn_ratio: float = 4.0
+    ffn_layer: str = "mlp"  # "mlp" | "swiglu" (align 8) | "swiglu64"
+    qkv_bias: bool = True
+    n_storage_tokens: int = 4
+    layerscale_init: float = 1e-5
+    norm_eps: float = 1e-5  # hub models use "layernormbf16" = LN(eps=1e-5)
+    rope_base: float = 100.0
+    rope_normalize_coords: str = "separate"  # "separate" | "min" | "max"
+    untie_cls_and_patch_norms: bool = False
+    in_chans: int = 3
+    # per-block recompute under grad: the memory lever of SSL pretraining,
+    # which the port does not have yet (no effect on inference)
+    remat_blocks: bool = False
+
+    def __post_init__(self):
+        if self.remat_blocks:
+            raise NotImplementedError(
+                "DinoV3ViTConfig.remat_blocks is SSL-pretraining memory and arrives with the SSL "
+                "pretraining slice (ROADMAP.md Queue 1 item 3.2); the port's ViT runs inference only")
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def swiglu_hidden(self) -> int:
+        # ffn_layers.py:66-69: 2/3 of the nominal hidden dim, aligned up
+        align = 64 if self.ffn_layer == "swiglu64" else 8
+        d = int(int(self.embed_dim * self.ffn_ratio) * 2 / 3)
+        return d + (-d % align)
+
+
+# The published LVD-1689M checkpoints (hub/backbones.py:203-497). All use
+# rope base 100, "separate" coord normalization, LayerScale 1e-5, LN eps
+# 1e-5, 4 registers, masked k bias (folded at port time).
+VIT_SIZES = {
+    "vits16": DinoV3ViTConfig(embed_dim=384, depth=12, num_heads=6),
+    "vits16plus": DinoV3ViTConfig(embed_dim=384, depth=12, num_heads=6, ffn_ratio=6.0, ffn_layer="swiglu"),
+    "vitb16": DinoV3ViTConfig(embed_dim=768, depth=12, num_heads=12),
+    "vitl16": DinoV3ViTConfig(embed_dim=1024, depth=24, num_heads=16),
+    "vitl16plus": DinoV3ViTConfig(embed_dim=1024, depth=24, num_heads=16, ffn_ratio=6.0, ffn_layer="swiglu"),
+    "vith16plus": DinoV3ViTConfig(embed_dim=1280, depth=32, num_heads=20, ffn_ratio=6.0, ffn_layer="swiglu"),
+    "vit7b16": DinoV3ViTConfig(embed_dim=4096, depth=40, num_heads=32, ffn_ratio=3.0, ffn_layer="swiglu64",
+                               qkv_bias=False),
 }

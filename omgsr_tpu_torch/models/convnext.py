@@ -9,8 +9,9 @@ Structure per stage i: downsample (stem 4x4/s4 for i=0, else LN+conv 2x2/s2)
 then depth_i ConvNeXt blocks (dwconv 7x7 -> LN -> MLP x4 gelu -> gamma scale
 -> residual). NHWC; LN eps 1e-6; exact GELU. Param paths mirror the torch
 module tree (downsample_layers.0.0, stages.2.5.dwconv, ...);
-convert/params.init_convnext builds a tree from a seed. The all-stage
-``forward_features`` of the JAX package arrives with the DINOv3 slice.
+convert/params.init_convnext builds a tree from a seed.
+``convnext_forward_features`` is the all-stage ``forward_features`` the hub
+entries expose, in the ViT's key layout.
 """
 
 from __future__ import annotations
@@ -51,6 +52,23 @@ def convnext_features(params, x, num_stages: int = 3):
             x = _block(params["stages"][str(i)][j], x)
         feats.append(x)
     return feats
+
+
+def convnext_forward_features(params, x):
+    """forward_features (convnext.py:207-235): all 4 stages, the global
+    -average-pooled 'cls' token concatenated ahead of the flattened patch
+    tokens, final LayerNorm over everything. Returns the same key layout as
+    the ViT so the probes/dinotxt consumers are backbone-agnostic."""
+    last = convnext_features(params, x, num_stages=4)[-1]
+    b, h, w, c = last.shape
+    tokens = torch.cat([last.mean(dim=(1, 2))[:, None], last.reshape(b, h * w, c)], dim=1)
+    normed = layer_norm(params["norm"], tokens, _EPS)
+    return {
+        "x_norm_clstoken": normed[:, 0],
+        "x_storage_tokens": normed[:, 1:1],  # no registers (convnext.py:185)
+        "x_norm_patchtokens": normed[:, 1:],
+        "x_prenorm": tokens,
+    }
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

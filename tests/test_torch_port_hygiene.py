@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
                 "diffusion.packing", "inference.pipeline_f", "cli.infer_omgsr_f", "cli.mid_timestep_flux",
                 "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f",
                 "utils.quantize", "utils.metrics", "utils.niqe", "utils.lpips", "models.clip_vision",
-                "cli.eval_sr", "parallel", "parallel.distributed", "parallel.sharding"):
+                "cli.eval_sr", "parallel", "parallel.distributed", "parallel.sharding", "models.dinov3_vit", "hub",
+                "utils.observability", "cli.validate_checkpoint", "cli.fire_drill"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -110,7 +111,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from omgsr_tpu_torch.utils.lpips import init_lpips
     from omgsr_tpu_torch.utils.quantize import init_flux_quantized, quantize_flux_for_serving
     from omgsr_tpu_torch.tools import multiproc_check
+    from omgsr_tpu_torch import hub
+    from omgsr_tpu_torch.cli import fire_drill, validate_checkpoint
+    from omgsr_tpu_torch.convert.params import init_dinov3_vit
+    from omgsr_tpu_torch.models.configs import DinoV3ViTConfig
 
+    vit_cfg = DinoV3ViTConfig(embed_dim=64, depth=1, num_heads=1)
     vc = VAEConfig(block_out_channels=(8, 16), norm_num_groups=4)
     uc = UNetConfig(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
                     cross_attention_dim=16, norm_num_groups=4)
@@ -195,6 +201,15 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "init_lpips": lambda: init_lpips(0),
         # multi-GPU training: the multi-process check raises before it starts a process
         "multiproc_check.main": lambda: multiproc_check.main(["--nprocs", "2"]),
+        # the DINOv3 ViT, the hub and the real-weight tools: each raises before it reads a file or draws
+        "init_dinov3_vit": lambda: init_dinov3_vit(0, vit_cfg),
+        "port_dinov3_vit": lambda: porters.port_dinov3_vit(str(tmp_path / "x.pth")),
+        "hub ViT": lambda: hub.dinov3_vitl16(depth=1),
+        "hub ConvNeXt": lambda: hub.dinov3_convnext_tiny(depths=(1, 1, 1, 1)),
+        "hub classifier": lambda: hub.dinov3_vit7b16_lc(backbone_overrides={"depth": 1}),
+        "validate_checkpoint.main": lambda: validate_checkpoint.main(["--sd_path", str(tmp_path)]),
+        "fire_drill.main": lambda: fire_drill.main(["--family", "sd", "--root", str(tmp_path / "drill")]),
+        "fire_drill.fabricate": lambda: fire_drill.fabricate("sd", str(tmp_path / "drill"), 0, 2.0),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
