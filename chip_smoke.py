@@ -164,6 +164,19 @@ them. Phases, each of which must pass:
            its plain version; ViT-L in f32 on the card against the plain
            versions on the CPU (rel L2 of the tokens <= 1e-4); with
            --profile one forward traced by utils.observability.trace
+  ssl      DINOv3 SSL pretraining at full ViT-L/16 width (omgsr_tpu_torch/configs/
+           ssl_vitl16.yml: 24 blocks of width 1024, 65,536-prototype heads, batch
+           8 of 2 x 224 + 8 x 96 px crops, bf16 over f32 masters) on 24
+           synthetic images: pretrain_dinov3.main for 4 iterations with the
+           k-NN eval, the teacher export read back through the hub's ViT, a
+           run resumed from the iteration-2 checkpoint against the straight
+           one; the step with per-block recompute (peak, s, 120 K1 a step);
+           one step in f32 against the CPU at depth 2; one gram-anchored step
+           on 512-px gram crops; one distillation step from a ViT-7B/16
+           teacher (ssl_vitl16_distilled.yml); s per iteration, the loader's
+           wait and share, peaks, launches a step; each new K1 and K2a/K2b
+           shape timed and held against its plain version (with --profile
+           one step traced)
   drill    cli.fire_drill --family sd (the SD2.1 VAE and UNet in f32, sharded
            at 2 GB with an index) and --family flux (19 + 38 blocks at width
            512, bf16) on the card: fabricate with the port's writers, the
@@ -626,7 +639,13 @@ def check_flash_bwd(shape, skv, dtype, seed, packed=False):
     """K2a and K2b against the plain backward, each also alone against its
     half of it, twice for bit-identity, and timed one by one."""
     b, sq, h, d = shape
-    if packed:
+    if packed == "v":  # the DINOv3 ViT's operands: q and k fresh after RoPE, v a view of the packed qkv
+        assert skv == sq
+        q, k = randn(shape, dtype, seed), randn(shape, dtype, seed + 1)
+        v = randn((b, sq, 3, h, d), dtype, seed + 2)[:, :, 2]
+        dout = randn(shape, dtype, seed + 3)
+        assert not v.is_contiguous() and FA._kernel_operand(v) is v
+    elif packed:
         q, k, v = randn((b, sq, 3, h, d), dtype, seed).unbind(2)
         dout = randn((b, h, sq, d), dtype, seed + 3).permute(0, 2, 1, 3)  # as autograd may hand it over
         assert not dout.is_contiguous() and FA._kernel_operand(dout) is dout
@@ -687,7 +706,8 @@ def check_flash_bwd(shape, skv, dtype, seed, packed=False):
         t_flops, t_bytes = mult * work / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
         part = ("dq",) if name.endswith("dq") else ("dk", "dv")
         rows[name] = {
-            "shape": f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + (" packed qkv, strided dO" if packed else ""),
+            "shape": f"q{list(shape)} kv{skv} {str(dtype)[6:]}" + {"v": " v packed", True: " packed qkv, strided dO"}
+            .get(packed, ""),
             "max_abs_err": max(errs[n] for n in part),
             "max_err_over_max_ref": max(scaled[n] for n in part),
             "bit_identical_twice": True,
@@ -4815,6 +4835,598 @@ def phase_dinov3(card, work_dir, profile=False):
 
 
 # ----------------------------------------------------------------------------
+# phase: ssl (DINOv3 SSL pretraining at full ViT-L/16 width; K1, K2a/K2b at the ViT's ragged token counts)
+# ----------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SSL_RECIPE = os.path.join(ROOT, "omgsr_tpu_torch", "configs", "ssl_vitl16.yml")
+SSL_DISTILLED = os.path.join(ROOT, "omgsr_tpu_torch", "configs", "ssl_vitl16_distilled.yml")
+SSL_ITERS = 4
+SSL_LOADER_STEPS = 8  # steps behind the loader thread; the first 3 take pre-filled batches
+SSL_IMAGES = 24  # random sizes 256-512 px
+SSL_KNN_PER_CLASS = 8  # a 2-class ImageFolder, train and val the same
+# the run resumed from iteration 2 against the straight run on the card: iterations 3 and 4's losses (relative) and
+# the teacher (max |difference|): the same code on the same inputs, up to the order of atomic adds (the gradient of
+# KoLeo's nearest-neighbour gather)
+SSL_RESUME_LOSS_REL = 1e-4
+SSL_RESUME_TEACHER_ABS = 1e-5
+# one step in f32 on the card (TF32 off) against the CPU at ViT-L width, 65,536 prototypes and depth 2, batch 2:
+# the losses (relative), each tree of the student, teacher and Adam moments (rel L2 over the tree) and its worst
+# leaf (rel L2). The f32 step is ill-conditioned with random weights and LayerScale 1e-5: f32 and f64 gradients
+# differ by up to 5.9e-3 (rel L2) on the CPU alone in leaves whose gradient is near 0 (the norm2 weights, |g|
+# 8e-7), and Adam's first step moves an entry by about lr whatever its gradient's size. On an H100 80GB HBM3 at
+# 700 W the card read 1.45e-4 (Adam mu) and 1.70e-4 (nu) over the trees and 6.35e-3 in the worst leaf, the same
+# in four runs; the bounds sit 3-5x above. The same step with TF32 on is the control and must break a bound (its
+# gradients in those leaves were 0.67-2.7 off f64, the card's f32 ones 4.9e-3-9.0e-3)
+SSL_F32_DEPTH = 2
+SSL_F32_LOSS_REL = 1e-5
+SSL_F32_TREE_REL_L2 = 5e-4
+SSL_F32_REL_L2 = 3e-2
+SSL_STEP = dict(lr=2e-4, wd=0.04, teacher_temp=0.05, momentum=0.992, last_layer_lr=2e-4)
+# the distillation teacher's depth (ViT-7B/16 has 40 blocks)
+SSL_DISTILL_TEACHER_DEPTH = 40
+
+
+def write_ssl_images(root, seed):
+    """SSL_IMAGES JPEGs of random sizes 256-512 px, and a 2-class ImageFolder
+    (knn/c0, knn/c1) of SSL_KNN_PER_CLASS images each; smooth random colour
+    fields with noise, so the crops and the k-NN classes differ."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    imgs = os.path.join(root, "images")
+    os.makedirs(imgs)
+    for i in range(SSL_IMAGES):
+        h, w = (int(v) for v in rng.integers(256, 513, 2))
+        base = rng.uniform(0, 255, (h // 32 + 2, w // 32 + 2, 3)).astype(np.float32)
+        up = np.asarray(Image.fromarray(base.astype(np.uint8)).resize((w, h), Image.BICUBIC), np.float32)
+        arr = np.clip(up + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(imgs, f"img_{i:02d}.jpg"), quality=92)
+    knn = os.path.join(root, "knn")
+    for c in range(2):
+        os.makedirs(os.path.join(knn, f"c{c}"))
+        for j in range(SSL_KNN_PER_CLASS):
+            arr = rng.normal(70 + 110 * c, 25, (288, 320, 3)).clip(0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(knn, f"c{c}", f"{j}.png"))
+    return imgs, knn
+
+
+def ssl_args(out_dir, imgs, knn, extra=()):
+    return ["--config", SSL_RECIPE, f"output_dir={out_dir}", f"dataset_paths={imgs}", "epochs=1",
+            f"official_epoch_length={SSL_ITERS}", "saveckp_freq=2", "print_freq=1",
+            f"eval_period_iterations={SSL_ITERS}", f"eval_knn_train_dir={knn}", f"eval_knn_val_dir={knn}", *extra]
+
+
+def tree_diff(a, b):
+    """(max |a - b|, worst leaf rel L2, that leaf's path, rel L2 over the
+    whole tree) of two trees of the same structure."""
+    fa, fb = flatten_dict(a), flatten_dict(b)
+    assert set(fa) == set(fb)
+    worst_abs, worst_rel, worst_leaf, d2, n2 = 0.0, 0.0, "", 0.0, 0.0
+    for k in fb:
+        x, y = fa[k].detach().double().cpu(), fb[k].detach().double().cpu()
+        worst_abs = max(worst_abs, (x - y).abs().max().item())
+        d2, n2 = d2 + (x - y).pow(2).sum().item(), n2 + y.pow(2).sum().item()
+        r = rel_l2(x, y)
+        if r >= worst_rel:
+            worst_rel, worst_leaf = r, ".".join(k)
+    return worst_abs, worst_rel, worst_leaf, math.sqrt(d2 / n2) if n2 > 0 else math.sqrt(d2)
+
+
+def ssl_f32_against_cpu(card, cfg, mcfg, vit_cfg, b32, seen_all, counts_all):
+    """One SSL step in f32 at ViT-L width and depth SSL_F32_DEPTH on the
+    batch ``b32`` (CPU tensors), from the same seeded student: on the card
+    with TF32 off, on the CPU, in f64 on the CPU (the yardstick), and on the
+    card with TF32 on (the control, which must break a bound). The card's
+    losses, student, teacher, Adam moments and centers are held against the
+    CPU's. Each step's optimizer records the gradients it is handed, before
+    the clip: their global norm and the heads' leaves, against f64. The DINO
+    cross-entropy's gradient alone, from the f64 student's logits rounded to
+    f32, shows where the card's head gradients leave the CPU's."""
+    from omgsr_tpu_torch.cli import pretrain_dinov3 as PD
+    from omgsr_tpu_torch.convert.params import init_dinov3_vit
+    from omgsr_tpu_torch.losses.ssl import dino_loss, sinkhorn_knopp
+    from omgsr_tpu_torch.models.dinov3_vit import dinov3_vit_apply
+    from omgsr_tpu_torch.training.ssl import dino_head_apply
+    from omgsr_tpu_torch.training.ssl_meta_arch import copy_tree, init_center_state, init_ssl_student, make_ssl_train_step
+    from omgsr_tpu_torch.utils.devices import tree_to
+
+    vc32 = dataclasses.replace(vit_cfg, depth=SSL_F32_DEPTH)
+    student_cpu = init_ssl_student(71, vc32, mcfg, init_dinov3_vit, torch.float32, "cpu")
+    tf32_before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    runs = {}
+    for name, dev, dt, tf32 in (("card", "cuda", torch.float32, False), ("card TF32", "cuda", torch.float32, True),
+                                ("CPU", "cpu", torch.float32, False), ("CPU f64", "cpu", torch.float64, False)):
+        st = copy_tree(tree_to(student_cpu, device=dev, dtype=dt))
+        te = copy_tree(st)
+        opt = PD.build_ssl_optimizer(cfg, vc32, st)
+        state = opt.init(st)
+        handed = {}
+
+        def recording_update(grads, *a, _update=opt.update, _handed=handed, **kw):
+            flat = flatten_dict(grads)
+            _handed["norm"] = math.sqrt(sum(g.double().pow(2).sum().item() for g in flat.values()))
+            _handed["heads"] = {k: g.detach().double().cpu() for k, g in flat.items() if k[0] != "backbone"}
+            return _update(grads, *a, **kw)
+
+        opt.update = recording_update
+        step = make_ssl_train_step(opt, cfg=mcfg, vit_cfg=vc32)
+        bd = {k: (v.to(dev, dt) if v.is_floating_point() else v.to(dev)) for k, v in b32.items()}
+        centers = {k: v.to(dt) for k, v in init_center_state(mcfg, dev).items()}
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        try:
+            if name == "card":
+                out, _ = counted(seen_all, counts_all, lambda: step(st, te, state, centers, bd, **SSL_STEP),
+                                 inference=False)
+            else:
+                out = step(st, te, state, centers, bd, **SSL_STEP)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_before
+        runs[name] = (out, time.perf_counter() - t0, handed)
+    cpu, f64 = runs["CPU"][0], runs["CPU f64"][2]
+
+    def against_cpu(run):
+        loss_rel = max(abs(float(run[4][k]) - float(cpu[4][k])) / abs(float(cpu[4][k])) for k in cpu[4])
+        return loss_rel, {"student": tree_diff(run[0], cpu[0]), "teacher": tree_diff(run[1], cpu[1]),
+                          "adam mu": tree_diff(run[2]["mu"], cpu[2]["mu"]),
+                          "adam nu": tree_diff(run[2]["nu"], cpu[2]["nu"]), "centers": tree_diff(run[3], cpu[3])}
+
+    def breaks(loss_rel, devs):
+        return (loss_rel > SSL_F32_LOSS_REL or max(v[3] for v in devs.values()) > SSL_F32_TREE_REL_L2
+                or max(v[1] for v in devs.values()) > SSL_F32_REL_L2)
+
+    loss_rel, devs = against_cpu(runs["card"][0])
+    loss_tf32, devs_tf32 = against_cpu(runs["card TF32"][0])
+    pre = {}
+    for name in ("card", "card TF32", "CPU"):
+        h = runs[name][2]
+        heads = {k: rel_l2(h["heads"][k], f64["heads"][k]) for k in f64["heads"]}
+        worst = max(heads, key=heads.get)
+        pre[name] = {"norm_rel": abs(h["norm"] - f64["norm"]) / f64["norm"], "norm": h["norm"],
+                     "dino_head": max(v for k, v in heads.items() if k[0] == "dino_head"),
+                     "ibot_head": max((v for k, v in heads.items() if k[0] == "ibot_head"), default=0.0),
+                     "worst_head_leaf": (".".join(worst), heads[worst])}
+
+    # the DINO CE alone (each student crop's log-softmax at T_s against the other crops' Sinkhorn targets): its
+    # gradient w.r.t. the student's global logits, from the f64 student's logits rounded to f32, on the card and
+    # the CPU through losses/ssl.dino_loss (which computes in f32 whatever it is given, so the steps' f64 run
+    # shares the CPU's rounding there), against the same formula in f64; and its log-softmax's backward alone
+    s64 = copy_tree(tree_to(student_cpu, dtype=torch.float64))
+    with torch.no_grad():
+        cls = dinov3_vit_apply(s64["backbone"], vc32, b32["global_crops"].double())["x_norm_clstoken"]
+        logits = dino_head_apply(s64["dino_head"], cls).float()
+        targets = sinkhorn_knopp(logits, SSL_STEP["teacher_temp"], n_iterations=mcfg.sinkhorn_iterations)
+    n_g, t_s = mcfg.n_global_crops, mcfg.student_temp
+    x_crops, t_crops = logits.reshape(n_g, -1, logits.shape[-1]), targets.reshape(n_g, -1, logits.shape[-1])
+    off_diag = 1.0 - torch.eye(n_g, dtype=torch.float64)
+    x64 = x_crops.double().requires_grad_(True)
+    logp64 = torch.log_softmax(x64 / t_s, -1)
+    pairs = -torch.einsum("sbk,tbk->st", logp64, t_crops.double()) * off_diag
+    up64, g64 = torch.autograd.grad(pairs.sum() / (x_crops.shape[1] * n_g * (n_g - 1)), (logp64, x64))
+    ce = {"grad_over_softmax": g64.norm().item() * t_s / torch.exp(logp64).norm().item()}
+    for name, dev in (("card", "cuda"), ("CPU", "cpu")):
+        x = x_crops.to(dev).requires_grad_(True)
+        grad = torch.autograd.grad(dino_loss(x, t_crops.to(dev), t_s, ignore_diagonal=True), x)[0]
+        logp = torch.log_softmax(x.detach() / t_s, -1)
+        lsm_bwd = torch._log_softmax_backward_data(up64.float().to(dev), logp64.detach().float().to(dev), -1,
+                                                   torch.float32)
+        ce[name] = {"grad": rel_l2(grad.double().cpu(), g64), "logp_max_abs":
+                    (logp.double().cpu() - logp64.detach()).abs().max().item(), "log_softmax_bwd_alone":
+                    rel_l2(lsm_bwd.double().cpu(), g64 * t_s)}
+
+    (gpu, gpu_s, _), cpu_s = runs["card"], runs["CPU"][1]
+    fa, fb = flatten_dict(gpu[2]["mu"]), flatten_dict(cpu[2]["mu"])
+    ranked = sorted(((rel_l2(fa[k].float().cpu(), fb[k].float()), ".".join(k)) for k in fb), reverse=True)[:6]
+    print(f"ssl: one step in f32 (TF32 off) at ViT-L width, depth {SSL_F32_DEPTH}, {mcfg.dino_out_dim} prototypes, "
+          f"batch {b32['global_crops'].shape[0] // 2} on the card ({gpu_s:.2f} s) against the CPU ({cpu_s:.2f} s; f64 "
+          f"{runs['CPU f64'][1]:.2f} s): losses within {loss_rel:.3g} relative (bound {SSL_F32_LOSS_REL}); rel L2 over "
+          "each tree " + ", ".join(f"{k} {v[3]:.3g}" for k, v in devs.items()) + f" (bound {SSL_F32_TREE_REL_L2}); "
+          "its worst leaf " + ", ".join(f"{k} {v[1]:.3g} ({v[2]})" for k, v in devs.items())
+          + f" (bound {SSL_F32_REL_L2}); the gradients' (Adam mu) largest: "
+          + ", ".join(f"{n} {r:.3g}" for r, n in ranked) + f" [{card}]", flush=True)
+    print(f"ssl: the control, the same step on the card with TF32 on, against the CPU: losses within {loss_tf32:.3g}; "
+          "rel L2 over each tree " + ", ".join(f"{k} {v[3]:.3g}" for k, v in devs_tf32.items()) + "; its worst leaf "
+          + ", ".join(f"{k} {v[1]:.3g} ({v[2]})" for k, v in devs_tf32.items())
+          + f"; it breaks a bound: {breaks(loss_tf32, devs_tf32)} [{card}]", flush=True)
+    print(f"ssl: the gradients handed to the optimizer (before the clip at {cfg.clip_grad}) against f64: global norm "
+          f"{f64['norm']:.6g} in f64; " + "; ".join(
+              f"{k} {v['norm']:.6g} (rel {v['norm_rel']:.3g}), dino_head leaves up to {v['dino_head']:.3g}, ibot_head "
+              f"{v['ibot_head']:.3g} (rel L2), worst head leaf {v['worst_head_leaf'][0]} {v['worst_head_leaf'][1]:.3g}"
+              for k, v in pre.items())
+          + f" (the losses' log-softmax and Sinkhorn compute in f32 in all of them) [{card}]", flush=True)
+    print(f"ssl: the DINO CE alone (global crops, batch {x_crops.shape[1]}, {logits.shape[1]} prototypes) from the "
+          f"same f32 logits against its formula in f64 (the gradient is {ce['grad_over_softmax']:.3g} of the "
+          "softmax it is left of): " + "; ".join(
+              f"{k} gradient {v['grad']:.3g} (rel L2), log-softmax max abs {v['logp_max_abs']:.3g}, its backward "
+              f"alone from the f64 upstream and log-probabilities {v['log_softmax_bwd_alone']:.3g}"
+              for k, v in ce.items() if k in ("card", "CPU")) + f" [{card}]", flush=True)
+    out = {"loss_rel": loss_rel, **{k: v[3] for k, v in devs.items()},
+           **{f"{k} worst leaf": v[1] for k, v in devs.items()}, "card_s": gpu_s, "cpu_s": cpu_s,
+           "tf32_control": {"loss_rel": loss_tf32, **{k: v[3] for k, v in devs_tf32.items()},
+                            **{f"{k} worst leaf": v[1] for k, v in devs_tf32.items()}},
+           "before_clip": pre, "f64_norm": f64["norm"], "dino_ce_grad": ce}
+    assert not breaks(loss_rel, devs), out
+    assert breaks(loss_tf32, devs_tf32), f"the bounds do not see TF32: {out}"
+    return out
+
+
+def phase_ssl(card, work_dir, profile=False):
+    """pretrain_dinov3 at full ViT-L/16 width (the published recipe, 4
+    iterations, the k-NN eval, the teacher export read back), a run resumed
+    from its iteration-2 checkpoint against the straight one, the step with
+    per-block recompute, one step in f32 against the CPU, one gram-anchored
+    step on 512-px gram crops and one distillation step from a ViT-7B/16
+    teacher; each new K1 and K2a/K2b shape timed and held against its plain
+    version."""
+    from omgsr_tpu_torch import hub
+    from omgsr_tpu_torch.cli import pretrain_dinov3 as PD
+    from omgsr_tpu_torch.convert.params import init_dinov3_vit
+    from omgsr_tpu_torch.eval import probes
+    from omgsr_tpu_torch.models.configs import VIT_SIZES
+    from omgsr_tpu_torch.models.dinov3_vit import dinov3_vit_apply
+    from omgsr_tpu_torch.training.checkpoint import restore_train_state
+    from omgsr_tpu_torch.training.ssl_meta_arch import (
+        copy_tree,
+        init_center_state,
+        init_ssl_student,
+        make_distill_train_step,
+        make_gram_ssl_train_step,
+        make_ssl_train_step,
+    )
+
+    seen_all = {"flash": set(), "flash_n": {}, "bwd_n": {}, "gn": {}}
+    counts_all, timings = {}, {}
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "ssl")
+    imgs, knn = write_ssl_images(root, 9000)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    cfg = PD.load_ssl_config(SSL_RECIPE, ssl_args("x", imgs, knn)[2:])
+    vit_cfg, mcfg = PD.vit_config(cfg), PD.meta_cfg(cfg)
+    b, g, nl = cfg.batch_size_per_device, 2, cfg.local_crops_number
+    k1_global, skv_g = vit_k1_shape(vit_cfg, g * b, cfg.global_crops_size)
+    k1_local, skv_l = vit_k1_shape(vit_cfg, nl * b, cfg.local_crops_size)
+    k1_knn, _ = vit_k1_shape(vit_cfg, 32, cfg.eval_crop_size)
+    print(f"ssl: {SSL_IMAGES} images of 256-512 px and a 2 x {SSL_KNN_PER_CLASS} ImageFolder written; {free_gb:.1f} GB "
+          f"free under the work directory; {os.path.basename(SSL_RECIPE)}: ViT-L/16 {vit_cfg.depth} blocks, width "
+          f"{vit_cfg.embed_dim}, {vit_cfg.num_heads} heads of {vit_cfg.head_dim}; batch {b}, {g} x "
+          f"{cfg.global_crops_size} px + {nl} x {cfg.local_crops_size} px, heads of {cfg.dino_out_dim} / "
+          f"{cfg.ibot_out_dim} prototypes, {cfg.mixed_precision} over f32 masters", flush=True)
+
+    # (1) the main path: pretrain_dinov3.main, 4 iterations from the recipe, the k-NN eval at the last
+    out_a = os.path.join(root, "straight")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    # the k-NN vote's operands and result, as run_knn_eval hands them to eval/probes.knn_classify
+    knn_devices, knn_classify = [], probes.knn_classify
+
+    def knn_recorded(train_f, train_l, test_f, **kw):
+        out = knn_classify(train_f, train_l, test_f, **kw)
+        knn_devices.append({t.device.type for t in (train_f, train_l, test_f, *out.values())})
+        return out
+
+    probes.knn_classify = knn_recorded
+    t0 = time.perf_counter()
+    try:
+        res_a, c = counted(seen_all, counts_all, lambda: PD.main(ssl_args(out_a, imgs, knn)), inference=False)
+    finally:
+        probes.knn_classify = knn_classify
+    wall_a = time.perf_counter() - t0
+    assert knn_devices and all(d == {"cuda"} for d in knn_devices), f"the k-NN vote ran on {knn_devices}"
+    peak_a = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    hist = res_a["history"]
+    assert [h["it"] for h in hist] == list(range(SSL_ITERS)), hist
+    assert all(math.isfinite(h[k]) for h in hist for k in h if k.endswith("loss")), hist
+    knn_n = 2 * vit_cfg.depth  # train and val features: one padded batch of 32 each, in f32
+    per_it = {"flash_attention_fwd": 3 * vit_cfg.depth, "flash_attention_bwd_dq": 2 * vit_cfg.depth,
+              "flash_attention_bwd_dkv": 2 * vit_cfg.depth}
+    assert c["flash_attention_fwd"] == SSL_ITERS * per_it["flash_attention_fwd"] + knn_n, c
+    assert c["flash_attention_bwd_dq"] == c["flash_attention_bwd_dkv"] == SSL_ITERS * per_it["flash_attention_bwd_dq"], c
+    assert sum(c.values()) == c["flash_attention_fwd"] + 2 * c["flash_attention_bwd_dq"], c
+    fn = seen_all["flash_n"]
+    assert fn[(k1_global, skv_g, torch.bfloat16)] == SSL_ITERS * 2 * vit_cfg.depth, fn
+    assert fn[(k1_local, skv_l, torch.bfloat16)] == SSL_ITERS * vit_cfg.depth, fn
+    assert fn[(k1_knn, skv_g, torch.float32)] == knn_n, fn
+    its = [h["iter_s"] for h in hist[1:]]
+    waits = [h["loader_wait_s"] for h in hist]
+    made = [h["loader_batch_s"] for h in hist]
+    s_it = statistics.median(its)
+    wait_it = statistics.median(waits[1:])
+    accs = json.load(open(os.path.join(out_a, "eval", f"knn-{SSL_ITERS - 1}.json")))
+    ckpt_gb = os.path.getsize(os.path.join(out_a, "checkpoints", "checkpoint-1.pt")) / 1e9
+    timings["ssl main"] = {"wall_s": wall_a, "s_per_iteration": s_it, "iter_s": [h["iter_s"] for h in hist],
+                           "loader_wait_s": waits, "loader_batch_s": made, "loader_share": wait_it / s_it, "peak_above_resident_gib": peak_a,
+                           "checkpoint_gb": ckpt_gb, "knn": accs, "losses": [h["total_loss"] for h in hist]}
+    print(f"ssl: pretrain_dinov3.main ({SSL_ITERS} iterations of the recipe, k-NN eval, 2 checkpoints of "
+          f"{ckpt_gb:.2f} GB and teacher exports) in {wall_a:.1f} s; s per iteration {s_it:.4f} (median of iterations "
+          f"2-{SSL_ITERS}, host clock to the logged metrics; all: " + ", ".join(f"{v:.4f}" for v in timings["ssl main"]
+                                                                            ["iter_s"])
+          + f"); the loader's wait {wait_it:.4f} s an iteration ({wait_it / s_it:.3f} of it; first "
+          f"{waits[0]:.3f} s; its queue of two pre-filled, so a wait of 0 bounds nothing); the thread made each batch in "
+          + ", ".join(f"{v:.4f}" for v in made) + f" s; device peak {peak_a:.2f} GiB above resident; total loss "
+          + ", ".join(f"{v:.4f}" for v in timings["ssl main"]["losses"]) + f"; k-NN {accs} (the vote on the card); "
+          f"launches per iteration "
+          f"K1 {per_it['flash_attention_fwd']} (q{list(k1_global)} {2 * vit_cfg.depth}, q{list(k1_local)} "
+          f"{vit_cfg.depth}), K2a {per_it['flash_attention_bwd_dq']}, K2b {per_it['flash_attention_bwd_dkv']}; the k-NN "
+          f"eval K1 {knn_n} at q{list(k1_knn)} f32 [{card}]", flush=True)
+
+    # the teacher export, read back into an init_dinov3_vit tree (the hub entry's) and run through the hub's apply
+    m = hub.dinov3_vitl16(seed=0, dtype=torch.float32, device="cuda")
+    back = restore_train_state(os.path.join(out_a, "eval", f"teacher-{SSL_ITERS - 1}", "backbone.pt"),
+                               m.params["backbone"])
+    same = all(torch.equal(x, y) for x, y in zip(flatten_dict(back).values(),
+                                                 flatten_dict(res_a["teacher"]["backbone"]).values()))
+    x = randn((2, 224, 224, 3), torch.float32, 9100)
+    with torch.inference_mode():
+        f_hub = m.apply(m.params, x)
+        f_ref = dinov3_vit_apply(res_a["teacher"]["backbone"], vit_cfg, x)
+    assert same and all(torch.equal(f_hub[k], f_ref[k]) for k in f_ref), "the teacher export does not read back"
+    assert all(torch.isfinite(v).all() for v in f_hub.values())
+    del m, back, f_hub, f_ref
+
+    # (1b) a second run in a fresh directory resumed from the first run's iteration-2 checkpoint
+    out_b = os.path.join(root, "resumed")
+    os.makedirs(os.path.join(out_b, "checkpoints"))
+    shutil.move(os.path.join(out_a, "checkpoints", "checkpoint-1.pt"), os.path.join(out_b, "checkpoints"))
+    shutil.rmtree(out_a)
+    t0 = time.perf_counter()
+    res_b, c_b = counted(seen_all, counts_all, lambda: PD.main(ssl_args(out_b, imgs, knn)), inference=False)
+    wall_b = time.perf_counter() - t0
+    assert [h["it"] for h in res_b["history"]] == list(range(2, SSL_ITERS)), res_b["history"]
+    loss_rel = max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(res_b["history"], hist[2:]) for k in y
+                   if k.endswith("loss") and y[k] != 0)
+    teacher_abs, teacher_rel = tree_diff(res_b["teacher"], res_a["teacher"])[:2]
+    bits = loss_rel == 0 and teacher_abs == 0
+    timings["ssl resume"] = {"wall_s": wall_b, "loss_rel": loss_rel, "teacher_max_abs": teacher_abs,
+                             "teacher_rel_l2": teacher_rel, "bit_identical": bits}
+    print(f"ssl: resumed from the iteration-2 checkpoint in a fresh directory ({wall_b:.1f} s): iterations 3-4's "
+          f"losses within {loss_rel:.3g} relative of the straight run's (bound {SSL_RESUME_LOSS_REL}), the teacher "
+          f"within {teacher_abs:.3g} max abs (bound {SSL_RESUME_TEACHER_ABS}), rel L2 {teacher_rel:.3g}"
+          + ("; the same bits" if bits else "") + f" [{card}]", flush=True)
+    assert loss_rel <= SSL_RESUME_LOSS_REL and teacher_abs <= SSL_RESUME_TEACHER_ABS, timings["ssl resume"]
+    shutil.rmtree(out_b)
+    del res_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the step without and with per-block recompute, on the resumed run's state and one batch of its loader
+    student, teacher, opt_state, centers = res_b["student"], res_b["teacher"], res_b["opt"], res_b["centers"]
+    del res_b
+    opt = PD.build_ssl_optimizer(cfg, vit_cfg, student)
+    loader = PD.SSLLoader(dataclasses.replace(cfg, output_dir=root), start_iter=SSL_ITERS)
+    try:
+        batch = PD.batch_to_device(next(loader), "cuda", torch.bfloat16)
+    finally:
+        loader.close()
+    steps = {}
+    for remat in (False, True):
+        vc = dataclasses.replace(vit_cfg, remat_blocks=remat)
+        step = make_ssl_train_step(opt, cfg=mcfg, vit_cfg=vc)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        secs, cs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out, c = counted(seen_all, counts_all, lambda: step(student, teacher, opt_state, centers, batch,
+                                                                 **SSL_STEP), inference=False)
+            secs.append(time.perf_counter() - t0)
+            cs.append(c)
+            assert math.isfinite(float(out[4]["total_loss"])), out[4]
+        k1 = (5 if remat else 3) * vit_cfg.depth
+        assert all(c["flash_attention_fwd"] == k1 and c["flash_attention_bwd_dq"] == c["flash_attention_bwd_dkv"]
+                   == 2 * vit_cfg.depth for c in cs), cs
+        steps[remat] = {"s_per_step": statistics.median(secs[1:]), "peak_above_resident_gib":
+                        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30, "k1_per_step": k1}
+        del out
+    # the same step behind the CLI's loader thread (a batch taken and copied each step). The thread first fills
+    # its queue of two and makes a third batch while this thread sleeps: the seconds a batch takes alone. Then
+    # SSL_LOADER_STEPS steps: once the pre-filled batches are used up (the first three steps), each wait is what
+    # the thread's rate leaves, with no checkpoint or eval inside the window
+    loader = PD.SSLLoader(dataclasses.replace(cfg, output_dir=root), start_iter=SSL_ITERS + 1)
+    step = make_ssl_train_step(opt, cfg=mcfg, vit_cfg=vit_cfg)
+    secs = []
+    try:
+        t_fill = time.perf_counter()
+        while len(loader.batch_s) < 3 and time.perf_counter() - t_fill < 60:
+            time.sleep(0.005)
+        alone = list(loader.batch_s[:3])
+        for _ in range(SSL_LOADER_STEPS):
+            t0 = time.perf_counter()
+            batch_i = PD.batch_to_device(next(loader), "cuda", torch.bfloat16)
+            out = step(student, teacher, opt_state, centers, batch_i, **SSL_STEP)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        beside = list(loader.batch_s[3:SSL_LOADER_STEPS])
+    finally:
+        loader.close()
+    assert len(alone) == 3 and beside, (alone, beside)
+    steady = slice(3, SSL_LOADER_STEPS)
+    steps["loader_batch_alone_s"] = statistics.median(alone)
+    steps["loader_batch_beside_step_s"] = statistics.median(beside)
+    steps["with_loader_s_per_step"] = statistics.median(secs[steady])
+    steps["with_loader_wait_s"] = statistics.median(loader.wait_s[steady])
+    steps["with_loader_wait_share"] = steps["with_loader_wait_s"] / steps["with_loader_s_per_step"]
+    del out, batch_i
+    timings["ssl recompute"] = steps
+    print(f"ssl: the loader thread makes a batch ({b} images, {g + nl} crops each) in "
+          + ", ".join(f"{v:.4f}" for v in alone) + f" s with this thread asleep (median "
+          f"{steps['loader_batch_alone_s']:.4f}), " + ", ".join(f"{v:.4f}" for v in beside) + " s beside the steps "
+          f"(median {steps['loader_batch_beside_step_s']:.4f}); {SSL_LOADER_STEPS} steps behind it, a batch taken, "
+          f"copied and stepped each (synced): " + ", ".join(f"{v:.4f}" for v in secs) + f" s; steps 4-"
+          f"{SSL_LOADER_STEPS} (the pre-filled batches used up) {steps['with_loader_s_per_step']:.4f} s a step, "
+          f"the wait for the batch {steps['with_loader_wait_s']:.4f} s ({steps['with_loader_wait_share']:.3f} of "
+          f"the step; all waits " + ", ".join(f"{v:.4f}" for v in loader.wait_s) + f") [{card}]", flush=True)
+    print(f"ssl: one step (synced) without recompute {steps[False]['s_per_step']:.4f} s, peak "
+          f"{steps[False]['peak_above_resident_gib']:.2f} GiB above resident, K1 {steps[False]['k1_per_step']}; with "
+          f"vit: {{remat_blocks: true}} {steps[True]['s_per_step']:.4f} s, peak "
+          f"{steps[True]['peak_above_resident_gib']:.2f} GiB, K1 {steps[True]['k1_per_step']} (the blocks' forwards "
+          f"again in the backward); K2a / K2b {2 * vit_cfg.depth} each [{card}]", flush=True)
+    if profile:
+        from torch.autograd import DeviceType
+
+        from omgsr_tpu_torch.utils.observability import trace
+
+        step = make_ssl_train_step(opt, cfg=mcfg, vit_cfg=vit_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace(os.path.join(work_dir, "ssl_trace")) as prof:
+            step(student, teacher, opt_state, centers, batch, **SSL_STEP)
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                n, tt = by_kernel.get(e.key, (0, 0.0))
+                by_kernel[e.key] = (n + e.count, tt + (e.self_cuda_time_total if us is None else us))
+        busy = sum(tt for _, tt in by_kernel.values()) / 1e3
+        step_ms = steps[False]["s_per_step"] * 1e3
+        timings["ssl recompute"][False].update(busy_ms=busy, idle_share=1 - busy / step_ms, traced_ms=traced_ms)
+        print(f"profile: ssl one step traced by utils.observability.trace: kernels busy {busy:.2f} ms of "
+              f"{step_ms:.2f} ms a step untraced (idle share {1 - busy / step_ms:.3f}; the traced step took "
+              f"{traced_ms:.1f} ms) [{card}]", flush=True)
+        groups = {}
+        for k, (n, tt) in by_kernel.items():
+            low = k.lower()
+            grp = ("K1 flash_fwd" if "flash_fwd" in low else "K2a/K2b flash_bwd" if "flash_bwd" in low
+                   else "GEMM (cuBLAS / CUTLASS)" if any(w in low for w in ("gemm", "xmma", "cutlass", "wgmma",
+                                                                             "nvjet"))
+                   else "optimizer / EMA (multi-tensor)" if "multi_tensor_apply" in low
+                   else "copies and casts" if "copy" in low or "catarray" in low
+                   else "reductions" if "reduce" in low or "norm" in low or "softmax" in low
+                   else "elementwise" if "elementwise" in low else "other")
+            gn, gt = groups.get(grp, (0, 0.0))
+            groups[grp] = (gn + n, gt + tt)
+        timings["ssl recompute"][False]["kernel_ms_by_group"] = {k: v[1] / 1e3 for k, v in groups.items()}
+        for k, (n, tt) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"profile: ssl group {tt / 1e3:8.3f} ms {tt / 1e3 / busy:6.1%} {n:6d} launches  {k}", flush=True)
+        for k, (n, tt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"profile: ssl {tt / 1e3:8.3f} ms {tt / 1e3 / busy:6.1%} {n:5d} x {k[:90]}", flush=True)
+
+    # (3) one gram-anchored step: a frozen gram backbone on 512-px gram crops, its 32 x 32 grid resized to 14 x 14
+    gram_cfg = dataclasses.replace(mcfg, gram_loss_weight=1.0)
+    gram_backbone = copy_tree(teacher["backbone"])
+    batch_g = dict(batch, gram_teacher_crops=randn((g * b, 512, 512, 3), torch.bfloat16, 9200))
+    k1_gram, skv_gram = vit_k1_shape(vit_cfg, g * b, 512)
+    gram_step = make_gram_ssl_train_step(opt, cfg=gram_cfg, vit_cfg=vit_cfg)
+    t0 = time.perf_counter()
+    out, c = counted(seen_all, counts_all, lambda: gram_step(student, teacher, gram_backbone, opt_state, centers,
+                                                             batch_g, **SSL_STEP), inference=False)
+    gram_s = time.perf_counter() - t0
+    gram = float(out[4]["gram_loss"])
+    assert math.isfinite(gram) and gram > 0 and math.isfinite(float(out[4]["total_loss"])), out[4]
+    assert c["flash_attention_fwd"] == 4 * vit_cfg.depth and c["flash_attention_bwd_dq"] == 2 * vit_cfg.depth, c
+    assert seen_all["flash_n"][(k1_gram, skv_gram, torch.bfloat16)] == vit_cfg.depth
+    timings["ssl gram"] = {"s": gram_s, "gram_loss": gram}
+    print(f"ssl: make_gram_ssl_train_step: gram crops 512 px (K1 at q{list(k1_gram)}, {vit_cfg.depth} launches), "
+          f"the 32 x 32 patch grid resized to 14 x 14; gram loss {gram:.5f}, total {float(out[4]['total_loss']):.4f}; "
+          f"{gram_s:.3f} s; launches {c} [{card}]", flush=True)
+    del out, gram_backbone, batch_g
+
+    # (4) one step in f32 on the card (TF32 off) against the same step on the CPU, ViT-L width at depth 2,
+    # 65,536 prototypes, batch 2 (the first two samples of the batch above; crop c of sample i is row c * B + i)
+    rows_g = [c_ * b + i for c_ in range(g) for i in range(2)]
+    rows_l = [c_ * b + i for c_ in range(nl) for i in range(2)]
+    b32 = {"global_crops": batch["global_crops"][rows_g].float().cpu(),
+           "local_crops": batch["local_crops"][rows_l].float().cpu(), "masks": batch["masks"][rows_g].cpu()}
+    timings["ssl f32"] = ssl_f32_against_cpu(card, cfg, mcfg, vit_cfg, b32, seen_all, counts_all)
+    del student, teacher, opt_state, batch, b32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) one distillation step: the published distilled recipe's student (ViT-L, batch 3, 256 / 112 px, heads of
+    # 262,144 and 98,304 prototypes) under a frozen ViT-7B/16 teacher at full width, stored in f32 as
+    # run_pretraining holds it (each layer casts its weights to the bf16 crops' dtype at the call)
+    dcfg = PD.load_ssl_config(SSL_DISTILLED, [f"dataset_paths={imgs}", f"output_dir={root}"])
+    d_meta, s_vit = PD.meta_cfg(dcfg), PD.vit_config(dcfg)
+    t_vit = dataclasses.replace(VIT_SIZES[dcfg.distillation_arch], depth=SSL_DISTILL_TEACHER_DEPTH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_student = init_ssl_student(80, s_vit, d_meta, init_dinov3_vit, torch.float32, "cuda")
+    d_teacher = init_ssl_student(81, t_vit, d_meta, init_dinov3_vit, torch.float32, "cuda")
+    teacher_gib = sum(v.numel() * v.element_size() for v in flatten_dict(d_teacher).values()) / 2 ** 30
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d_ema = copy_tree(d_student)
+    d_opt = PD.build_ssl_optimizer(dcfg, s_vit, d_student)
+    d_state = d_opt.init(d_student)
+    d_centers = init_center_state(d_meta, "cuda")
+    loader = PD.SSLLoader(dcfg)
+    try:
+        d_batch = PD.batch_to_device(next(loader), "cuda", torch.bfloat16)
+    finally:
+        loader.close()
+    db = dcfg.batch_size_per_device
+    k1_t, skv_t = vit_k1_shape(t_vit, g * db, dcfg.global_crops_size)
+    k1_s, _ = vit_k1_shape(s_vit, g * db, dcfg.global_crops_size)
+    k1_sl, _ = vit_k1_shape(s_vit, nl * db, dcfg.local_crops_size)
+    d_step = make_distill_train_step(d_opt, cfg=d_meta, vit_cfg=s_vit, teacher_vit_cfg=t_vit)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    before = d_teacher["dino_head"]["last_layer"]["weight"][:4].clone()
+    out, c = counted(seen_all, counts_all, lambda: d_step(d_student, d_teacher, d_ema, d_state, d_centers, d_batch,
+                                                          **SSL_STEP), inference=False)
+    d_s = time.perf_counter() - t0
+    d_peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    assert math.isfinite(float(out[4]["total_loss"])), out[4]
+    assert torch.equal(before, d_teacher["dino_head"]["last_layer"]["weight"][:4]), "the frozen teacher moved"
+    assert c["flash_attention_fwd"] == t_vit.depth + 2 * s_vit.depth, c
+    assert c["flash_attention_bwd_dq"] == c["flash_attention_bwd_dkv"] == 2 * s_vit.depth, c
+    params_b = (count_params(d_teacher) / 1e9, count_params(d_student) / 1e9)
+    timings["ssl distill"] = {"s": d_s, "init_s": init_s, "peak_above_resident_gib": d_peak,
+                              "teacher_depth": t_vit.depth, "teacher_gib": teacher_gib, "losses": {k: float(v) for k, v in out[4].items()}}
+    print(f"ssl: make_distill_train_step: student ViT-L ({params_b[1]:.3f}B with heads of {d_meta.dino_out_dim} / "
+          f"{d_meta.ibot_out_dim} prototypes, f32 masters), frozen ViT-7B/16 teacher at width {t_vit.embed_dim} and "
+          f"{t_vit.depth} of 40 blocks ({params_b[0]:.3f}B, {teacher_gib:.2f} GiB resident in f32, computing in bf16), batch {db}, {dcfg.global_crops_size} / "
+          f"{dcfg.local_crops_size} px: total loss {float(out[4]['total_loss']):.4f}; drawn in {init_s:.1f} s, the "
+          f"step {d_s:.3f} s, peak {d_peak:.2f} GiB above resident; K1 at q{list(k1_t)} {t_vit.depth}, "
+          f"q{list(k1_s)} {s_vit.depth}, q{list(k1_sl)} {s_vit.depth} [{card}]", flush=True)
+    del out, d_student, d_teacher, d_ema, d_state, d_batch, d_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each new bf16 shape timed and held against its plain version, with the ViT's operands; SDPA as the library
+    fwd_rows, bwd_rows = [], {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    fwd_shapes = [(k1_global, "globals"), (k1_local, "locals"), (k1_gram, "gram crops"), (k1_t, "7B teacher"),
+                  (k1_s, "distilled globals"), (k1_sl, "distilled locals")]
+    for i, (shape, what) in enumerate(fwd_shapes):
+        key = (shape, shape[1], torch.bfloat16)
+        n = seen_all["flash_n"].get(key, 0)
+        r = check_flash(shape, shape[1], torch.bfloat16, 9300 + 10 * i, packed="v")
+        r.update(on_ssl_path=True, ssl_launches=n, ssl_site=what)
+        HELD["flash"].add(key)
+        fwd_rows.append(r)
+        print(f"ssl: flash_attention_fwd {r['shape']} ({what}; {n} launches in the phase): err {r['max_abs_err']:.3g} "
+              f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[torch.bfloat16]:.3g}) lse err "
+              f"{r['max_abs_err_lse']:.3g}, two runs bit-identical; {r['ms']:.4f} ms ({r['bound_share']:.3f} of the "
+              f"bound), plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} (SDPA {r['library_backend']}), bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) [{card}]", flush=True)
+    for i, (shape, what) in enumerate([(k1_global, "globals"), (k1_local, "locals"), (k1_s, "distilled globals"),
+                                       (k1_sl, "distilled locals")]):
+        key = (shape, shape[1], torch.bfloat16)
+        n = seen_all["bwd_n"].get(key, 0)
+        for name, r in check_flash_bwd(shape, shape[1], torch.bfloat16, 9400 + 10 * i, packed="v").items():
+            r.update(on_ssl_path=True, ssl_launches=n, ssl_site=what)
+            bwd_rows[name].append(r)
+            print(f"ssl: {name} {r['shape']} ({what}; {n} launches in the phase): err {r['max_abs_err']:.3g} "
+                  f"({r['max_err_over_max_ref']:.3g} of max |plain|, bound {TOL[torch.bfloat16]:.3g}), two runs "
+                  f"bit-identical; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library (dq+dk+dv, SDPA "
+                  f"{r['library_backend']}) {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']})"
+                  + (f", q loop in {r['q_loop_splits']} chunks" if "q_loop_splits" in r else "") + f" [{card}]",
+                  flush=True)
+        HELD["bwd"].add(key)
+    report_launch_shapes("ssl", "SSL pretraining", seen_all, 20000)
+    timings["ssl phase_s"] = time.perf_counter() - t_phase
+    print(f"ssl: launches {counts_all}; the phase took {timings['ssl phase_s']:.1f} s", flush=True)
+    shutil.rmtree(root)
+    return counts_all, timings, fwd_rows, bwd_rows
+
+
+# ----------------------------------------------------------------------------
 # phase: drill (cli.fire_drill at the published SD2.1 architecture and FLUX at full depth)
 # ----------------------------------------------------------------------------
 
@@ -4900,6 +5512,15 @@ def main():
                         help="also print kernel time by name and each stage's idle share")
     args = parser.parse_args()
     card = phase_device()
+    t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def done(phase):
+        """Each phase's wall seconds, printed as it ends."""
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+        print(f"clock: phase {phase} {phase_s[phase]:.1f} s, {now - t_start:.1f} s since the build began", flush=True)
 
     t0 = time.perf_counter()
     built = build_kernels(kernel_sources(), verbose=True)
@@ -4909,35 +5530,49 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     shapes = phase_kernels()
+    done("build+kernels")
     vae_params, unet_params = init_sd21(torch.bfloat16)
     serve_counts, timings = phase_serve(card, vae_params, unet_params, args.profile)
+    done("serve")
     fused_counts, fused_timings = phase_serve_fused(card, vae_params, unet_params, args.profile)
+    done("serve-fused")
     with tempfile.TemporaryDirectory() as work_dir:
         train_counts, train_timings, export = phase_train(card, vae_params, unet_params, work_dir, args.profile)
+        done("train")
         tiled_counts, tiled_timings = phase_serve_tiled(card, vae_params, unet_params)
+        done("serve-tiled")
         load_counts, load_timings, ckpt = phase_load(card, vae_params, unet_params, export, work_dir)
+        done("load")
         data_counts, data_timings = phase_data(card, work_dir, ckpt, os.path.join(work_dir, "train", "metrics.jsonl"))
+        done("data")
         flux_vae, flux_params = init_flux_dev(torch.bfloat16)
         serve_f_counts, serve_f_timings = phase_serve_f(card, flux_vae, flux_params, args.profile)
+        done("serve-f")
         gc.collect()
         torch.cuda.empty_cache()
         quant_f_counts, quant_f_timings = phase_quant_f(card, flux_vae, flux_params, work_dir)
+        done("quant-f")
         gc.collect()
         torch.cuda.empty_cache()
         train_f_counts, train_f_timings, f_export = phase_train_f(card, flux_vae, flux_params, work_dir, args.profile)
+        done("train-f")
         gc.collect()
         torch.cuda.empty_cache()
         load_f_counts, load_f_timings = phase_load_f(card, flux_vae, flux_params, work_dir, f_export)
+        done("load-f")
         gc.collect()
         torch.cuda.empty_cache()
         cli_counts, cli_timings = quant_f_cli(card, work_dir)
         quant_f_counts = {k: quant_f_counts.get(k, 0) + v for k, v in cli_counts.items()}
+        done("quant-f cli")
         reset_counts()
         eval_timings = phase_eval(card, work_dir)
         eval_counts = read_counts()  # no kernel of the seven is on the eval path
         assert not any(eval_counts.values()), eval_counts
+        done("eval")
         shard_counts, shard_timings = phase_shard(card, vae_params, unet_params, flux_vae, flux_params,
                                                   ckpt["sd_path"], export["dir"], work_dir)
+        done("shard")
         train_dist_timings = {}
         f_ref, td_counts, td_seen = train_dist_one_rank(card, vae_params, unet_params, flux_vae, flux_params, work_dir,
                                                         train_dist_timings)
@@ -4946,19 +5581,28 @@ def main():
         torch.cuda.empty_cache()
         td_counts2, td_seen2 = train_dist_worlds(card, vae_params, unet_params, work_dir, f_ref, train_dist_timings)
         train_dist_counts = phase_train_dist_report(td_counts, td_seen, td_counts2, td_seen2)
+        done("train-dist")
         dinov3_counts, dinov3_timings, dinov3_rows = phase_dinov3(card, work_dir, args.profile)
         shapes["flash_attention_fwd"] += dinov3_rows
+        done("dinov3")
+        ssl_counts, ssl_timings, ssl_fwd_rows, ssl_bwd_rows = phase_ssl(card, work_dir, args.profile)
+        shapes["flash_attention_fwd"] += ssl_fwd_rows
+        for name, rows in ssl_bwd_rows.items():
+            shapes[name] += rows
+        done("ssl")
         drill_counts, drill_timings = phase_drill(card, work_dir)
+        done("drill")
     for more in (fused_timings, train_timings, tiled_timings, load_timings, data_timings, serve_f_timings,
                  quant_f_timings, train_f_timings, load_f_timings, cli_timings, eval_timings, shard_timings,
-                 train_dist_timings, dinov3_timings, drill_timings):
+                 train_dist_timings, dinov3_timings, ssl_timings, drill_timings):
         timings.update(more)
 
     kernels = []
     for name, source, replaces, cuda_kernels in KERNELS:
         head = shapes[name][0]  # the largest shape of the serving and training paths
         on_path = [r for r in shapes[name]
-                   if r.get("on_serving_path") or r.get("on_training_path") or r.get("on_dinov3_path")] or shapes[name]
+                   if r.get("on_serving_path") or r.get("on_training_path") or r.get("on_dinov3_path")
+                   or r.get("on_ssl_path")] or shapes[name]
         launches_serve, launches_train = serve_counts.get(name, 0), train_counts[name]
         launches_fused, launches_tiled = fused_counts.get(name, 0), tiled_counts.get(name, 0)
         launches_load, launches_data = load_counts.get(name, 0), data_counts.get(name, 0)
@@ -4968,16 +5612,22 @@ def main():
         launches_shard = shard_counts.get(name, 0)
         launches_train_dist = train_dist_counts.get(name, 0)
         launches_dinov3, launches_drill = dinov3_counts.get(name, 0), drill_counts.get(name, 0)
+        launches_ssl = ssl_counts.get(name, 0)
         launches = (launches_serve + launches_fused + launches_train + launches_tiled + launches_load + launches_data
                     + launches_serve_f + launches_quant_f + launches_train_f + launches_load_f + launches_shard
-                    + launches_train_dist + launches_dinov3 + launches_drill)
-        # the ViTs run K1 alone; the drills' VAE, UNet and DiT K1 and K3a/K3b, no fused resblock, no backward
+                    + launches_train_dist + launches_dinov3 + launches_ssl + launches_drill)
+        # the ViTs run K1 alone, SSL pretraining K1 and K2a/K2b (head dims 64 and 128: no merge); the drills' VAE,
+        # UNet and DiT K1 and K3a/K3b, no fused resblock, no backward
         if name == "flash_attention_fwd":
-            assert launches_dinov3 > 0 and launches_drill > 0, name
+            assert launches_dinov3 > 0 and launches_drill > 0 and launches_ssl > 0, name
+        elif "bwd" in name:
+            assert launches_ssl > 0 and launches_dinov3 == launches_drill == 0, name
         elif name.startswith("group_norm"):
-            assert launches_drill > 0 and launches_dinov3 == 0, name
+            assert launches_drill > 0 and launches_dinov3 == launches_ssl == 0, name
         elif name != "flash_attention_fwd_merge":
-            assert launches_dinov3 == launches_drill == 0, name
+            assert launches_dinov3 == launches_drill == launches_ssl == 0, name
+        else:
+            assert launches_ssl == 0, name
         if name in OFF_PATH:
             assert launches == 0, name
         elif name.startswith("conv3x3"):
@@ -5004,13 +5654,14 @@ def main():
             "launches_quant_f": launches_quant_f, "launches_train_f": launches_train_f,
             "launches_load_f": launches_load_f, "launches_eval": eval_counts.get(name, 0),
             "launches_shard": launches_shard, "launches_train_dist": launches_train_dist,
-            "launches_dinov3": launches_dinov3, "launches_drill": launches_drill,
+            "launches_dinov3": launches_dinov3, "launches_ssl": launches_ssl, "launches_drill": launches_drill,
             "on_a_path": name not in OFF_PATH,
             "max_abs_err": max(r["max_abs_err"] for r in on_path),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "shapes": shapes[name],
         })
+    timings["phase_s"] = phase_s
     print(json.dumps({"timings": timings, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

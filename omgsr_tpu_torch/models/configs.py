@@ -192,15 +192,10 @@ class DinoV3ViTConfig:
     rope_normalize_coords: str = "separate"  # "separate" | "min" | "max"
     untie_cls_and_patch_norms: bool = False
     in_chans: int = 3
-    # per-block recompute under grad: the memory lever of SSL pretraining,
-    # which the port does not have yet (no effect on inference)
+    # per-block recompute under grad (torch.utils.checkpoint in
+    # dinov3_vit_apply): the memory lever of SSL pretraining; no effect on
+    # inference
     remat_blocks: bool = False
-
-    def __post_init__(self):
-        if self.remat_blocks:
-            raise NotImplementedError(
-                "DinoV3ViTConfig.remat_blocks is SSL-pretraining memory and arrives with the SSL "
-                "pretraining slice (ROADMAP.md Queue 1 item 3.2); the port's ViT runs inference only")
 
     @property
     def head_dim(self) -> int:

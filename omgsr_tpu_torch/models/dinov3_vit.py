@@ -34,6 +34,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from omgsr_tpu_torch.models.configs import VIT_SIZES, DinoV3ViTConfig
 from omgsr_tpu_torch.models.layers import conv2d, dense, gelu, layer_norm, silu
@@ -143,12 +144,19 @@ def _final_norm(params, cfg: DinoV3ViTConfig, x, n_prefix: int):
 def dinov3_vit_apply(params, cfg: DinoV3ViTConfig, x, masks=None):
     """NHWC image (ImageNet-normalized) -> feature dict, keys as upstream
     forward_features (vision_transformer.py:244-256): x_norm_clstoken,
-    x_storage_tokens, x_norm_patchtokens (B, hw, D), x_prenorm."""
+    x_storage_tokens, x_norm_patchtokens (B, hw, D), x_prenorm. With
+    ``cfg.remat_blocks`` and grad enabled each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its forward, K1 included,
+    runs again in the backward."""
     x, (h, w) = _prepare_tokens(params, cfg, x, masks)
     n_prefix = 1 + cfg.n_storage_tokens
     sincos = rope_sincos(params, cfg, h, w)
+    remat = cfg.remat_blocks and torch.is_grad_enabled()
     for i in range(cfg.depth):
-        x = _block(params["blocks"][str(i)], x, sincos, n_prefix, cfg)
+        if remat:  # the block's activations are recomputed in the backward (jax.checkpoint(_block))
+            x = checkpoint(_block, params["blocks"][str(i)], x, sincos, n_prefix, cfg, use_reentrant=False)
+        else:
+            x = _block(params["blocks"][str(i)], x, sincos, n_prefix, cfg)
     cls_reg, patch = _final_norm(params, cfg, x, n_prefix)
     return {
         "x_norm_clstoken": cls_reg[:, 0],

@@ -9,6 +9,10 @@ view and copies nothing.
 
 Numerical conventions (GroupNorm eps 1e-6 in the VAE / 1e-5 in the UNet,
 GELU exact vs tanh, ...) are arguments, set by each model's config.
+
+Each parameter is cast to the activation's dtype at the call, as the JAX
+package does (``.to`` is a no-op where the dtypes agree), so a tree of f32
+master parameters runs bf16 activations in bf16 with f32 gradients.
 """
 
 from __future__ import annotations
@@ -91,7 +95,9 @@ def dense(p, x, tp=None):
     else:
         # the bias goes into the product when there is no low-rank term; under tp on the first rank only
         bias = None if lora or (tp is not None and tp.tp_rank != 0) else p.get("bias")
-        y = F.linear(x, p["weight"], bias) if "weight" in p else _QuantizedLinear.apply(x, p, bias)
+        if bias is not None:
+            bias = bias.to(x.dtype)
+        y = F.linear(x, p["weight"].to(x.dtype), bias) if "weight" in p else _QuantizedLinear.apply(x, p, bias)
         if tp is not None:
             return tp.tp_sum(y)
         if not lora:
@@ -99,7 +105,7 @@ def dense(p, x, tp=None):
     if lora:
         y = y + F.linear(F.linear(x, p["lora_A"].to(x.dtype)), p["lora_B"].to(x.dtype))
     if "bias" in p:
-        y = y + p["bias"]
+        y = y + p["bias"].to(y.dtype)
     return y
 
 
@@ -115,7 +121,10 @@ def conv2d(p, x, stride: int | tuple = 1, padding="SAME", groups: int = 1):
     a 1x1 conv with B (peft's Conv2d LoRA)."""
     if isinstance(stride, int):
         stride = (stride, stride)
-    w = p["weight"]
+    w = p["weight"].to(x.dtype)
+    bias = p.get("bias")
+    if bias is not None:
+        bias = bias.to(x.dtype)
     if padding == "VALID":
         padding = ((0, 0), (0, 0))
     elif padding == "SAME":
@@ -133,13 +142,13 @@ def conv2d(p, x, stride: int | tuple = 1, padding="SAME", groups: int = 1):
         xc = F.pad(xc, (pl, pr, pt, pb))
         pad = 0
     if "lora_A" not in p:
-        y = F.conv2d(xc, w, p.get("bias"), stride=stride, padding=pad, groups=groups)
+        y = F.conv2d(xc, w, bias, stride=stride, padding=pad, groups=groups)
         return y.permute(0, 2, 3, 1)
     y = F.conv2d(xc, w, stride=stride, padding=pad, groups=groups)
     h = F.conv2d(xc, p["lora_A"].to(x.dtype), stride=stride, padding=pad, groups=groups)
     y = y + F.conv2d(h, p["lora_B"].to(x.dtype))
-    if "bias" in p:
-        y = y + p["bias"][None, :, None, None]
+    if bias is not None:
+        y = y + bias[None, :, None, None]
     return y.permute(0, 2, 3, 1)
 
 
@@ -166,10 +175,15 @@ def group_norm_silu(p, x, num_groups: int = 32, eps: float = 1e-6):
 
 
 def layer_norm(p, x, eps: float = 1e-5):
-    """LayerNorm over the last axis (statistics in fp32 inside the op, result
-    in x's dtype); p may be None (no affine) or lack a bias."""
+    """LayerNorm over the last axis, statistics and affine in fp32, result in
+    x's dtype; p may be None (no affine) or lack a bias. Where the affine's
+    dtype is x's, the op itself widens it; where it is not (f32 masters
+    beside bf16 activations), x is widened and the f32 result rounded once."""
     weight = None if p is None else p["weight"]
     bias = None if p is None else p.get("bias")
+    if any(t is not None and t.dtype != x.dtype for t in (weight, bias)):
+        return F.layer_norm(x.float(), (x.shape[-1],), None if weight is None else weight.float(),
+                            None if bias is None else bias.float(), eps).to(x.dtype)
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
 
 

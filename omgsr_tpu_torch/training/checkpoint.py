@@ -33,13 +33,18 @@ def _to_cpu(node):
     return node
 
 
-def save_train_state(output_dir: str, state, step: int):
-    path = os.path.join(_ckpt_dir(output_dir), f"checkpoint-{step}{_SUFFIX}")
+def save_tree(path: str, tree):
+    """``torch.save`` of a nested dict of tensors and integers, moved to the
+    CPU, through a temporary name: a reader never sees a half-written file."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(_to_cpu(state), tmp)
-    os.replace(tmp, path)  # a reader never sees a half-written file
+    torch.save(_to_cpu(tree), tmp)
+    os.replace(tmp, path)
     return path
+
+
+def save_train_state(output_dir: str, state, step: int):
+    return save_tree(os.path.join(_ckpt_dir(output_dir), f"checkpoint-{step}{_SUFFIX}"), state)
 
 
 def _checkpoint_steps(output_dir: str) -> list[int]:

@@ -115,7 +115,8 @@ def test_configs_rope_and_init_structure():
     """VIT_SIZES and the derived widths equal the JAX package's; the RoPE
     tables equal its at a non-square grid in each mode; init_dinov3_vit has
     the JAX initialiser's tree (shapes, blocks "0".."depth-1", f32 periods);
-    remat_blocks raises naming the SSL slice."""
+    remat_blocks builds and gives the same features, with and without
+    grad."""
     from omgsr_tpu.models.configs import VIT_SIZES as J_VIT_SIZES
 
     assert set(VIT_SIZES) == set(J_VIT_SIZES)
@@ -138,8 +139,14 @@ def test_configs_rope_and_init_structure():
     assert tree["rope_embed"]["periods"].dtype == torch.float32 and tree["cls_token"].dtype == torch.bfloat16
     bf16 = from_jax_tree(jax.tree.map(np.asarray, _case("mlp")[2]), dtype=torch.bfloat16, device="cpu")
     assert bf16["rope_embed"]["periods"].dtype == torch.float32 and bf16["norm"]["weight"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="SSL"):
-        DinoV3ViTConfig(remat_blocks=True)
+    jc, tc, _, tp = _case("mlp")
+    remat = dataclasses.replace(tc, remat_blocks=True)
+    assert remat.remat_blocks and dataclasses.replace(remat, remat_blocks=False) == tc
+    want = TV.dinov3_vit_apply(tp, tc, t(_X), masks=torch.from_numpy(_MASKS))
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            got = TV.dinov3_vit_apply(tp, remat, t(_X), masks=torch.from_numpy(_MASKS))
+        assert all(torch.equal(got[k], want[k]) for k in want), grad
 
 
 def _hub_state_dict(jp, jc):

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
                 "tools.flux_checkpoint", "models.t5", "models.t5_tokenizer", "cli.train_omgsr_f",
                 "utils.quantize", "utils.metrics", "utils.niqe", "utils.lpips", "models.clip_vision",
                 "cli.eval_sr", "parallel", "parallel.distributed", "parallel.sharding", "models.dinov3_vit", "hub",
-                "utils.observability", "cli.validate_checkpoint", "cli.fire_drill"):
+                "utils.observability", "cli.validate_checkpoint", "cli.fire_drill", "losses.ssl", "training.ssl",
+                "training.ssl_meta_arch", "data.ssl", "data.datasets", "eval.probes", "cli.pretrain_dinov3"):
         assert f"omgsr_tpu_torch.{sub}" in names, sub
     code = (
         "import importlib, sys\n"
@@ -115,6 +116,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from omgsr_tpu_torch.cli import fire_drill, validate_checkpoint
     from omgsr_tpu_torch.convert.params import init_dinov3_vit
     from omgsr_tpu_torch.models.configs import DinoV3ViTConfig
+    from omgsr_tpu_torch.cli import pretrain_dinov3
+    from omgsr_tpu_torch.training.ssl import init_dino_head
+    from omgsr_tpu_torch.training.ssl_meta_arch import SSLMetaConfig, init_center_state, init_ssl_student
 
     vit_cfg = DinoV3ViTConfig(embed_dim=64, depth=1, num_heads=1)
     vc = VAEConfig(block_out_channels=(8, 16), norm_num_groups=4)
@@ -210,6 +214,13 @@ def test_entry_points_raise_without_cuda(tmp_path):
         "validate_checkpoint.main": lambda: validate_checkpoint.main(["--sd_path", str(tmp_path)]),
         "fire_drill.main": lambda: fire_drill.main(["--family", "sd", "--root", str(tmp_path / "drill")]),
         "fire_drill.fabricate": lambda: fire_drill.fabricate("sd", str(tmp_path / "drill"), 0, 2.0),
+        # SSL pretraining: the CLI and the functions that make its state raise before they read an image or draw
+        "pretrain_dinov3.main": lambda: pretrain_dinov3.main(["output_dir=" + str(tmp_path / "ssl"),
+                                                              "dataset_paths=" + str(tmp_path)]),
+        "init_ssl_student": lambda: init_ssl_student(0, vit_cfg, SSLMetaConfig(dino_out_dim=8, ibot_out_dim=8),
+                                                     init_dinov3_vit),
+        "init_dino_head": lambda: init_dino_head(0, 8, 8, 8, 8),
+        "init_center_state": lambda: init_center_state(SSLMetaConfig()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
